@@ -1,0 +1,225 @@
+"""FC-DenseNet depth networks in PyTorch, eval-mode forward.
+
+Port of the JAX package's ``models/fcdensenet.py`` (materialized path:
+``DenseLayer`` :230, ``DenseBlock`` :292, ``TransitionDown`` :481,
+``TransitionUp`` :546, ``FCDenseNet`` :587), itself a port of the
+reference's models.py:19-208: pre-activation BN -> ReLU -> 3x3 conv dense
+layers, 1x1 conv + 2x2 maxpool transitions down, nearest x2 upsample +
+3x3 conv transitions up, and an ``|1x1 conv|`` head giving nonnegative
+depth.
+
+The module takes NCHW like the reference's torch model and keeps its
+activations in ``torch.channels_last`` memory. Each dense layer folds its
+BatchNorm running statistics into a per-channel (scale, shift) and runs
+BN + ReLU + conv3x3 as one ``ops.dense_conv.fused_dense_conv`` call; the
+other convolutions, the maxpool, the upsample, the crop and the head are
+plain PyTorch. Parameters and BN statistics stay float32; activations run
+in ``dtype``.
+
+Attribute names follow the reference's state_dict (``firstconv``,
+``denseBlocksDown.i.layers.j.{norm,conv}``, ``transDownBlocks.i.{norm,conv}``,
+``bottleneck.bottleneck.layers.j``, ``transUpBlocks.i.convTrans.1``,
+``denseBlocksUp.i``, ``finalConv``), so a reference ``.pt`` and the JAX
+package's converted weights load with ``strict=True``.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.dense_conv import fused_dense_conv
+
+_TRAIN_MODE = ("training-mode forward is not ported yet: it lands with the "
+               "train step (ROADMAP.md), whose BatchNorm must update the "
+               "running variance with the biased batch variance as the JAX "
+               "package does; call model.eval()")
+
+
+def _conv(x: torch.Tensor, conv: nn.Conv2d, padding: int) -> torch.Tensor:
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                    padding=padding)
+
+
+def fold_batchnorm(bn: nn.BatchNorm2d) -> tuple:
+    """Running statistics -> float32 (scale, shift) with
+    relu(bn(x)) == relu(x*scale + shift) (JAX fcdensenet.py:209-211)."""
+    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    return scale, bn.bias.float() - bn.running_mean.float() * scale
+
+
+def center_crop(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
+    """Center-crop the spatial dims of an NCHW tensor (reference
+    models.py:93-97)."""
+    h, w = x.shape[2], x.shape[3]
+    y0, x0 = (h - target_h) // 2, (w - target_w) // 2
+    return x[:, :, y0:y0 + target_h, x0:x0 + target_w]
+
+
+class DenseLayer(nn.Module):
+    """BN -> ReLU -> 3x3 conv(growth_rate), one fused kernel call."""
+
+    def __init__(self, in_channels: int, growth_rate: int):
+        super().__init__()
+        self.norm = nn.BatchNorm2d(in_channels)
+        self.conv = nn.Conv2d(in_channels, growth_rate, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(_TRAIN_MODE)
+        scale, shift = fold_batchnorm(self.norm)
+        w = self.conv.weight.permute(2, 3, 1, 0).to(x.dtype).contiguous()
+        y = fused_dense_conv(x.permute(0, 2, 3, 1), scale, shift, w,
+                             self.conv.bias.float())  # the kernel adds an f32 bias
+        return y.permute(0, 3, 1, 2)
+
+
+class DenseBlock(nn.Module):
+    """Iterative concat of dense layers. With ``upsample=True`` only the
+    new features are returned (reference models.py:31-53)."""
+
+    def __init__(self, in_channels: int, growth_rate: int, n_layers: int,
+                 upsample: bool = False):
+        super().__init__()
+        self.upsample = upsample
+        self.layers = nn.ModuleList(
+            DenseLayer(in_channels + j * growth_rate, growth_rate)
+            for j in range(n_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        new_features = []
+        for layer in self.layers:
+            out = layer(x)
+            x = torch.cat([x, out], 1)
+            new_features.append(out)
+        return torch.cat(new_features, 1) if self.upsample else x
+
+
+class TransitionDown(nn.Module):
+    """BN -> ReLU -> 1x1 conv (same channels) -> 2x2 maxpool
+    (reference models.py:56-67)."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        self.norm = nn.BatchNorm2d(in_channels)
+        self.conv = nn.Conv2d(in_channels, in_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(_TRAIN_MODE)
+        scale, shift = fold_batchnorm(self.norm)
+        y = torch.relu(x * scale.to(x.dtype)[:, None, None]
+                       + shift.to(x.dtype)[:, None, None])
+        return F.max_pool2d(_conv(y, self.conv, 0), 2)
+
+
+class TransitionUp(nn.Module):
+    """Nearest x2 upsample -> 3x3 conv, center-crop to the skip's size,
+    concat [up, skip] (reference models.py:70-80)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.convTrans = nn.Sequential(
+            nn.Upsample(scale_factor=2, mode="nearest"),
+            nn.Conv2d(channels, channels, 3, padding=1))
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        # a 1x1 map's strides fit NCHW and channels_last alike, and torch
+        # then upsamples it to NCHW; pin channels_last (a no-op otherwise)
+        up = self.convTrans[0](x).contiguous(memory_format=torch.channels_last)
+        up = _conv(up, self.convTrans[1], 1)
+        up = center_crop(up, skip.shape[2], skip.shape[3])
+        return torch.cat([up, skip], 1)
+
+
+class Bottleneck(nn.Module):
+    """The bottleneck dense block, nested as in the reference so its keys
+    read ``bottleneck.bottleneck.layers.j``."""
+
+    def __init__(self, in_channels: int, growth_rate: int, n_layers: int):
+        super().__init__()
+        self.bottleneck = DenseBlock(in_channels, growth_rate, n_layers,
+                                     upsample=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bottleneck(x)
+
+
+class FCDenseNet(nn.Module):
+    """Fully-convolutional DenseNet encoder-decoder (reference
+    models.py:100-187). (B, 3, H, W) -> (B, n_classes, H, W) float32
+    depth, nonnegative. Eval mode only."""
+
+    def __init__(self, down_blocks: Sequence[int] = (5, 5, 5, 5, 5),
+                 up_blocks: Sequence[int] = (5, 5, 5, 5, 5),
+                 bottleneck_layers: int = 5, growth_rate: int = 16,
+                 out_chans_first_conv: int = 48, n_classes: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        cur = out_chans_first_conv
+        self.firstconv = nn.Conv2d(3, cur, 3, padding=1)
+
+        skip_channels = []
+        self.denseBlocksDown = nn.ModuleList()
+        self.transDownBlocks = nn.ModuleList()
+        for n in down_blocks:
+            self.denseBlocksDown.append(DenseBlock(cur, growth_rate, n))
+            cur += growth_rate * n
+            skip_channels.insert(0, cur)
+            self.transDownBlocks.append(TransitionDown(cur))
+
+        self.bottleneck = Bottleneck(cur, growth_rate, bottleneck_layers)
+        prev = growth_rate * bottleneck_layers
+
+        self.transUpBlocks = nn.ModuleList()
+        self.denseBlocksUp = nn.ModuleList()
+        for i, n in enumerate(up_blocks):
+            last = i == len(up_blocks) - 1
+            self.transUpBlocks.append(TransitionUp(prev))
+            cur = prev + skip_channels[i]
+            self.denseBlocksUp.append(
+                DenseBlock(cur, growth_rate, n, upsample=not last))
+            prev = growth_rate * n
+            cur += prev
+
+        self.finalConv = nn.Conv2d(cur, n_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(_TRAIN_MODE)
+        out = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        out = _conv(out, self.firstconv, 1)
+        skips = []
+        for block, down in zip(self.denseBlocksDown, self.transDownBlocks):
+            out = block(out)
+            skips.append(out)
+            out = down(out)
+        out = self.bottleneck(out)
+        for up, block in zip(self.transUpBlocks, self.denseBlocksUp):
+            out = block(up(out, skips.pop()))
+        return _conv(out, self.finalConv, 0).abs().float()
+
+
+def FCDenseNet57(n_classes: int = 1, dtype=torch.float32) -> FCDenseNet:
+    """The configuration used by the reference drivers (models.py:190-194)."""
+    return FCDenseNet(down_blocks=(4, 4, 4, 4, 4), up_blocks=(4, 4, 4, 4, 4),
+                      bottleneck_layers=4, growth_rate=12,
+                      out_chans_first_conv=48, n_classes=n_classes, dtype=dtype)
+
+
+def FCDenseNet67(n_classes: int = 1, dtype=torch.float32) -> FCDenseNet:
+    """Reference models.py:197-201."""
+    return FCDenseNet(down_blocks=(5, 5, 5, 5, 5), up_blocks=(5, 5, 5, 5, 5),
+                      bottleneck_layers=5, growth_rate=16,
+                      out_chans_first_conv=48, n_classes=n_classes, dtype=dtype)
+
+
+def FCDenseNet103(n_classes: int = 1, dtype=torch.float32) -> FCDenseNet:
+    """Reference models.py:204-208."""
+    return FCDenseNet(down_blocks=(4, 5, 7, 10, 12),
+                      up_blocks=(12, 10, 7, 5, 4), bottleneck_layers=15,
+                      growth_rate=16, out_chans_first_conv=48,
+                      n_classes=n_classes, dtype=dtype)

@@ -1,0 +1,28 @@
+"""Weight initialization (reference utils.py:655-671; JAX package
+``models/init.py`` and ``fcdensenet.py:24-27``).
+
+Convolutions get Kaiming-normal(fan_in, relu), i.e. std = sqrt(2/fan_in),
+with zero biases; BatchNorm gets weight 1 and bias 0, running mean 0 and
+running variance 1.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialize ``model`` in place from ``generator``; returns it."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, mode="fan_in",
+                                        nonlinearity="relu",
+                                        generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.BatchNorm2d):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+                m.reset_running_stats()
+    return model

@@ -1,0 +1,133 @@
+"""FC-DenseNet's fused dense layer: y = conv3x3(relu(x*scale + shift), w) + bias.
+
+The BatchNorm of a dense layer is folded into per-channel (scale, shift)
+and applied with the ReLU inside the convolution's input pass, so the
+activated tensor never reaches device memory. Counterpart of the JAX
+package's ``ops/dense_conv.fused_dense_conv`` (dense_conv.py:272, math at
+:261-268), with the same faces: NHWC ``x``, HWIO ``w``, NHWC ``y``. An NCHW
+tensor in ``torch.channels_last`` memory becomes such an ``x`` through a
+zero-copy ``permute(0, 2, 3, 1)``.
+
+On a CUDA tensor the wrapper launches the hand-written kernel in
+``csrc/dense_conv.cu`` (built at first use, see ``ops/_build.py``) or
+raises; on a CPU tensor it runs the plain PyTorch version
+``fused_dense_conv_reference``. Inference only: a CUDA call with inputs
+that require a gradient raises (the backward lands with the train step).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+LAUNCHES = 0  # kernel launches of fused_dense_conv in this process
+MAX_FEATURES = 16  # the kernel's compiled maximum of output channels
+_SOURCES = ("dense_conv.cu",)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("dense_conv", _SOURCES)
+    if lib.dense_conv_fwd.argtypes is None:
+        lib.dense_conv_fwd.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p])
+        lib.dense_conv_fwd.restype = ctypes.c_int
+        lib.dense_conv_max_features.argtypes = []
+        lib.dense_conv_max_features.restype = ctypes.c_int
+        if lib.dense_conv_max_features() != MAX_FEATURES:
+            raise RuntimeError("dense_conv library and wrapper disagree on "
+                               "the maximum feature count")
+    return lib
+
+
+def build_report() -> str:
+    """Build the kernel library if needed; return ptxas's register/spill
+    report for it."""
+    _library()
+    return _build.build_report("dense_conv", _SOURCES)
+
+
+def fused_dense_conv_reference(x: torch.Tensor, scale: torch.Tensor,
+                               shift: torch.Tensor, w: torch.Tensor,
+                               bias: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """The plain PyTorch version: the affine + ReLU in f32, rounded to
+    ``x.dtype``, then a zero-padded 3x3 conv in ``x.dtype``.
+    x (B, H, W, C), scale/shift (C,), w (3, 3, C, F), bias (F,) ->
+    y (B, H, W, F)."""
+    xn = x.permute(0, 3, 1, 2)
+    a = torch.relu(xn.float() * scale.float()[:, None, None]
+                   + shift.float()[:, None, None]).to(x.dtype)
+    wt = w.permute(3, 2, 0, 1).to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    return F.conv2d(a, wt, b, padding=1).permute(0, 2, 3, 1)
+
+
+def _check(x, scale, shift, w, bias) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, C), got shape {tuple(x.shape)}")
+    c = x.shape[3]
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous NHWC (an NCHW tensor in "
+                         "channels_last memory, permuted to NHWC)")
+    if w.dim() != 4 or w.shape[:3] != (3, 3, c):
+        raise ValueError(f"w must be (3, 3, {c}, F), got {tuple(w.shape)}")
+    if w.dtype != x.dtype or not w.is_contiguous():
+        raise ValueError("w must be contiguous and of x's dtype")
+    f = w.shape[3]
+    if f > MAX_FEATURES:
+        raise ValueError(f"F = {f} exceeds the kernel's maximum "
+                         f"{MAX_FEATURES}")
+    vectors = [("scale", scale, c), ("shift", shift, c)]
+    if bias is not None:
+        vectors.append(("bias", bias, f))
+    for name, t, n in vectors:
+        if t.shape != (n,) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 ({n},) "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+    for t in [scale, shift, w] + ([] if bias is None else [bias]):
+        if t.device != x.device:
+            raise ValueError(f"all inputs must lie on {x.device}, "
+                             f"found one on {t.device}")
+
+
+def fused_dense_conv(x: torch.Tensor, scale: torch.Tensor,
+                     shift: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
+    """y = conv3x3(relu(x*scale + shift), w) + bias, zeros outside the image.
+
+    x (B, H, W, C) contiguous, float32 or bfloat16; scale, shift (C,) and
+    bias (F,) float32; w (3, 3, C, F) in x's dtype with F <= MAX_FEATURES.
+    Returns y (B, H, W, F) contiguous, in x's dtype.
+    """
+    global LAUNCHES
+    _check(x, scale, shift, w, bias)
+    if x.device.type == "cpu":
+        return fused_dense_conv_reference(x, scale, shift, w, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"no dense_conv kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, scale, shift, w, bias)):
+        raise NotImplementedError(
+            "fused_dense_conv has no backward yet; call it under "
+            "torch.inference_mode() or torch.no_grad()")
+    b, h, wd, c = x.shape
+    f = w.shape[3]
+    y = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _library().dense_conv_fwd(
+            _DTYPES[x.dtype], x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            w.data_ptr(), None if bias is None else bias.data_ptr(),
+            y.data_ptr(), b, h, wd, c, f, stream)
+    if rc != 0:
+        raise RuntimeError(f"dense_conv_fwd launch failed: CUDA error {rc} "
+                           f"for x {tuple(x.shape)} {x.dtype}, F = {f}")
+    LAUNCHES += 1
+    return y
