@@ -1,4 +1,4 @@
-"""FC-DenseNet depth networks in PyTorch, eval-mode forward.
+"""FC-DenseNet depth networks in PyTorch.
 
 Port of the JAX package's ``models/fcdensenet.py`` (materialized path:
 ``DenseLayer`` :230, ``DenseBlock`` :292, ``TransitionDown`` :481,
@@ -10,11 +10,17 @@ depth.
 
 The module takes NCHW like the reference's torch model and keeps its
 activations in ``torch.channels_last`` memory. Each dense layer folds its
-BatchNorm running statistics into a per-channel (scale, shift) and runs
-BN + ReLU + conv3x3 as one ``ops.dense_conv.fused_dense_conv`` call; the
-other convolutions, the maxpool, the upsample, the crop and the head are
-plain PyTorch. Parameters and BN statistics stay float32; activations run
-in ``dtype``.
+BatchNorm into a per-channel (scale, shift) and runs BN + ReLU + conv3x3
+as one ``ops.dense_conv.fused_dense_conv`` call; the other convolutions,
+the maxpool, the upsample, the crop and the head are plain PyTorch.
+Parameters and BN statistics stay float32; activations run in ``dtype``.
+
+BatchNorm follows the JAX package's ``BNFold`` (fcdensenet.py:195-211),
+not torch's defaults. In eval mode it folds the running statistics. In
+train mode it folds the batch statistics mu = mean(x) and
+var = mean(x^2) - mu^2 (the biased variance), taken in f32 with the
+gradient flowing through mu and mean(x^2), and moves the running
+statistics to 0.9*r + 0.1*stat with that biased variance.
 
 Attribute names follow the reference's state_dict (``firstconv``,
 ``denseBlocksDown.i.layers.j.{norm,conv}``, ``transDownBlocks.i.{norm,conv}``,
@@ -32,10 +38,7 @@ from torch import nn
 
 from ..ops.dense_conv import fused_dense_conv
 
-_TRAIN_MODE = ("training-mode forward is not ported yet: it lands with the "
-               "train step (ROADMAP.md), whose BatchNorm must update the "
-               "running variance with the biased batch variance as the JAX "
-               "package does; call model.eval()")
+MOMENTUM = 0.9  # running statistics keep 0.9 of their value (torch's 0.1)
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d, padding: int) -> torch.Tensor:
@@ -43,11 +46,49 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d, padding: int) -> torch.Tensor:
                     padding=padding)
 
 
+def _fold(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> tuple:
+    scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
+    return scale, bn.bias.float() - mean * scale
+
+
 def fold_batchnorm(bn: nn.BatchNorm2d) -> tuple:
     """Running statistics -> float32 (scale, shift) with
     relu(bn(x)) == relu(x*scale + shift) (JAX fcdensenet.py:209-211)."""
-    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    return scale, bn.bias.float() - bn.running_mean.float() * scale
+    return _fold(bn, bn.running_mean.float(), bn.running_var.float())
+
+
+class BatchMoments(torch.autograd.Function):
+    """Per-channel mean and mean of squares of an NCHW tensor over
+    (N, H, W), in f32 (JAX ``segment_stats``, fcdensenet.py:152-159).
+    Saves only ``x`` itself, which the layer that consumes ``x`` saves
+    anyway, instead of an f32 copy."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        xf = x.float()
+        return xf.mean((0, 2, 3)), xf.square().mean((0, 2, 3))
+
+    @staticmethod
+    def backward(ctx, dmean, dmean2):
+        (x,) = ctx.saved_tensors
+        n = x.numel() // x.shape[1]
+        dx = (dmean[:, None, None] + 2.0 * x.float() * dmean2[:, None, None]) / n
+        return dx.to(x.dtype)
+
+
+def batch_fold(bn: nn.BatchNorm2d, x: torch.Tensor) -> tuple:
+    """``bn`` folded into float32 (scale, shift) for the NCHW input ``x``:
+    in eval mode from the running statistics; in train mode from the
+    batch statistics, advancing the running ones (JAX ``BNFold``)."""
+    if not bn.training:
+        return fold_batchnorm(bn)
+    mean, mean2 = BatchMoments.apply(x)
+    var = mean2 - mean.square()
+    with torch.no_grad():
+        bn.running_mean.copy_(MOMENTUM * bn.running_mean + (1.0 - MOMENTUM) * mean)
+        bn.running_var.copy_(MOMENTUM * bn.running_var + (1.0 - MOMENTUM) * var)
+    return _fold(bn, mean, var)
 
 
 def center_crop(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
@@ -67,9 +108,7 @@ class DenseLayer(nn.Module):
         self.conv = nn.Conv2d(in_channels, growth_rate, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAIN_MODE)
-        scale, shift = fold_batchnorm(self.norm)
+        scale, shift = batch_fold(self.norm, x)
         w = self.conv.weight.permute(2, 3, 1, 0).to(x.dtype).contiguous()
         y = fused_dense_conv(x.permute(0, 2, 3, 1), scale, shift, w,
                              self.conv.bias.float())  # the kernel adds an f32 bias
@@ -107,9 +146,7 @@ class TransitionDown(nn.Module):
         self.conv = nn.Conv2d(in_channels, in_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAIN_MODE)
-        scale, shift = fold_batchnorm(self.norm)
+        scale, shift = batch_fold(self.norm, x)
         y = torch.relu(x * scale.to(x.dtype)[:, None, None]
                        + shift.to(x.dtype)[:, None, None])
         return F.max_pool2d(_conv(y, self.conv, 0), 2)
@@ -150,7 +187,7 @@ class Bottleneck(nn.Module):
 class FCDenseNet(nn.Module):
     """Fully-convolutional DenseNet encoder-decoder (reference
     models.py:100-187). (B, 3, H, W) -> (B, n_classes, H, W) float32
-    depth, nonnegative. Eval mode only."""
+    depth, nonnegative."""
 
     def __init__(self, down_blocks: Sequence[int] = (5, 5, 5, 5, 5),
                  up_blocks: Sequence[int] = (5, 5, 5, 5, 5),
@@ -188,8 +225,6 @@ class FCDenseNet(nn.Module):
         self.finalConv = nn.Conv2d(cur, n_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAIN_MODE)
         out = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         out = _conv(out, self.firstconv, 1)
         skips = []

@@ -8,11 +8,14 @@ package's ``ops/dense_conv.fused_dense_conv`` (dense_conv.py:272, math at
 tensor in ``torch.channels_last`` memory becomes such an ``x`` through a
 zero-copy ``permute(0, 2, 3, 1)``.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
+On a CUDA tensor the forward launches the hand-written kernel in
 ``csrc/dense_conv.cu`` (built at first use, see ``ops/_build.py``) or
 raises; on a CPU tensor it runs the plain PyTorch version
-``fused_dense_conv_reference``. Inference only: a CUDA call with inputs
-that require a gradient raises (the backward lands with the train step).
+``fused_dense_conv_reference``. The op is differentiable through
+``FusedDenseConv``, whose backward mirrors the JAX package's
+``_fused_bwd`` (dense_conv.py:288-302): it recomputes the activation from
+the saved ``x`` and takes the conv adjoints from PyTorch (cuDNN on the
+card), as JAX leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -97,26 +100,12 @@ def _check(x, scale, shift, w, bias) -> None:
                              f"found one on {t.device}")
 
 
-def fused_dense_conv(x: torch.Tensor, scale: torch.Tensor,
-                     shift: torch.Tensor, w: torch.Tensor,
-                     bias: torch.Tensor | None = None) -> torch.Tensor:
-    """y = conv3x3(relu(x*scale + shift), w) + bias, zeros outside the image.
-
-    x (B, H, W, C) contiguous, float32 or bfloat16; scale, shift (C,) and
-    bias (F,) float32; w (3, 3, C, F) in x's dtype with F <= MAX_FEATURES.
-    Returns y (B, H, W, F) contiguous, in x's dtype.
-    """
+def _forward(x, scale, shift, w, bias) -> torch.Tensor:
     global LAUNCHES
-    _check(x, scale, shift, w, bias)
     if x.device.type == "cpu":
         return fused_dense_conv_reference(x, scale, shift, w, bias)
     if x.device.type != "cuda":
         raise ValueError(f"no dense_conv kernel for device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, scale, shift, w, bias)):
-        raise NotImplementedError(
-            "fused_dense_conv has no backward yet; call it under "
-            "torch.inference_mode() or torch.no_grad()")
     b, h, wd, c = x.shape
     f = w.shape[3]
     y = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
@@ -131,3 +120,53 @@ def fused_dense_conv(x: torch.Tensor, scale: torch.Tensor,
                            f"for x {tuple(x.shape)} {x.dtype}, F = {f}")
     LAUNCHES += 1
     return y
+
+
+class FusedDenseConv(torch.autograd.Function):
+    """The fused dense layer with its backward.
+
+    Saves x (not the activation, as the JAX package does) and recomputes
+    a = relu(x*scale + shift) in f32, rounded to x's dtype. With the conv
+    adjoints da and dw of y = conv3x3(a, w) + bias and the mask a > 0:
+    dx = da*mask*scale, dscale = sum(da*mask*x), dshift = sum(da*mask),
+    dw, and dbias = sum(gy), the last three sums in f32.
+    """
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, w, bias):
+        ctx.save_for_backward(x, scale, shift, w)
+        ctx.has_bias = bias is not None
+        return _forward(x, scale, shift, w, bias)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale, shift, w = ctx.saved_tensors
+        xf = x.float()
+        a = torch.relu(xf * scale + shift).to(x.dtype)
+        gy = gy.to(x.dtype)
+        # NHWC tensors seen as NCHW in channels_last memory: the adjoints
+        # come back channels_last, so dx stays a contiguous NHWC tensor
+        da, dw, _ = torch.ops.aten.convolution_backward(
+            gy.permute(0, 3, 1, 2), a.permute(0, 3, 1, 2),
+            w.permute(3, 2, 0, 1), None, [1, 1], [1, 1], [1, 1], False,
+            [0, 0], 1, (True, True, False))
+        da_m = da.permute(0, 2, 3, 1).float() * (a > 0)
+        dx = (da_m * scale).to(x.dtype)
+        dscale = (da_m * xf).sum((0, 1, 2))
+        dshift = da_m.sum((0, 1, 2))
+        dbias = gy.float().sum((0, 1, 2)) if ctx.has_bias else None
+        return dx, dscale, dshift, dw.permute(2, 3, 1, 0).to(w.dtype), dbias
+
+
+def fused_dense_conv(x: torch.Tensor, scale: torch.Tensor,
+                     shift: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
+    """y = conv3x3(relu(x*scale + shift), w) + bias, zeros outside the image.
+
+    x (B, H, W, C) contiguous, float32 or bfloat16; scale, shift (C,) and
+    bias (F,) float32; w (3, 3, C, F) in x's dtype with F <= MAX_FEATURES.
+    Returns y (B, H, W, F) contiguous, in x's dtype. Differentiable in all
+    five inputs (``FusedDenseConv``).
+    """
+    _check(x, scale, shift, w, bias)
+    return FusedDenseConv.apply(x, scale, shift, w, bias)

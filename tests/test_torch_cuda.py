@@ -1,4 +1,4 @@
-"""The dense-layer CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: needs a CUDA device, and skips without one (decided in a
 fixture, so every worker collects the same tests). Imports no JAX, so it
@@ -11,7 +11,7 @@ import torch
 
 from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet57
 from endoscopydepthestimation_pytorch_tpu_torch.models.init import init_weights
-from endoscopydepthestimation_pytorch_tpu_torch.ops import dense_conv
+from endoscopydepthestimation_pytorch_tpu_torch.ops import dense_conv, warp_sample
 
 pytestmark = pytest.mark.cuda
 
@@ -92,8 +92,6 @@ def test_refuses_what_it_does_not_take(device):
             x, scale, shift, torch.zeros(3, 3, 4, 17, device=device))
     with pytest.raises(ValueError):  # inputs on two devices
         dense_conv.fused_dense_conv(x, scale.cpu(), shift, wk)
-    with pytest.raises(NotImplementedError):  # no backward yet
-        dense_conv.fused_dense_conv(x.requires_grad_(), scale, shift, wk)
 
 
 def test_model_forward_launches_44_kernels(device):
@@ -112,3 +110,123 @@ def test_model_forward_launches_44_kernels(device):
     err = (got - ref).abs().max().item()
     # 44 layers of f32 sums taken in other orders (TF32 off)
     assert err <= 1e-3 * ref.abs().max().item(), err
+
+
+def _warp_case(b, h, w, c, device, seed=0):
+    """A random warp spanning [-3, size+3] (the clamp band and beyond),
+    with the first row of queries on integer coordinates."""
+    g = torch.Generator().manual_seed(seed)
+    image = torch.randn(b, h, w, c, generator=g)
+    px = torch.rand(b, h, w, generator=g) * (w + 6) - 3
+    py = torch.rand(b, h, w, generator=g) * (h + 6) - 3
+    px[:, 0] = torch.arange(w, dtype=torch.float32) - 1
+    py[:, 0] = float(h // 2)
+    px, py = px.clamp(-2, w + 1), py.clamp(-2, h + 1)
+    cot = torch.randn(b, h, w, c, generator=g)
+    return [t.to(device) for t in (image, px, py, cot)]
+
+
+def _rel(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("grad_first", [False, True])
+@pytest.mark.parametrize("b,h,w,c", [(16, 256, 320, 2), (2, 512, 576, 2),
+                                     (3, 37, 53, 1)])
+def test_warp_sample_matches_plain(device, b, h, w, c, grad_first):
+    image, px, py, cot = _warp_case(b, h, w, c, device)
+    before = dict(warp_sample.LAUNCHES)
+    leaves = [t.clone().requires_grad_() for t in (image, px, py)]
+    got = warp_sample.sample_bilinear(*leaves, grad_first_only=grad_first)
+    got_grads = torch.autograd.grad(got, leaves, cot)
+    assert warp_sample.LAUNCHES["warp_sample_fwd"] == before["warp_sample_fwd"] + 1
+    assert warp_sample.LAUNCHES["warp_sample_bwd"] == before["warp_sample_bwd"] + 1
+    ref_leaves = [t.clone().requires_grad_() for t in (image, px, py)]
+    ref = warp_sample.sample_bilinear_reference(*ref_leaves)
+    # grad-first: the other channels' cotangents count as zero
+    ref_cot = torch.cat([cot[..., :1], torch.zeros_like(cot[..., 1:])], -1
+                        ) if grad_first else cot
+    ref_grads = torch.autograd.grad(ref, ref_leaves, ref_cot)
+    torch.cuda.synchronize()
+    # the same f32 arithmetic; dimg's atomics land in another order
+    assert _rel(got, ref) <= 1e-5
+    for name, a, r in zip(("dimg", "dpx", "dpy"), got_grads, ref_grads):
+        assert _rel(a, r) <= 1e-5, name
+
+
+def test_warp_sample_nan_coordinate_gives_nan(device):
+    image, px, py, _ = _warp_case(2, 8, 12, 2, device)
+    px[0, 3, 4] = float("nan")
+    py[1, 5, 6] = float("nan")
+    out = warp_sample.sample_bilinear(image, px, py)
+    torch.cuda.synchronize()
+    nan = torch.isnan(out).any(-1)
+    assert nan[0, 3, 4] and nan[1, 5, 6] and int(nan.sum()) == 2
+
+
+@pytest.mark.parametrize("b,h,w,c", [(4, 64, 80, 48), (4, 16, 20, 180),
+                                     (2, 9, 13, 7)])
+def test_fused_dense_conv_gradients_match_autograd_of_plain(device, b, h, w, c):
+    """FusedDenseConv (kernel forward, hand-written backward) against
+    autograd through the plain version, f32 with TF32 off."""
+    args = _inputs(b, h, w, c, 12, torch.float32, device, seed=4)
+    cot = torch.randn(b, h, w, 12, generator=torch.Generator().manual_seed(5))
+    cot = cot.to(device)
+    got_leaves = [t.clone().requires_grad_() for t in args]
+    y = dense_conv.fused_dense_conv(*got_leaves)
+    got = torch.autograd.grad(y, got_leaves, cot)
+    ref_leaves = [t.clone().requires_grad_() for t in args]
+    ref = torch.autograd.grad(
+        dense_conv.fused_dense_conv_reference(*ref_leaves), ref_leaves, cot)
+    torch.cuda.synchronize()
+    assert got[0].is_contiguous()  # dx stays NHWC, no NCHW copy
+    for name, a, r in zip(("dx", "dscale", "dshift", "dw", "dbias"), got, ref):
+        # cuDNN's adjoints and our sums in other orders (f32, TF32 off)
+        assert _rel(a, r) <= 1e-4, name
+
+
+def test_tiny_train_step_bf16_launch_counts(device):
+    """Three bf16 train steps of a tiny FCDenseNet: every dense layer's
+    forward through K1, one K2 and one K3 launch per step."""
+    from endoscopydepthestimation_pytorch_tpu_torch import training
+    from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet
+    model = FCDenseNet(down_blocks=(2, 2), up_blocks=(2, 2), bottleneck_layers=2,
+                       growth_rate=12, out_chans_first_conv=24,
+                       dtype=torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(0))
+    state = training.create_train_state(model.to(device))
+    b, h, w = 2, 64, 80
+    g = torch.Generator().manual_seed(1)
+    k = torch.tensor([[80.0, 0, w / 2], [0, 80.0, h / 2], [0, 0, 1]])
+    t12 = torch.tensor([[0.0], [0.0], [0.02]])
+    mask = torch.zeros(b, h, w, 1)
+    mask[:, 8:-8, 8:-8] = 1
+    sparse = torch.zeros(b, h, w, 1)
+    sparse[:, 12:-12:4, 12:-12:4] = 1
+    batch = {
+        "color_1": torch.rand(b, h, w, 3, generator=g) * 2 - 1,
+        "color_2": torch.rand(b, h, w, 3, generator=g) * 2 - 1,
+        "sparse_depth_1": sparse, "sparse_depth_2": sparse,
+        "depth_mask_1": sparse, "depth_mask_2": sparse,
+        "flow_1": torch.zeros(b, h, w, 2), "flow_2": torch.zeros(b, h, w, 2),
+        "flow_mask_1": sparse, "flow_mask_2": sparse, "boundary": mask,
+        "rotation_1_wrt_2": torch.eye(3).repeat(b, 1, 1),
+        "rotation_2_wrt_1": torch.eye(3).repeat(b, 1, 1),
+        "translation_1_wrt_2": t12.repeat(b, 1, 1),
+        "translation_2_wrt_1": (-t12).repeat(b, 1, 1),
+        "intrinsic": k.repeat(b, 1, 1),
+    }
+    batch = {key: v.to(device) for key, v in batch.items()}
+    config = training.TrainConfig(lr_step_size=50, compute_dtype=torch.bfloat16)
+    k1, k2 = dense_conv.LAUNCHES, dict(warp_sample.LAUNCHES)
+    losses = []
+    for _ in range(3):
+        state, metrics = training.train_step(state, batch,
+                                             torch.tensor(0.1, device=device), config)
+        losses.append(metrics["loss"])
+    losses = torch.stack(losses).cpu()
+    assert torch.isfinite(losses).all(), losses
+    assert int(state.step) == 3 and int(state.count) == 3
+    assert dense_conv.LAUNCHES == k1 + 3 * 10
+    for name in ("warp_sample_fwd", "warp_sample_bwd"):
+        assert warp_sample.LAUNCHES[name] == k2[name] + 3, name

@@ -1,6 +1,9 @@
 """The port's FCDenseNet eval forward and weight import against the JAX
 package, on the CPU in f32 (TF32 off)."""
+from functools import partial
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -13,6 +16,7 @@ from endoscopydepthestimation_pytorch_tpu.ops import dense_conv as jax_dense_con
 from endoscopydepthestimation_pytorch_tpu_torch import training
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
     FCDenseNet, FCDenseNet57, load_reference_checkpoint)
+from endoscopydepthestimation_pytorch_tpu_torch.models.fcdensenet import DenseLayer
 from endoscopydepthestimation_pytorch_tpu_torch.ops import dense_conv
 from endoscopydepthestimation_pytorch_tpu_torch.utils import load_any_checkpoint
 
@@ -116,12 +120,67 @@ def test_orbax_directory_is_refused(tmp_path):
 
 
 def test_training_mode_forward_raises(port57):
+    """Serving refuses a train-mode model: its forward would normalize
+    with batch statistics and advance the running ones."""
     port57.train()
     try:
-        with pytest.raises(NotImplementedError, match="train step"):
-            port57(torch.zeros(1, 3, 32, 32))
+        with pytest.raises(ValueError, match="eval mode"):
+            training.predict_step(port57, torch.zeros(1, 32, 32, 3),
+                                  torch.ones(1, 32, 32, 1))
     finally:
         port57.eval()
+
+
+def test_train_mode_forward_and_statistics_match_jax(jax57, port57):
+    """Train-mode FCDenseNet-57: batch-statistics BN over the whole batch,
+    and the running statistics moved to 0.9*r + 0.1*stat with the biased
+    variance, as the JAX package's BNFold."""
+    colors, _ = _inputs(2, 64, 64, seed=12)
+    want, mutated = jax.jit(partial(jax57.apply_fn, train=True,
+                                    mutable=["batch_stats"]))(
+        {"params": jax57.params, "batch_stats": jax57.batch_stats},
+        jnp.asarray(colors))
+    model = FCDenseNet57()
+    model.load_state_dict(port57.state_dict())
+    model.train()
+    with torch.no_grad():
+        got = model(torch.from_numpy(colors).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want),
+                               rtol=2e-4, atol=1e-4)
+    new = port_state_dict(jax57.replace(batch_stats=mutated["batch_stats"]))
+    for k, v in model.state_dict().items():
+        if "running" in k:  # f32 means over 8k positions, in another order
+            np.testing.assert_allclose(v.numpy(), new[k].numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+
+
+def test_dense_layer_input_gradient_takes_both_routes():
+    """In train mode x reaches the loss through the kernel's input and
+    through the batch statistics folded into (scale, shift); the layer's
+    dx must carry both (against autograd of the plain formula)."""
+    rng = np.random.RandomState(13)
+    layer = DenseLayer(10, 12).train()
+    x = torch.from_numpy(rng.randn(3, 10, 6, 7).astype(np.float32))
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    cot = torch.from_numpy(rng.randn(3, 12, 6, 7).astype(np.float32))
+    (got,) = torch.autograd.grad(layer(x), x, cot)
+
+    def plain(xx, stats_grad=True):
+        xs = xx if stats_grad else xx.detach()
+        mu = xs.mean((0, 2, 3))
+        var = xs.square().mean((0, 2, 3)) - mu.square()
+        scale = layer.norm.weight * torch.rsqrt(var + 1e-5)
+        shift = layer.norm.bias - mu * scale
+        return dense_conv.fused_dense_conv_reference(
+            xx.permute(0, 2, 3, 1), scale, shift,
+            layer.conv.weight.permute(2, 3, 1, 0), layer.conv.bias
+        ).permute(0, 3, 1, 2)
+
+    (want,) = torch.autograd.grad(plain(x), x, cot)
+    (kernel_only,) = torch.autograd.grad(plain(x, stats_grad=False), x, cot)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert (got - kernel_only).abs().max() > 1e-2 * kernel_only.abs().max()
 
 
 def test_activations_stay_channels_last(port57, monkeypatch):
