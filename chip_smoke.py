@@ -8,35 +8,47 @@ to the CPU or to a kernel's plain version):
 
   1. environment: the card's name and power limit, torch, CUDA and nvcc
      versions, whether OpenCV imports;
-  2. build: ``csrc/dense_conv.cu`` (K1) and ``csrc/warp_sample.cu`` (K2,
-     K3), one nvcc each, started together, for sm_90a, with ptxas's
-     register and spill report;
+  2. build: ``csrc/dense_conv.cu`` (K1), ``csrc/warp_sample.cu`` (K2, K3)
+     and ``csrc/block_engine.cu`` (K4, K5, K6), one nvcc each, started
+     together, for sm_90a, with ptxas's register and spill report;
   3. K1: the dense-layer kernel against its plain PyTorch version at every
      one of FCDenseNet-57's 44 dense-layer shapes at 256x320, batch 8
      (serving) and 16 (the train step's), in f32 (TF32 off) and bf16, with
-     its time beside the plain version's;
+     its time beside the plain version's and cuDNN's conv on the activated
+     tensor;
   4. K2/K3: the warp sampler's kernels against the plain four-gather
      version and its autograd at the train step's shape, image
      (16, 256, 320, 2) f32, full and grad-first variants, plus NaN
-     coordinates; forward and backward times beside the plain ones;
-  5. K1 backward: ``FusedDenseConv``'s output and five gradients against
+     coordinates; forward and backward times beside the plain ones and
+     ``F.grid_sample``'s;
+  5. K4/K5/K6: the block engine's kernels against their plain versions at
+     every layer of FCDenseNet-57's 11 dense blocks at 2B = 16, 256x320,
+     in f32 and bf16, with their times beside the plain versions' and the
+     nearest cuDNN call on the activated tensor;
+  6. K1 backward: ``FusedDenseConv``'s output and five gradients against
      autograd of the plain version at four layer shapes of the train step
-     (f32);
-  6. serving: ``DepthPredictor`` on a seeded reference-format ``.pt`` and
+     (f32), the route of a train-mode block the engine's gate rejects;
+  7. serving: ``DepthPredictor`` on a seeded reference-format ``.pt`` and
      synthetic frames, in bf16: ``predict_batch`` and ``stream`` at
      256x320 batch 8, ``predict_frame`` at the real 512x576 crop batch 1.
      Every forward must launch K1 44 times, and the depth must match the
      port's own CPU float32 forward inside the boundary mask;
-  7. timing: forward latencies with CUDA events;
-  8. training, FCDenseNet-57 at full width on a synthetic, geometrically
-     consistent batch: (a) one f32 step on the card against the same step
-     on the CPU (b2 128x160); (b) ten bf16 steps at b8 256x320 with finite,
-     decreasing loss and 44 K1, 1 K2 and 1 K3 launches per step, timed
-     with CUDA events; (c) a step with an empty depth mask, which must
-     leave params, momentum, count and step and advance the BN statistics;
-  9. profile: torch.profiler over three more bf16 train steps, the device
+  8. timing: forward latencies with CUDA events;
+  9. training, FCDenseNet-57 at full width on a synthetic, geometrically
+     consistent batch, every dense block through the engine: (a) one f32
+     step on the card against the same step on the CPU (b2 128x160);
+     (b) ten bf16 steps at b8 256x320 with finite, decreasing loss and 44
+     K4, K5 and K6, 1 K2, 1 K3 and no K1 launches per step, timed with
+     CUDA events; (c) a step with an empty depth mask, which must leave
+     params, momentum, count and step and advance the BN statistics;
+ 10. profile: torch.profiler over three more bf16 train steps, the device
      time by op and the device's idle share, of the profiled window and of
-     the median step of (b).
+     the median step of (b);
+ 11. for comparison, the same with the engine's gate closed, so every
+     block takes the materialized route (44 K1 launches per step and no
+     K4-K6), then ten pairs of one step on each route, alternating which
+     runs first. Only the main path's launches (7, 9) enter the
+     ``kernels`` line.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -44,6 +56,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -56,12 +69,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from endoscopydepthestimation_pytorch_tpu_torch import training
 from endoscopydepthestimation_pytorch_tpu_torch.data import SequenceData
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
     FCDenseNet57, init_weights, save_reference_checkpoint)
-from endoscopydepthestimation_pytorch_tpu_torch.ops import dense_conv, warp_sample
+from endoscopydepthestimation_pytorch_tpu_torch.ops import (block_engine, dense_conv,
+                                                          warp_sample)
 from endoscopydepthestimation_pytorch_tpu_torch.serving import DepthPredictor
 
 CSRC = "endoscopydepthestimation_pytorch_tpu_torch/csrc/"
@@ -70,7 +85,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "dense_conv_fwd": (CSRC + "dense_conv.cu", JAX_OPS + "dense_conv.py:73"),
     "warp_sample_fwd": (CSRC + "warp_sample.cu", JAX_OPS + "warp_pallas.py:98"),
     "warp_sample_bwd": (CSRC + "warp_sample.cu", JAX_OPS + "warp_pallas.py:110"),
+    "block_engine_fwd": (CSRC + "block_engine.cu", JAX_OPS + "block_engine.py:332"),
+    "block_engine_dinput": (CSRC + "block_engine.cu", JAX_OPS + "block_engine.py:642"),
+    "block_engine_dweight": (CSRC + "block_engine.cu", JAX_OPS + "block_engine.py:919"),
 }
+# one H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor, f32 FFMA
 MARGIN = 16  # raw frames are the crop plus this border on every side
 SEED = 0
 
@@ -93,6 +114,20 @@ def dense_layer_shapes(height: int, width: int, down=(4,) * 5, up=(4,) * 5,
         shapes += [(h, w, prev + skip_c + j * growth) for j in range(n)]
         prev = n * growth
     return shapes
+
+
+def dense_block_shapes(height: int, width: int) -> list:
+    """(H, W, C0) of FCDenseNet-57's 11 dense blocks in forward order (4
+    layers of growth 12 each): the layer shapes of ``dense_layer_shapes``
+    in groups of four."""
+    return [dense_layer_shapes(height, width)[i] for i in range(0, 44, 4)]
+
+
+def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
+    """The least time the card could take (ms), and what bounds it: the
+    bytes over HBM's rate or the operations over the peak for the type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def seeded_model(seed: int, dtype=torch.float32) -> torch.nn.Module:
@@ -199,14 +234,16 @@ def kernel_phase(card: str, batches=(8, 16), height: int = 256,
                  width: int = 320) -> dict:
     """Kernel vs plain version at every dense-layer shape, in f32 and bf16,
     at batch 8 (serving) and 16 (the train step's stacked 2B); times in
-    bf16. Returns the batch-8 times."""
+    bf16, beside cuDNN's conv of the already activated tensor (the nearest
+    library call: none folds the BN and ReLU in). Returns the batch-8
+    times and bound."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     max_abs, max_f32_ratio, max_bf16_rel, times = 0.0, 0.0, 0.0, {}
     for batch in batches:
-        ms, plain_ms = 0.0, 0.0
+        ms, plain_ms, lib_ms, n_bytes, n_ops = 0.0, 0.0, 0.0, 0.0, 0.0
         print(f"kernel phase, batch {batch}, {height}x{width}, {card}:")
         print("  H    W    Cin  f32 max|d|/max|ref|  bf16 mean|d|/mean|ref|  "
-              "kernel ms  plain ms")
+              "kernel ms  plain ms  cuDNN conv of the activated tensor ms")
         for h, w, c in dense_layer_shapes(height, width):
             def draw(*shape):
                 return torch.randn(*shape, generator=g, device="cuda")
@@ -230,20 +267,30 @@ def kernel_phase(card: str, batches=(8, 16), height: int = 256,
                 raise AssertionError(f"bf16 kernel mismatch at {(batch, h, w, c)}: {rel}")
             k_ms = _cuda_ms(lambda: dense_conv.fused_dense_conv(*args16), 20)
             p_ms = _cuda_ms(lambda: dense_conv.fused_dense_conv_reference(*args16), 20)
+            a16 = torch.relu(x * scale + shift).bfloat16().permute(0, 3, 1, 2)
+            w16 = wk.bfloat16().permute(3, 2, 0, 1).contiguous()
+            b16 = bias.bfloat16()
+            l_ms = _cuda_ms(lambda: F.conv2d(a16, w16, b16, padding=1), 20)
             print(f"  {h:<4} {w:<4} {c:<4} {ratio:<20.3e} {rel:<23.3e} "
-                  f"{k_ms:<10.4f} {p_ms:.4f}")
+                  f"{k_ms:<10.4f} {p_ms:<9.4f} {l_ms:.4f}")
             max_abs, max_f32_ratio = max(max_abs, err), max(max_f32_ratio, ratio)
             max_bf16_rel = max(max_bf16_rel, rel)
-            ms, plain_ms = ms + k_ms, plain_ms + p_ms
-            del x, args32, args16, got, ref
+            ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+            pixels = batch * h * w
+            n_bytes += 2 * (pixels * (c + 12) + 9 * c * 12) + 4 * (2 * c + 12)
+            n_ops += 2 * 9 * 12 * pixels * c
+            del x, args32, args16, got, ref, a16
+        bound_ms, bound_by = bound(n_bytes, n_ops, torch.bfloat16)
         print(f"timing [{card}] 44 dense layers, batch {batch} {height}x{width} "
-              f"bf16: kernel {ms:.4f} ms, plain (cuDNN) {plain_ms:.4f} ms")
-        times[batch] = (ms, plain_ms)
+              f"bf16: kernel {ms:.4f} ms, plain (cuDNN) {plain_ms:.4f} ms, cuDNN "
+              f"conv of the activated tensor {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({bound_by}: {n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.1f} GFLOP)")
+        times[batch] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
     print(f"kernel phase ok: 44 shapes at batch {batches}, f32 max|d| {max_abs:.3e} "
           f"(max|d|/max|ref| {max_f32_ratio:.3e} <= 1e-4), bf16 mean rel "
           f"{max_bf16_rel:.3e} <= 1e-2")
-    ms, plain_ms = times[batches[0]]
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs, **times[batches[0]]}
 
 
 def forward_ms(checkpoint, card: str, height: int, width: int, batch: int) -> float:
@@ -265,12 +312,12 @@ def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def build_phase() -> None:
-    """Build both kernel libraries, one nvcc each, started together."""
+    """Build the three kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
-    modules = (dense_conv, warp_sample)
+    modules = (dense_conv, warp_sample, block_engine)
     with ThreadPoolExecutor(len(modules)) as pool:
         reports = list(pool.map(lambda m: m.build_report(), modules))
-    print(f"built dense_conv.cu and warp_sample.cu for sm_90a in "
+    print(f"built dense_conv.cu, warp_sample.cu and block_engine.cu for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s; ptxas report:")
     for report in reports:
         print("\n".join(line for line in report.splitlines()
@@ -347,10 +394,168 @@ def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
     cot1 = cot[..., :1].contiguous()
     ms["plain_bwd"] = _cuda_ms(
         lambda: torch.autograd.grad(ref, leaves, cot1, retain_graph=True), 50)
+    # F.grid_sample (bilinear, zeros, align_corners) on the same image and
+    # warp, NCHW with the grid normalized: pixel x = (gx + 1) / 2 * (W - 1)
+    img = image.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], -1).detach()
+    ms["library_fwd"] = _cuda_ms(lambda: F.grid_sample(
+        img, grid, mode="bilinear", padding_mode="zeros", align_corners=True), 50)
+    img1 = img[:, :1].contiguous()
+    gout1 = cot1.permute(0, 3, 1, 2).contiguous()
+    ms["library_bwd"] = _cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        gout1, img1, grid, 0, 0, True, [True, True]), 50)
+    q = b * h * w  # queries; f32 bytes: image, px, py in, samples out
+    bounds = {"fwd": bound(4 * q * (2 + 2 + 2), q * (8 * 2 + 10), torch.float32),
+              # grad-first: image and g channel 0, px, py in; dimg (both
+              # channels), dpx, dpy out
+              "bwd": bound(4 * q * (1 + 2 + 1 + 2 + 2), q * 30, torch.float32)}
     print(f"timing [{card}] sampler at ({b}, {h}, {w}, 2) f32, smooth warp: "
-          f"K2 {ms['fwd']:.4f} ms vs plain {ms['plain_fwd']:.4f} ms; K3 "
-          f"(grad-first) {ms['bwd']:.4f} ms vs plain autograd {ms['plain_bwd']:.4f} ms")
-    return {"err": err, "ms": ms}
+          f"K2 {ms['fwd']:.4f} ms vs plain {ms['plain_fwd']:.4f} ms vs F.grid_sample "
+          f"{ms['library_fwd']:.4f} ms (bound {bounds['fwd'][0]:.4f} ms); K3 "
+          f"(grad-first) {ms['bwd']:.4f} ms vs plain autograd {ms['plain_bwd']:.4f} ms "
+          f"vs aten.grid_sampler_2d_backward on channel 0 {ms['library_bwd']:.4f} ms "
+          f"(bound {bounds['bwd'][0]:.4f} ms)")
+    return {"err": err, "ms": ms, "bounds": bounds}
+
+
+def _engine_bytes(kernel: str, pixels: int, c: int, f: int, itemsize: int) -> int:
+    """Bytes one engine kernel must move for one layer: each input read
+    once, each output written once (prefix c channels, growth f)."""
+    s, weights = itemsize, 9 * c * f
+    if kernel == "block_engine_fwd":  # prefix in; y and its two sums out
+        return s * (pixels * (c + f) + weights) + 4 * (2 * c + f + 2 * f)
+    if kernel == "block_engine_dinput":  # g and y of the layer, prefix and
+        # its gradient in; the gradient prefix and three sums out
+        return s * (pixels * (2 * f + 3 * c) + weights) + 4 * (4 * c + 3 * f)
+    return s * pixels * (c + 2 * f) + 4 * (2 * c + 2 * f + weights)
+
+
+def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
+                        width: int = 320) -> dict:
+    """K4, K5 and K6 against their plain versions at every layer of the 11
+    dense blocks of FCDenseNet-57 at 2B = 16: f32 (TF32 off) max|d| <=
+    1e-4 max|ref|, bf16 mean|d|/mean|ref| <= 1e-4 (kernel and plain version
+    round the same bf16 operands alike, so only f32 sums in another order
+    crossing a rounding edge move a stored value), for y and its sums, the
+    updated gradient prefix and the three BN/bias sums, and dW. Then times
+    in bf16 over the 44 layers beside the plain versions' and the nearest
+    cuDNN call on the already activated tensor (conv2d; convolution_backward
+    for the input only; for the weight only), which folds no BN or ReLU."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    names = ("block_engine_fwd", "block_engine_dinput", "block_engine_dweight")
+    tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+           for n in names}
+    max_abs, max_f32, max_bf16 = dict.fromkeys(names, 0.0), 0.0, 0.0
+    print(f"engine kernel phase, batch {batch}, {height}x{width}, {card}:")
+    print("  H    W    C    f32 max|d|/max|ref| (K4 K5 K6)  bf16 mean rel (K4 K5 K6)"
+          "  bf16 ms kernel / plain / cuDNN (K4; K5; K6)")
+
+    def compare(got, ref, dtype, name=None):
+        """The error measure of ``dtype``'s limit; ``name``: keep the f32
+        max|d| as that kernel's max_abs_err (its tensor output)."""
+        got, ref = got.float(), ref.float()
+        if dtype == torch.float32:
+            err = (got - ref).abs().max().item()
+            if name:
+                max_abs[name] = max(max_abs[name], err)
+            return err / ref.abs().max().item()
+        return ((got - ref).abs().mean() / ref.abs().mean()).item()
+
+    for h, w, c0 in dense_block_shapes(height, width):
+        ld = c0 + 4 * 12
+        buf32 = torch.randn(batch, h, w, ld, generator=g, device="cuda")
+        grad32 = torch.randn(batch, h, w, ld, generator=g, device="cuda")
+        for j in range(4):
+            c, f = c0 + 12 * j, 12
+            scale = torch.rand(c, generator=g, device="cuda") + 0.5
+            shift = torch.randn(c, generator=g, device="cuda") * 0.3
+            wk = torch.randn(3, 3, c, f, generator=g, device="cuda") * (2.0 / (9 * c)) ** 0.5
+            bias = torch.randn(f, generator=g, device="cuda") * 0.1
+            c1 = torch.randn(f, generator=g, device="cuda") * 0.1
+            c2 = torch.randn(f, generator=g, device="cuda") * 0.1
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                buf, grad, w_t = buf32.to(dtype), grad32.to(dtype), wk.to(dtype)
+                if dtype == torch.bfloat16:
+                    grad[..., :c] = 0  # the increment itself, after rounding
+                e = []
+                got_b, ref_b = buf.clone(), buf.clone()
+                got = block_engine.layer_forward(got_b, c, scale, shift, w_t, bias)
+                ref = block_engine.layer_forward_reference(ref_b, c, scale, shift, w_t, bias)
+                e.append(max(compare(got_b[..., c:c + f], ref_b[..., c:c + f], dtype,
+                                     names[0]), compare(got, ref, dtype)))
+                got_g, ref_g = grad.clone(), grad.clone()
+                got = block_engine.layer_dinput(got_g, buf, c, scale, shift, w_t, c1, c2)
+                ref = block_engine.layer_dinput_reference(ref_g, buf, c, scale, shift,
+                                                          w_t, c1, c2)
+                e.append(max([compare(got_g[..., :c], ref_g[..., :c], dtype, names[1])]
+                             + [compare(a, r, dtype) for a, r in zip(got, ref)]))
+                got = block_engine.layer_dweight(grad, buf, c, f, scale, shift, c1, c2)
+                ref = block_engine.layer_dweight_reference(grad, buf, c, f, scale, shift,
+                                                           c1, c2)
+                e.append(compare(got, ref, dtype, names[2]))
+                errs[dtype] = e
+                del got_b, ref_b, got_g, ref_g
+            if not max(errs[torch.float32]) <= 1e-4 or not max(errs[torch.bfloat16]) <= 1e-4:
+                raise AssertionError(f"engine kernel mismatch at {(batch, h, w, c)}: {errs}")
+            max_f32 = max(max_f32, *errs[torch.float32])
+            max_bf16 = max(max_bf16, *errs[torch.bfloat16])
+
+            # bf16 timing, and the nearest cuDNN call on the activated tensor
+            buf, grad, w_t = buf32.bfloat16(), grad32.bfloat16(), wk.bfloat16()
+            a = torch.relu(buf32[..., :c] * scale + shift).bfloat16().permute(0, 3, 1, 2)
+            gy = grad[..., c:c + f].contiguous().permute(0, 3, 1, 2)
+            w_oihw = w_t.permute(3, 2, 0, 1).contiguous()
+            b16 = bias.bfloat16()
+            conv_bwd = torch.ops.aten.convolution_backward
+            calls = {
+                names[0]: (lambda: block_engine.layer_forward(buf, c, scale, shift, w_t, bias),
+                           lambda: block_engine.layer_forward_reference(
+                               buf, c, scale, shift, w_t, bias),
+                           lambda: F.conv2d(a, w_oihw, b16, padding=1)),
+                names[1]: (lambda: block_engine.layer_dinput(grad, buf, c, scale, shift,
+                                                             w_t, c1, c2),
+                           lambda: block_engine.layer_dinput_reference(
+                               grad, buf, c, scale, shift, w_t, c1, c2),
+                           lambda: conv_bwd(gy, a, w_oihw, None, [1, 1], [1, 1], [1, 1],
+                                            False, [0, 0], 1, (True, False, False))),
+                names[2]: (lambda: block_engine.layer_dweight(grad, buf, c, f, scale,
+                                                              shift, c1, c2),
+                           lambda: block_engine.layer_dweight_reference(
+                               grad, buf, c, f, scale, shift, c1, c2),
+                           lambda: conv_bwd(gy, a, w_oihw, None, [1, 1], [1, 1], [1, 1],
+                                            False, [0, 0], 1, (False, True, False))),
+            }
+            row = []
+            for name, (kernel, plain, library) in calls.items():
+                t = (_cuda_ms(kernel, 10), _cuda_ms(plain, 3, warmup=1),
+                     _cuda_ms(library, 10))
+                for key, v in zip(("ms", "plain_ms", "library_ms"), t):
+                    tot[name][key] += v
+                tot[name]["bytes"] += _engine_bytes(name, batch * h * w, c, f, 2)
+                tot[name]["ops"] += 2 * 9 * c * f * batch * h * w
+                row.append(" / ".join(f"{v:.3f}" for v in t))
+            print(f"  {h:<4} {w:<4} {c:<4} "
+                  + " ".join(f"{v:.2e}" for v in errs[torch.float32]) + "   "
+                  + " ".join(f"{v:.2e}" for v in errs[torch.bfloat16]) + "   "
+                  + "; ".join(row))
+            del buf, grad, a, gy
+        del buf32, grad32
+    result = {}
+    for name in names:
+        t = tot[name]
+        bound_ms, bound_by = bound(t["bytes"], t["ops"], torch.bfloat16)
+        result[name] = {"max_abs_err": max_abs[name], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"timing [{card}] {name}, 44 layers, batch {batch} {height}x{width} bf16: "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, nearest cuDNN "
+              f"call on the activated tensor {t['library_ms']:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {t['bytes'] / 1e9:.3f} GB, "
+              f"{t['ops'] / 1e9:.1f} GFLOP)")
+    print(f"engine kernel phase ok: 11 blocks, 44 layers, f32 max|d|/max|ref| "
+          f"{max_f32:.3e} <= 1e-4, bf16 mean rel {max_bf16:.3e} <= 1e-4")
+    return result
 
 
 def dense_conv_backward_phase(batch: int = 16, height: int = 256,
@@ -438,7 +643,8 @@ def _rel_scalar(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def train_parity_phase(config) -> None:
     """(a) One f32 step (TF32 off) on the card against the same step on the
-    CPU, at b2 128x160 from the same conditioned weights."""
+    CPU, at b2 128x160 from the same conditioned weights (the kernels on
+    the card, their plain versions on the CPU)."""
     base = conditioned(seeded_model(SEED))
     results = {}
     for device in ("cpu", "cuda"):
@@ -464,14 +670,41 @@ def train_parity_phase(config) -> None:
         raise AssertionError("the card's f32 train step disagrees with the CPU's")
 
 
+def _launch_counts() -> dict:
+    return {"dense_conv_fwd": dense_conv.LAUNCHES, **warp_sample.LAUNCHES,
+            **block_engine.LAUNCHES}
+
+
+def _reset_launch_counts() -> None:
+    dense_conv.LAUNCHES = 0
+    warp_sample.LAUNCHES.update(dict.fromkeys(warp_sample.LAUNCHES, 0))
+    block_engine.LAUNCHES.update(dict.fromkeys(block_engine.LAUNCHES, 0))
+
+
+@contextlib.contextmanager
+def materialized_route():
+    """Close the engine's gate: every train-mode dense block then takes the
+    route of a block the gate rejects (K1's forward, ``FusedDenseConv``'s
+    backward, ``BatchMoments``, ``torch.cat``). For comparison only."""
+    supported = block_engine.supported
+    block_engine.supported = lambda *shape: False
+    try:
+        yield
+    finally:
+        block_engine.supported = supported
+
+
 def train_phase(card: str, config, steps: int = 10, batch: int = 8,
-                height: int = 256, width: int = 320) -> dict:
+                height: int = 256, width: int = 320, engine: bool = True) -> dict:
     """(b) ``steps`` bf16 train steps on one fixed batch, counted and timed;
     (c) one step with an empty depth mask. From the conditioned weights:
     at 256x320 the raw random init puts some depths on the objective's
     1/z pole, and even in f32 its loss then jumps from step to step with
-    gradient norms of 1e4-1e7 (measured on the card)."""
+    gradient norms of 1e4-1e7 (measured on the card). ``engine``: every
+    dense layer runs K4, K5 and K6 once per step and K1 never; without
+    (under ``materialized_route``), K1 once per layer."""
     dev = torch.device("cuda")
+    label = "" if engine else "materialized-route "
     state = training.create_train_state(
         conditioned(seeded_model(SEED, torch.bfloat16)).to(dev))
     data = synthetic_batch(batch, height, width, SEED + 5, dev)
@@ -480,23 +713,25 @@ def train_phase(card: str, config, steps: int = 10, batch: int = 8,
     torch.cuda.reset_peak_memory_stats()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     losses = []
-    dense_conv.LAUNCHES = 0
-    warp_sample.LAUNCHES.update(dict.fromkeys(warp_sample.LAUNCHES, 0))
+    _reset_launch_counts()
     events[0].record()
     for i in range(steps):
         state, metrics = training.train_step(state, data, dcl, config)
         events[i + 1].record()
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
-    launches = {"dense_conv_fwd": dense_conv.LAUNCHES, **warp_sample.LAUNCHES}
+    launches = _launch_counts()
     losses = torch.stack(losses).cpu()
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
     steady = sorted(step_ms[2:])[len(step_ms[2:]) // 2]  # median after 2 warm-ups
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train phase: {steps} bf16 steps, b{batch} {height}x{width}: losses "
+    expected = {"dense_conv_fwd": 0 if engine else 44 * steps,
+                "warp_sample_fwd": steps, "warp_sample_bwd": steps,
+                **dict.fromkeys(block_engine.LAUNCHES, 44 * steps if engine else 0)}
+    print(f"{label}train phase: {steps} bf16 steps, b{batch} {height}x{width}: losses "
           + " ".join(f"{v:.5f}" for v in losses.tolist()))
-    print(f"  launches: {launches} (expected {44 * steps} / {steps} / {steps})")
-    print(f"timing [{card}] train step bf16 b{batch} {height}x{width}: "
+    print(f"  launches: {launches} (expected {expected})")
+    print(f"timing [{card}] {label}train step bf16 b{batch} {height}x{width}: "
           f"{steady:.4f} ms median of steps 3-{steps} ({batch * 1000 / steady:.2f} "
           f"samples/s); steps ms {[round(t, 3) for t in step_ms]}; "
           f"peak memory {peak:.2f} GiB")
@@ -504,8 +739,7 @@ def train_phase(card: str, config, steps: int = 10, batch: int = 8,
         raise AssertionError(f"losses not finite and decreasing: {losses.tolist()}")
     if int(state.step) != steps or int(state.count) != steps:
         raise AssertionError(f"step {int(state.step)}, count {int(state.count)}")
-    if launches != {"dense_conv_fwd": 44 * steps, "warp_sample_fwd": steps,
-                    "warp_sample_bwd": steps}:
+    if launches != expected:
         raise AssertionError(f"unexpected launch counts {launches}")
 
     bad = dict(data)
@@ -527,7 +761,8 @@ def train_phase(card: str, config, steps: int = 10, batch: int = 8,
     return {"launches": launches, "ms": steady, "state": state, "data": data}
 
 
-def profile_train_step(state, data, config, card: str, steady_ms: float) -> None:
+def profile_train_step(state, data, config, card: str, steady_ms: float,
+                       label: str = "") -> None:
     """torch.profiler over 3 bf16 train steps after the timed ones: the
     device time per step by op, and the device's idle share of the window
     (the profiler's own host cost included) and of ``steady_ms``, the same
@@ -545,13 +780,50 @@ def profile_train_step(state, data, config, card: str, steady_ms: float) -> None
     ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     kernels = [e for e in ops if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 3e3
-    print(f"profile [{card}] bf16 train step b8 256x320, 3 steps: window "
+    print(f"profile [{card}] {label}bf16 train step b8 256x320, 3 steps: window "
           f"{window:.3f} ms/step, device busy {busy:.3f} ms/step, idle share "
           f"{1 - busy / window:.4f} under the profiler, {1 - busy / steady_ms:.4f} "
           f"of the unprofiled median step {steady_ms:.4f} ms; device ms/step by op:")
     for e in sorted((e for e in ops if e not in kernels),
                     key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 3e3:9.3f}  x{e.count // 3:<5} {e.key[:80]}")
+
+
+def paired_steps_phase(card: str, config, engine_state, materialized_state, data,
+                       pairs: int = 10) -> None:
+    """``pairs`` pairs of one bf16 train step through the engine and one
+    through the materialized route, on the states the train phases left
+    and one batch, alternating which runs first; each step timed with CUDA
+    events from an idle card, so the host's launch time counts as it does
+    in training."""
+    dcl = torch.tensor(0.1, device="cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def step_ms(state, engine: bool) -> float:
+        torch.cuda.synchronize()
+        with contextlib.nullcontext() if engine else materialized_route():
+            start.record()
+            training.train_step(state, data, dcl, config)
+            end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    ms = {True: [], False: []}
+    for i in range(pairs):
+        for engine in ((True, False) if i % 2 == 0 else (False, True)):
+            ms[engine].append(step_ms(engine_state if engine else materialized_state,
+                                      engine))
+    wins = sum(e < m for e, m in zip(ms[True], ms[False]))
+
+    def quartiles(v):
+        q = np.percentile(v, [25, 50, 75])
+        return f"median {q[1]:.4f} ms (quartiles {q[0]:.4f}-{q[2]:.4f})"
+
+    print(f"timing [{card}] paired bf16 train steps b8 256x320, {pairs} pairs, "
+          f"alternating first: engine {quartiles(ms[True])}, materialized route "
+          f"{quartiles(ms[False])}; engine faster in {wins} of {pairs}; engine ms "
+          f"{[round(t, 3) for t in ms[True]]}, materialized ms "
+          f"{[round(t, 3) for t in ms[False]]}")
 
 
 def _run(cmd) -> str:
@@ -584,6 +856,7 @@ def main() -> int:
     kernel = kernel_phase(card)
     print(f"sampler phase, {card}:")
     sampler = sampler_phase(card)
+    engine = engine_kernel_phase(card)
     print(f"K1 backward phase, {card}:")
     dense_conv_backward_phase()
 
@@ -591,7 +864,7 @@ def main() -> int:
         checkpoint = Path(tmp) / "seeded_fcdensenet57.pt"
         save_reference_checkpoint(checkpoint, seeded_model(SEED))
 
-        dense_conv.LAUNCHES = 0
+        _reset_launch_counts()
         a = serving_phase(checkpoint, "cuda", torch.bfloat16, 256, 320,
                           batch=8, n_stream=24)
         hi = DepthPredictor(checkpoint, synthetic_sequence(512, 576), batch_size=1,
@@ -623,27 +896,47 @@ def main() -> int:
         print(f"forward ms: {json.dumps(fwd)}")
         del hi
 
-    config = training.TrainConfig(lr_step_size=50)
+    base = training.TrainConfig(lr_step_size=50)
+    config = dataclasses.replace(base, compute_dtype=torch.bfloat16)
     print(f"train parity phase, {card}:")
-    train_parity_phase(config)
-    config = dataclasses.replace(config, compute_dtype=torch.bfloat16)
+    train_parity_phase(base)
     train = train_phase(card, config)
     profile_train_step(train["state"], train["data"], config, card, train["ms"])
-
     launches = dict(train["launches"])
-    launches["dense_conv_fwd"] += serving_launches  # K1 runs on both paths
+    launches["dense_conv_fwd"] += serving_launches
+
+    print(f"materialized-route comparison (the engine's gate closed), {card}:")
+    with materialized_route():
+        train_parity_phase(base)
+        materialized = train_phase(card, config, engine=False)
+        profile_train_step(materialized["state"], materialized["data"], config, card,
+                           materialized["ms"], "materialized-route ")
+    paired_steps_phase(card, config, train["state"], materialized["state"],
+                       train["data"])
+    del train, materialized
+
     measured = {
-        "dense_conv_fwd": (kernel["max_abs_err"], kernel["ms"], kernel["plain_ms"]),
-        "warp_sample_fwd": (sampler["err"]["abs_fwd"], sampler["ms"]["fwd"],
-                            sampler["ms"]["plain_fwd"]),
-        "warp_sample_bwd": (sampler["err"]["abs_bwd"], sampler["ms"]["bwd"],
-                            sampler["ms"]["plain_bwd"]),
+        "dense_conv_fwd": dict(kernel),
+        "warp_sample_fwd": {
+            "max_abs_err": sampler["err"]["abs_fwd"], "ms": sampler["ms"]["fwd"],
+            "plain_ms": sampler["ms"]["plain_fwd"],
+            "library_ms": sampler["ms"]["library_fwd"],
+            "bound_ms": sampler["bounds"]["fwd"][0],
+            "bound_by": sampler["bounds"]["fwd"][1]},
+        "warp_sample_bwd": {
+            "max_abs_err": sampler["err"]["abs_bwd"], "ms": sampler["ms"]["bwd"],
+            "plain_ms": sampler["ms"]["plain_bwd"],
+            "library_ms": sampler["ms"]["library_bwd"],
+            "bound_ms": sampler["bounds"]["bwd"][0],
+            "bound_by": sampler["bounds"]["bwd"][1]},
+        **engine,
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, (err, ms, plain_ms) in measured.items()]}))
+         **{k: m[k] for k in keys}}
+        for name, m in measured.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,679 @@
+// The whole-dense-block engine's three per-layer kernels for Hopper (sm_90a).
+//
+// A dense block of L layers with growth F keeps ONE NHWC buffer
+// buf (B, H, W, ld), ld = C0 + L*F: the block input in channels [0, C0) and
+// layer j's output in [C0 + j*F, C0 + (j+1)*F). Layer j reads the channel
+// prefix [0, C) with C = C0 + j*F at row stride ld, so no concatenation
+// ever exists. The backward works on one gradient buffer of the same shape.
+// With a = max(x*scale + shift, 0) (the folded BatchNorm, in f32, rounded to
+// the element type, zero outside the image) and gy_eff = g + c1 + c2*y (the
+// block's lazily applied BN-through-statistics gradient, rounded likewise):
+//
+//   K4 block_engine_fwd      y = conv3x3(a, W) + bias into buf[..., C:C+F],
+//                            with per-block partial (sum y, sum y^2) of the
+//                            stored (rounded) y
+//   K5 block_engine_dinput   da = conv3x3^T(gy_eff, W); dpre = da * (a > 0);
+//                            grad[..., :C] += dpre*scale in place; per-block
+//                            partial (sum dpre*x, sum dpre) per channel and
+//                            sum gy_eff per output channel
+//   K6 block_engine_dweight  dW[ky,kx,c,f] = sum_p a[p+(ky-1,kx-1),c] *
+//                            gy_eff[p,f], as per-block f32 partials over
+//                            strided tile sets, summed in a second pass
+//
+// Replaces the Pallas TPU kernels endoscopydepthestimation_pytorch_tpu/ops/
+// block_engine.py `_fwd_kernel` (:332, launched by `_layer_fwd` :464),
+// `_bwd1_kernel` (:642, `_layer_bwd1` :797) and `_bwd2_kernel` (:919,
+// `_layer_bwd2` :1052). None of the TPU layout is carried over (the packed
+// (B/8, 8d, H, G, 8b, C) x layout, the packed-96 growth segments and their
+// block-tridiagonal weight tables, 128-lane K chunks, VMEM row budgets); the
+// single buffer with a channel offset takes the place of the side segments.
+// Every cross-block reduction goes through per-block partials summed in a
+// fixed order: no atomics, so the BN gradients are the same on every run.
+//
+// What bounds them on an H100. FCDenseNet-57's 44 layers of one train step
+// at 2B = 16, 256x320 take ~392 GFLOP per kernel and move ~4.0 GB (K4, K6)
+// and ~11.2 GB (K5: the bf16 prefix gradient read and written): below the
+// bf16 tensor-core ridge, so memory-bound at ~1.2 / ~3.4 ms with tensor
+// cores. These kernels do their MACs as f32 FFMAs on the CUDA cores, which
+// makes them FFMA-bound at ~5.8 ms each (67 TFLOP/s). Derived from the
+// shapes, not measured.
+//
+// Designs (direct convolution, simple first; mma/wgmma are later work):
+//   K4  K1's design (csrc/dense_conv.cu): a 16x32 output tile of one image,
+//       128 threads, 4 rows x all F per thread, the (18x34) x 16-channel
+//       activated halo in shared memory; plus the prefix stride and the
+//       output offset, and a block reduction of the stored y.
+//   K5  the same tile; the gy_eff halo (F channels) is loaded ONCE into
+//       shared memory and the block then loops over 16-channel chunks of the
+//       prefix, each thread accumulating 4 rows x 16 channels over the
+//       transposed taps; the epilogue reads x, applies the mask and updates
+//       the gradient in place. At the deep levels a grid axis splits the
+//       chunks so the card has enough blocks.
+//   K6  an 8x32 tile set per (16-channel chunk, split) block, 192 threads =
+//       16 channels x 3 row taps x 4 row groups; each thread slides a
+//       3-wide window of the activated row over the tile and accumulates
+//       3 x F outputs against gy_eff read as float4 broadcasts. The blocks
+//       loop over the tiles t = split, split + S, ... (the TPU's sequential
+//       grid axis), the 4 row groups are reduced in shared memory, and a
+//       second kernel sums the S partials.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int MAX_GROWTH = 16;
+
+// K4 and K5 tile (the K1 tile)
+constexpr int TW = 32;                      // tile width (threads in x)
+constexpr int RPT = 4;                      // output rows per thread
+constexpr int TY = 4;                       // threads in y
+constexpr int TH = TY * RPT;                // tile height
+constexpr int NT = TW * TY;                 // threads per block
+constexpr int NWARP = NT / 32;
+constexpr int CC = 16;                      // channels per chunk
+constexpr int HALO = (TH + 2) * (TW + 2);
+constexpr int PS = HALO + 1;                // odd pitch: fewer bank conflicts
+
+// K6 tile
+constexpr int TW6 = 32;
+constexpr int TH6 = 8;
+constexpr int Q6 = 4;                       // row groups
+constexpr int NT6 = CC * 3 * Q6;            // 192 threads
+constexpr int HALO6 = (TH6 + 2) * (TW6 + 2);
+constexpr int PS6 = HALO6 + 1;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16(v);
+}
+
+// v rounded to T and back: the value a T tensor would hold
+template <typename T> __device__ __forceinline__ float rounded(float v) {
+  return to_float(from_float<T>(v));
+}
+
+// relu(x*scale + shift) with the product and the sum rounded separately,
+// as the plain version's two PyTorch ops round them: a fused multiply-add
+// can flip the sign of a value next to 0, and with it K5's ReLU mask,
+// which passes or drops a whole da term
+__device__ __forceinline__ float affine_relu(float x, float scale, float shift) {
+  return fmaxf(__fadd_rn(__fmul_rn(x, scale), shift), 0.f);
+}
+
+// gy_eff = (g + c1) + c2*y, each step rounded as in the plain version
+__device__ __forceinline__ float gy_eff(float g, float y, float c1, float c2) {
+  return __fadd_rn(__fadd_rn(g, c1), __fmul_rn(c2, y));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// K4: layer forward
+
+template <typename T, int FP>
+__global__ void __launch_bounds__(NT) fwd_kernel(
+    T* buf, const float* __restrict__ scale, const float* __restrict__ shift,
+    const T* __restrict__ w, const float* __restrict__ bias,
+    float* __restrict__ part, int H, int W, int C, int F, int ld) {
+  __shared__ float s_x[CC * PS];
+  __shared__ __align__(16) float s_w[9 * CC * FP];
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * TW + tx;
+  const int w0 = blockIdx.x * TW, h0 = blockIdx.y * TH;
+  T* bb = buf + (size_t)blockIdx.z * H * W * ld;
+
+  float acc[RPT][FP];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+#pragma unroll
+    for (int f = 0; f < FP; ++f) acc[r][f] = 0.f;
+
+  for (int c0 = 0; c0 < C; c0 += CC) {
+    for (int e = tid; e < HALO * CC; e += NT) {
+      const int c = e % CC, pos = e / CC;
+      const int gh = h0 + pos / (TW + 2) - 1, gw = w0 + pos % (TW + 2) - 1;
+      const int gc = c0 + c;
+      float v = 0.f;
+      if (gh >= 0 && gh < H && gw >= 0 && gw < W && gc < C) {
+        const float t = to_float(bb[((size_t)gh * W + gw) * ld + gc]);
+        v = rounded<T>(affine_relu(t, scale[gc], shift[gc]));
+      }
+      s_x[c * PS + pos] = v;
+    }
+    for (int e = tid; e < 9 * CC * FP; e += NT) {
+      const int f = e % FP, c = (e / FP) % CC, tap = e / (FP * CC);
+      const int gc = c0 + c;
+      s_w[e] = (f < F && gc < C) ? to_float(w[((size_t)tap * C + gc) * F + f])
+                                 : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int c = 0; c < CC; ++c) {
+      const float* xs = s_x + c * PS + ty * RPT * (TW + 2) + tx;
+      float a[RPT + 2][3];
+#pragma unroll
+      for (int r = 0; r < RPT + 2; ++r)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) a[r][kx] = xs[r * (TW + 2) + kx];
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float4* wv = reinterpret_cast<const float4*>(
+              s_w + ((ky * 3 + kx) * CC + c) * FP);
+          float wr[FP];
+#pragma unroll
+          for (int q = 0; q < FP / 4; ++q) {
+            const float4 t = wv[q];
+            wr[4 * q] = t.x;
+            wr[4 * q + 1] = t.y;
+            wr[4 * q + 2] = t.z;
+            wr[4 * q + 3] = t.w;
+          }
+#pragma unroll
+          for (int r = 0; r < RPT; ++r)
+#pragma unroll
+            for (int f = 0; f < FP; ++f)
+              acc[r][f] = fmaf(a[r + ky][kx], wr[f], acc[r][f]);
+        }
+    }
+    __syncthreads();
+  }
+
+  // store the rounded y; its statistics are those of the stored values
+  float s1[FP], s2[FP];
+#pragma unroll
+  for (int f = 0; f < FP; ++f) s1[f] = s2[f] = 0.f;
+  const int gw = w0 + tx;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int gh = h0 + ty * RPT + r;
+    if (gw < W && gh < H) {
+      T* yp = bb + ((size_t)gh * W + gw) * ld + C;
+#pragma unroll
+      for (int f = 0; f < FP; ++f)
+        if (f < F) {
+          const T yv = from_float<T>(acc[r][f] + bias[f]);
+          yp[f] = yv;
+          const float yf = to_float(yv);
+          s1[f] += yf;
+          s2[f] = fmaf(yf, yf, s2[f]);
+        }
+    }
+  }
+  // block reduction in a fixed order; s_x is free after the last sync
+  float* red = s_x;  // [warp][2][FP]
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int f = 0; f < FP; ++f) {
+    const float a = warp_sum(s1[f]), b = warp_sum(s2[f]);
+    if (lane == 0) {
+      red[(warp * 2) * FP + f] = a;
+      red[(warp * 2 + 1) * FP + f] = b;
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * F) {
+    const int k = tid / F, f = tid % F;
+    float t = 0.f;
+    for (int i = 0; i < NWARP; ++i) t += red[(i * 2 + k) * FP + f];
+    const size_t nblk = (size_t)gridDim.x * gridDim.y * gridDim.z;
+    const size_t sb =
+        ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    part[(k * nblk + sb) * F + f] = t;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5: input and segment gradients of one layer
+
+template <typename T, int FP>
+__global__ void __launch_bounds__(NT) dinput_kernel(
+    T* grad, const T* buf, const float* __restrict__ scale,
+    const float* __restrict__ shift, const T* __restrict__ w,
+    const float* __restrict__ c1, const float* __restrict__ c2,
+    float* __restrict__ part, float* __restrict__ part_bias, int B, int H,
+    int W, int C, int F, int ld, int n_split, int chunks_per_block) {
+  __shared__ float s_g[FP * PS];                    // gy_eff halo [f][pos]
+  __shared__ __align__(16) float s_w[9 * FP * CC];  // [tap][f][c]
+  __shared__ float s_red[NWARP * 2 * CC];
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * TW + tx;
+  const int warp = tid / 32, lane = tid % 32;
+  const int split = blockIdx.z % n_split, b = blockIdx.z / n_split;
+  const int w0 = blockIdx.x * TW, h0 = blockIdx.y * TH;
+  const size_t img = (size_t)b * H * W * ld;
+  T* gb = grad + img;
+  const T* bb = buf + img;
+  const size_t nsp = (size_t)B * gridDim.y * gridDim.x;
+  const size_t sb = ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+
+  // gy_eff = g + c1 + c2*y over the halo, zero outside the image; the
+  // layer's own channels [C, C+F) are never written by this kernel
+  for (int e = tid; e < HALO * FP; e += NT) {
+    const int f = e % FP, pos = e / FP;
+    const int gh = h0 + pos / (TW + 2) - 1, gw = w0 + pos % (TW + 2) - 1;
+    float v = 0.f;
+    if (f < F && gh >= 0 && gh < H && gw >= 0 && gw < W) {
+      const size_t p = ((size_t)gh * W + gw) * ld + C + f;
+      v = rounded<T>(gy_eff(to_float(gb[p]), to_float(bb[p]), c1[f], c2[f]));
+    }
+    s_g[f * PS + pos] = v;
+  }
+  __syncthreads();
+
+  if (split == 0) {  // sum gy_eff over the tile (zeros outside the image)
+    float db[FP];
+#pragma unroll
+    for (int f = 0; f < FP; ++f) {
+      db[f] = 0.f;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        db[f] += s_g[f * PS + (ty * RPT + r + 1) * (TW + 2) + tx + 1];
+    }
+    float* red = s_red;  // [warp][FP], FP <= 2*CC
+#pragma unroll
+    for (int f = 0; f < FP; ++f) {
+      const float a = warp_sum(db[f]);
+      if (lane == 0) red[warp * FP + f] = a;
+    }
+    __syncthreads();
+    if (tid < F) {
+      float t = 0.f;
+      for (int i = 0; i < NWARP; ++i) t += red[i * FP + tid];
+      part_bias[sb * F + tid] = t;
+    }
+    __syncthreads();
+  }
+
+  for (int k = 0; k < chunks_per_block; ++k) {
+    const int cc0 = (split * chunks_per_block + k) * CC;
+    if (cc0 >= C) break;
+    for (int e = tid; e < 9 * FP * CC; e += NT) {
+      const int c = e % CC, f = (e / CC) % FP, tap = e / (CC * FP);
+      const int gc = cc0 + c;
+      s_w[e] = (f < F && gc < C) ? to_float(w[((size_t)tap * C + gc) * F + f])
+                                 : 0.f;
+    }
+    __syncthreads();
+
+    float acc[RPT][CC];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+#pragma unroll
+      for (int c = 0; c < CC; ++c) acc[r][c] = 0.f;
+
+#pragma unroll 1
+    for (int f = 0; f < FP; ++f) {
+      const float* gs = s_g + f * PS + ty * RPT * (TW + 2) + tx;
+      float gv[RPT + 2][3];
+#pragma unroll
+      for (int r = 0; r < RPT + 2; ++r)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) gv[r][kx] = gs[r * (TW + 2) + kx];
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          // output row r reads gy at halo row r + 2 - ky, column 2 - kx
+          const float4* wv = reinterpret_cast<const float4*>(
+              s_w + ((ky * 3 + kx) * FP + f) * CC);
+          float wr[CC];
+#pragma unroll
+          for (int q = 0; q < CC / 4; ++q) {
+            const float4 t = wv[q];
+            wr[4 * q] = t.x;
+            wr[4 * q + 1] = t.y;
+            wr[4 * q + 2] = t.z;
+            wr[4 * q + 3] = t.w;
+          }
+#pragma unroll
+          for (int r = 0; r < RPT; ++r)
+#pragma unroll
+            for (int c = 0; c < CC; ++c)
+              acc[r][c] = fmaf(gv[r + 2 - ky][2 - kx], wr[c], acc[r][c]);
+        }
+    }
+
+    // mask, scale, in-place gradient update, BN partial sums
+    float sx[CC], ss[CC];
+#pragma unroll
+    for (int c = 0; c < CC; ++c) sx[c] = ss[c] = 0.f;
+    const int gw = w0 + tx;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int gh = h0 + ty * RPT + r;
+      if (gw < W && gh < H) {
+        const size_t p = ((size_t)gh * W + gw) * ld + cc0;
+#pragma unroll
+        for (int c = 0; c < CC; ++c)
+          if (cc0 + c < C) {
+            const int gc = cc0 + c;
+            const float xv = to_float(bb[p + c]);
+            const float a = rounded<T>(affine_relu(xv, scale[gc], shift[gc]));
+            const float d = a > 0.f ? acc[r][c] : 0.f;
+            gb[p + c] = from_float<T>(__fadd_rn(to_float(gb[p + c]), __fmul_rn(d, scale[gc])));
+            sx[c] = fmaf(d, xv, sx[c]);
+            ss[c] += d;
+          }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CC; ++c) {
+      const float a = warp_sum(sx[c]), d = warp_sum(ss[c]);
+      if (lane == 0) {
+        s_red[(warp * 2) * CC + c] = a;
+        s_red[(warp * 2 + 1) * CC + c] = d;
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * CC) {
+      const int kk = tid / CC, c = tid % CC;
+      if (cc0 + c < C) {
+        float t = 0.f;
+        for (int i = 0; i < NWARP; ++i) t += s_red[(i * 2 + kk) * CC + c];
+        part[(kk * nsp + sb) * C + cc0 + c] = t;
+      }
+    }
+    __syncthreads();  // s_w and s_red are rewritten by the next chunk
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6: weight gradients of one layer
+
+template <int FP>
+struct DweightSmem {
+  static constexpr int A = CC * PS6;            // activated halo [c][pos]
+  static constexpr int A4 = (A + 3) / 4 * 4;    // 16-byte aligned s_g
+  static constexpr int G = TH6 * TW6 * FP;      // gy_eff tile [pix][f]
+  static constexpr int RED = Q6 * CC * 9 * FP;  // [q][c][tap][f]
+  static constexpr int SIZE = (A4 + G > RED) ? A4 + G : RED;
+};
+
+template <typename T, int FP>
+__global__ void __launch_bounds__(NT6) dweight_kernel(
+    const T* grad, const T* buf, const float* __restrict__ scale,
+    const float* __restrict__ shift, const float* __restrict__ c1,
+    const float* __restrict__ c2, float* __restrict__ part, int B, int H,
+    int W, int C, int F, int ld) {
+  using S = DweightSmem<FP>;
+  __shared__ __align__(16) float smem[S::SIZE];
+  float* s_a = smem;
+  float* s_g = smem + S::A4;
+
+  const int tid = threadIdx.x;
+  const int c = tid % CC, ky = (tid / CC) % 3, q = tid / (3 * CC);
+  const int cc0 = blockIdx.x * CC;
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int tiles_w = (W + TW6 - 1) / TW6, tiles_h = (H + TH6 - 1) / TH6;
+  const int n_tiles = B * tiles_h * tiles_w;
+
+  float acc[3][FP];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int f = 0; f < FP; ++f) acc[kx][f] = 0.f;
+
+  for (int t = split; t < n_tiles; t += n_split) {
+    const int w0 = (t % tiles_w) * TW6;
+    const int h0 = ((t / tiles_w) % tiles_h) * TH6;
+    const size_t img = (size_t)(t / (tiles_w * tiles_h)) * H * W * ld;
+    const T* bb = buf + img;
+    const T* gb = grad + img;
+    for (int e = tid; e < HALO6 * CC; e += NT6) {
+      const int cc = e % CC, pos = e / CC;
+      const int gh = h0 + pos / (TW6 + 2) - 1, gw = w0 + pos % (TW6 + 2) - 1;
+      const int gc = cc0 + cc;
+      float v = 0.f;
+      if (gh >= 0 && gh < H && gw >= 0 && gw < W && gc < C) {
+        const float x = to_float(bb[((size_t)gh * W + gw) * ld + gc]);
+        v = rounded<T>(affine_relu(x, scale[gc], shift[gc]));
+      }
+      s_a[cc * PS6 + pos] = v;
+    }
+    for (int e = tid; e < TH6 * TW6 * FP; e += NT6) {
+      const int f = e % FP, pix = e / FP;
+      const int gh = h0 + pix / TW6, gw = w0 + pix % TW6;
+      float v = 0.f;
+      if (f < F && gh < H && gw < W) {
+        const size_t p = ((size_t)gh * W + gw) * ld + C + f;
+        v = rounded<T>(gy_eff(to_float(gb[p]), to_float(bb[p]), c1[f], c2[f]));
+      }
+      s_g[pix * FP + f] = v;
+    }
+    __syncthreads();
+
+#pragma unroll 1
+    for (int hr = 0; hr < TH6 / Q6; ++hr) {
+      const int h = q * (TH6 / Q6) + hr;
+      const float* arow = s_a + c * PS6 + (h + ky) * (TW6 + 2);
+      float a0 = arow[0], a1 = arow[1];
+#pragma unroll 4
+      for (int x = 0; x < TW6; ++x) {
+        const float a2 = arow[x + 2];
+        const float4* gv = reinterpret_cast<const float4*>(s_g + (h * TW6 + x) * FP);
+        float gr[FP];
+#pragma unroll
+        for (int i = 0; i < FP / 4; ++i) {
+          const float4 v = gv[i];
+          gr[4 * i] = v.x;
+          gr[4 * i + 1] = v.y;
+          gr[4 * i + 2] = v.z;
+          gr[4 * i + 3] = v.w;
+        }
+#pragma unroll
+        for (int f = 0; f < FP; ++f) {
+          acc[0][f] = fmaf(a0, gr[f], acc[0][f]);
+          acc[1][f] = fmaf(a1, gr[f], acc[1][f]);
+          acc[2][f] = fmaf(a2, gr[f], acc[2][f]);
+        }
+        a0 = a1;
+        a1 = a2;
+      }
+    }
+    __syncthreads();
+  }
+
+  // reduce the row groups in shared memory (free after the last sync)
+  float* red = smem;
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int f = 0; f < FP; ++f)
+      red[((q * CC + c) * 9 + ky * 3 + kx) * FP + f] = acc[kx][f];
+  __syncthreads();
+  for (int e = tid; e < CC * 9 * F; e += NT6) {
+    const int f = e % F, tap = (e / F) % 9, cc = e / (9 * F);
+    if (cc0 + cc < C) {
+      float s = 0.f;
+      for (int i = 0; i < Q6; ++i) s += red[((i * CC + cc) * 9 + tap) * FP + f];
+      part[(((size_t)split * 9 + tap) * C + cc0 + cc) * F + f] = s;
+    }
+  }
+}
+
+// out[i] = sum over s of part[s][i], in order
+__global__ void sum_partials_kernel(const float* __restrict__ part,
+                                    float* __restrict__ out, int S, int N) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  float s = 0.f;
+  for (int k = 0; k < S; ++k) s += part[(size_t)k * N + i];
+  out[i] = s;
+}
+
+int tiles(int n, int t) { return (n + t - 1) / t; }
+
+bool bad_dims(int B, int H, int W, int C, int F, int ld) {
+  return B < 1 || H < 1 || W < 1 || C < 1 || F < 1 || F > MAX_GROWTH ||
+         C + F > ld || B > 65535;
+}
+
+template <typename T>
+cudaError_t launch_fwd(void* buf, const float* scale, const float* shift,
+                       const void* w, const float* bias, float* part, int B,
+                       int H, int W, int C, int F, int ld, cudaStream_t s) {
+  const dim3 block(TW, TY), grid(tiles(W, TW), tiles(H, TH), B);
+  T* b = static_cast<T*>(buf);
+  const T* wt = static_cast<const T*>(w);
+  switch ((F + 3) / 4) {
+    case 1: fwd_kernel<T, 4><<<grid, block, 0, s>>>(b, scale, shift, wt, bias, part, H, W, C, F, ld); break;
+    case 2: fwd_kernel<T, 8><<<grid, block, 0, s>>>(b, scale, shift, wt, bias, part, H, W, C, F, ld); break;
+    case 3: fwd_kernel<T, 12><<<grid, block, 0, s>>>(b, scale, shift, wt, bias, part, H, W, C, F, ld); break;
+    default: fwd_kernel<T, 16><<<grid, block, 0, s>>>(b, scale, shift, wt, bias, part, H, W, C, F, ld); break;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dinput(void* grad, const void* buf, const float* scale,
+                          const float* shift, const void* w, const float* c1,
+                          const float* c2, float* part, float* part_bias,
+                          int B, int H, int W, int C, int F, int ld,
+                          int n_split, cudaStream_t s) {
+  const int cpb = tiles(tiles(C, CC), n_split);
+  const dim3 block(TW, TY), grid(tiles(W, TW), tiles(H, TH), B * n_split);
+  T* g = static_cast<T*>(grad);
+  const T* b = static_cast<const T*>(buf);
+  const T* wt = static_cast<const T*>(w);
+  switch ((F + 3) / 4) {
+    case 1: dinput_kernel<T, 4><<<grid, block, 0, s>>>(g, b, scale, shift, wt, c1, c2, part, part_bias, B, H, W, C, F, ld, n_split, cpb); break;
+    case 2: dinput_kernel<T, 8><<<grid, block, 0, s>>>(g, b, scale, shift, wt, c1, c2, part, part_bias, B, H, W, C, F, ld, n_split, cpb); break;
+    case 3: dinput_kernel<T, 12><<<grid, block, 0, s>>>(g, b, scale, shift, wt, c1, c2, part, part_bias, B, H, W, C, F, ld, n_split, cpb); break;
+    default: dinput_kernel<T, 16><<<grid, block, 0, s>>>(g, b, scale, shift, wt, c1, c2, part, part_bias, B, H, W, C, F, ld, n_split, cpb); break;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dweight(const void* grad, const void* buf,
+                           const float* scale, const float* shift,
+                           const float* c1, const float* c2, float* part,
+                           float* dw, int B, int H, int W, int C, int F,
+                           int ld, int n_split, cudaStream_t s) {
+  const dim3 grid(tiles(C, CC), n_split);
+  const T* g = static_cast<const T*>(grad);
+  const T* b = static_cast<const T*>(buf);
+  switch ((F + 3) / 4) {
+    case 1: dweight_kernel<T, 4><<<grid, NT6, 0, s>>>(g, b, scale, shift, c1, c2, part, B, H, W, C, F, ld); break;
+    case 2: dweight_kernel<T, 8><<<grid, NT6, 0, s>>>(g, b, scale, shift, c1, c2, part, B, H, W, C, F, ld); break;
+    case 3: dweight_kernel<T, 12><<<grid, NT6, 0, s>>>(g, b, scale, shift, c1, c2, part, B, H, W, C, F, ld); break;
+    default: dweight_kernel<T, 16><<<grid, NT6, 0, s>>>(g, b, scale, shift, c1, c2, part, B, H, W, C, F, ld); break;
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = 9 * C * F;
+  sum_partials_kernel<<<tiles(n, 256), 256, 0, s>>>(part, dw, n_split, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int block_engine_max_growth() { return MAX_GROWTH; }
+
+// All three: dtype 0 = float32, 1 = bfloat16 for buf, grad and w; scale,
+// shift, bias, c1, c2 and every partial are float32. buf and grad are
+// contiguous (B, H, W, ld); the layer reads channels [0, C) and owns
+// [C, C+F). n_part must be the kernel's count of spatial blocks,
+// B * ceil(H/16) * ceil(W/32) (K4, K5). Each returns cudaGetLastError()
+// after its launches, or cudaErrorInvalidValue for arguments it does not
+// take.
+
+// K4. part: (2, n_part, F), the per-block (sum y, sum y^2).
+int block_engine_fwd(int dtype, void* buf, const void* scale,
+                     const void* shift, const void* w, const void* bias,
+                     void* part, int B, int H, int W, int C, int F, int ld,
+                     int n_part, void* stream) {
+  if (bad_dims(B, H, W, C, F, ld) ||
+      n_part != B * tiles(H, TH) * tiles(W, TW))
+    return (int)cudaErrorInvalidValue;
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  const float* bi = static_cast<const float*>(bias);
+  float* p = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_fwd<float>(buf, sc, sh, w, bi, p, B, H, W, C, F, ld, s);
+  if (dtype == 1)
+    return (int)launch_fwd<__nv_bfloat16>(buf, sc, sh, w, bi, p, B, H, W, C,
+                                          F, ld, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5. part: (2, n_part, C), the per-block (sum dpre*x, sum dpre); part_bias:
+// (n_part, F), the per-block sum of gy_eff. n_split: how many blocks share
+// one tile's channel chunks (1 .. ceil(C/16)).
+int block_engine_dinput(int dtype, void* grad, const void* buf,
+                        const void* scale, const void* shift, const void* w,
+                        const void* c1, const void* c2, void* part,
+                        void* part_bias, int B, int H, int W, int C, int F,
+                        int ld, int n_part, int n_split, void* stream) {
+  if (bad_dims(B, H, W, C, F, ld) ||
+      n_part != B * tiles(H, TH) * tiles(W, TW) || n_split < 1 ||
+      n_split > tiles(C, CC) || B * n_split > 65535)
+    return (int)cudaErrorInvalidValue;
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  const float* a = static_cast<const float*>(c1);
+  const float* b = static_cast<const float*>(c2);
+  float* p = static_cast<float*>(part);
+  float* pb = static_cast<float*>(part_bias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_dinput<float>(grad, buf, sc, sh, w, a, b, p, pb, B, H,
+                                     W, C, F, ld, n_split, s);
+  if (dtype == 1)
+    return (int)launch_dinput<__nv_bfloat16>(grad, buf, sc, sh, w, a, b, p,
+                                             pb, B, H, W, C, F, ld, n_split,
+                                             s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6. part: (n_split, 9, C, F) scratch; dw: (3, 3, C, F), the sum of the
+// partials. n_split: how many blocks share one channel chunk's tiles
+// (1 .. B * ceil(H/8) * ceil(W/32)).
+int block_engine_dweight(int dtype, const void* grad, const void* buf,
+                         const void* scale, const void* shift, const void* c1,
+                         const void* c2, void* part, void* dw, int B, int H,
+                         int W, int C, int F, int ld, int n_split,
+                         void* stream) {
+  if (bad_dims(B, H, W, C, F, ld) || n_split < 1 || n_split > 65535 ||
+      n_split > B * tiles(H, TH6) * tiles(W, TW6))
+    return (int)cudaErrorInvalidValue;
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  const float* a = static_cast<const float*>(c1);
+  const float* b = static_cast<const float*>(c2);
+  float* p = static_cast<float*>(part);
+  float* d = static_cast<float*>(dw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_dweight<float>(grad, buf, sc, sh, a, b, p, d, B, H, W,
+                                      C, F, ld, n_split, s);
+  if (dtype == 1)
+    return (int)launch_dweight<__nv_bfloat16>(grad, buf, sc, sh, a, b, p, d,
+                                              B, H, W, C, F, ld, n_split, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -15,6 +15,15 @@ as one ``ops.dense_conv.fused_dense_conv`` call; the other convolutions,
 the maxpool, the upsample, the crop and the head are plain PyTorch.
 Parameters and BN statistics stay float32; activations run in ``dtype``.
 
+In train mode each dense block runs through the whole-block engine
+``ops.block_engine`` (JAX ``FCDenseNet(block_engine=True)``, :622-666):
+one buffer per block, no concatenation, the BN statistics from the
+forward kernel, and a hand-written backward. The down blocks then hand
+their output's statistics to ``TransitionDown`` (JAX :690-698). A block
+whose shape the engine's gate (``ops.block_engine.supported``) rejects,
+and every block in eval mode, runs the per-layer kernel, as JAX's eval
+mode does (:337). The parameters are the same either way.
+
 BatchNorm follows the JAX package's ``BNFold`` (fcdensenet.py:195-211),
 not torch's defaults. In eval mode it folds the running statistics. In
 train mode it folds the batch statistics mu = mean(x) and
@@ -36,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import block_engine as engine
 from ..ops.dense_conv import fused_dense_conv
 
 MOMENTUM = 0.9  # running statistics keep 0.9 of their value (torch's 0.1)
@@ -77,18 +87,28 @@ class BatchMoments(torch.autograd.Function):
         return dx.to(x.dtype)
 
 
-def batch_fold(bn: nn.BatchNorm2d, x: torch.Tensor) -> tuple:
-    """``bn`` folded into float32 (scale, shift) for the NCHW input ``x``:
-    in eval mode from the running statistics; in train mode from the
-    batch statistics, advancing the running ones (JAX ``BNFold``)."""
-    if not bn.training:
-        return fold_batchnorm(bn)
-    mean, mean2 = BatchMoments.apply(x)
+def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                         mean2: torch.Tensor) -> torch.Tensor:
+    """Move ``bn``'s running statistics to 0.9*r + 0.1*stat with the biased
+    variance mean2 - mean^2 (JAX ``BNFold``, fcdensenet.py:195-207);
+    returns that variance."""
     var = mean2 - mean.square()
     with torch.no_grad():
         bn.running_mean.copy_(MOMENTUM * bn.running_mean + (1.0 - MOMENTUM) * mean)
         bn.running_var.copy_(MOMENTUM * bn.running_var + (1.0 - MOMENTUM) * var)
-    return _fold(bn, mean, var)
+    return var
+
+
+def batch_fold(bn: nn.BatchNorm2d, x: torch.Tensor, stats=None) -> tuple:
+    """``bn`` folded into float32 (scale, shift) for the NCHW input ``x``:
+    in eval mode from the running statistics; in train mode from the
+    batch statistics (``stats`` = (mean, mean of squares) when the
+    producer already has them), advancing the running ones (JAX
+    ``BNFold``)."""
+    if not bn.training:
+        return fold_batchnorm(bn)
+    mean, mean2 = BatchMoments.apply(x) if stats is None else stats
+    return _fold(bn, mean, update_running_stats(bn, mean, mean2))
 
 
 def center_crop(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
@@ -117,23 +137,54 @@ class DenseLayer(nn.Module):
 
 class DenseBlock(nn.Module):
     """Iterative concat of dense layers. With ``upsample=True`` only the
-    new features are returned (reference models.py:31-53)."""
+    new features are returned (reference models.py:31-53).
+
+    In train mode, when ``ops.block_engine.supported`` takes the shape,
+    the whole block runs through the engine (JAX
+    ``DenseBlock._block_vjp_path`` :332-379 and ``__call__`` :381-394);
+    otherwise layer by layer, concatenating."""
 
     def __init__(self, in_channels: int, growth_rate: int, n_layers: int,
                  upsample: bool = False):
         super().__init__()
         self.upsample = upsample
+        self.growth_rate = growth_rate
         self.layers = nn.ModuleList(
             DenseLayer(in_channels + j * growth_rate, growth_rate)
             for j in range(n_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _engine(self, x: torch.Tensor) -> tuple:
+        """The block through the engine: (output NCHW in channels_last
+        memory, its (mean, mean of squares)); advances every layer's
+        running statistics from the engine's prefix statistics."""
+        c0, g = x.shape[1], self.growth_rate
+        layers = list(self.layers)
+        buf, mu, m2 = engine.block_engine_apply(
+            x.permute(0, 2, 3, 1),
+            [l.norm.weight for l in layers], [l.norm.bias for l in layers],
+            [l.conv.weight.permute(2, 3, 1, 0) for l in layers],
+            [l.conv.bias for l in layers])
+        for j, layer in enumerate(layers):
+            c = c0 + j * g
+            update_running_stats(layer.norm, mu[:c].detach(), m2[:c].detach())
+        out = buf.permute(0, 3, 1, 2)
+        return (out[:, c0:] if self.upsample else out), (mu, m2)
+
+    def forward(self, x: torch.Tensor, with_stats: bool = False):
+        """The block's output; with ``with_stats`` also its per-channel
+        (mean, mean of squares) when the engine produced them, else None."""
+        b, _, h, w = x.shape
+        if self.training and engine.supported(
+                b, h, w, len(self.layers), self.growth_rate):
+            out, stats = self._engine(x)
+            return (out, stats) if with_stats else out
         new_features = []
         for layer in self.layers:
             out = layer(x)
             x = torch.cat([x, out], 1)
             new_features.append(out)
-        return torch.cat(new_features, 1) if self.upsample else x
+        out = torch.cat(new_features, 1) if self.upsample else x
+        return (out, None) if with_stats else out
 
 
 class TransitionDown(nn.Module):
@@ -145,8 +196,10 @@ class TransitionDown(nn.Module):
         self.norm = nn.BatchNorm2d(in_channels)
         self.conv = nn.Conv2d(in_channels, in_channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale, shift = batch_fold(self.norm, x)
+    def forward(self, x: torch.Tensor, stats=None) -> torch.Tensor:
+        """``stats``: the producing block's (mean, mean of squares) of x,
+        reused in train mode instead of a second reduction."""
+        scale, shift = batch_fold(self.norm, x, stats)
         y = torch.relu(x * scale.to(x.dtype)[:, None, None]
                        + shift.to(x.dtype)[:, None, None])
         return F.max_pool2d(_conv(y, self.conv, 0), 2)
@@ -229,9 +282,9 @@ class FCDenseNet(nn.Module):
         out = _conv(out, self.firstconv, 1)
         skips = []
         for block, down in zip(self.denseBlocksDown, self.transDownBlocks):
-            out = block(out)
+            out, stats = block(out, with_stats=True)
             skips.append(out)
-            out = down(out)
+            out = down(out, stats)
         out = self.bottleneck(out)
         for up, block in zip(self.transUpBlocks, self.denseBlocksUp):
             out = block(up(out, skips.pop()))

@@ -1,0 +1,397 @@
+"""The whole-dense-block engine: a train-mode dense block, forward and
+backward, with no concatenation and with the BatchNorm statistics and
+gradients as kernel byproducts.
+
+Counterpart of the JAX package's ``ops/block_engine.py``
+(``block_engine_apply`` :1152, forward ``_engine_impl`` :589-635, backward
+``_engine_bwd`` :1175-1310): a block of L layers ``y_j = conv3x3(relu(
+bn_j([x, y_0 .. y_{j-1}])), W_j) + b_j`` with growth F, BatchNorm on the
+batch statistics (biased variance, eps 1e-5), returning the block's
+output ``buf = [x, y_0 .. y_{L-1}]`` and its per-channel (mean, mean of
+squares), so a ``TransitionDown`` can reuse them.
+
+Layout: one NHWC buffer. ``buf`` (B, H, W, C0 + L*F) is allocated once,
+``x`` is copied into its first C0 channels, and layer j reads the channel
+prefix [0, C_j), C_j = C0 + j*F, at row stride C0 + L*F and writes its F
+channels at offset C_j. The backward runs on one gradient buffer of the
+same shape. (The JAX engine keeps x and each layer's channels as separate
+packed TPU tensors and concatenates them once; none of that layout is
+carried over.)
+
+Per layer the work is three kernels, in ``csrc/block_engine.cu``:
+
+- K4 ``layer_forward``: y into ``buf[..., C_j:C_j+F]`` and the (sum y,
+  sum y^2) of the stored y, from which the layer's statistics come
+  (JAX :625-628);
+- K5 ``layer_dinput``: with gy_eff = g + C1 + C2*y (the lazily applied
+  BN-through-statistics gradient, JAX :689-699), the transposed-tap
+  cotangent of the prefix through the ReLU mask and the BN scale, added
+  into the gradient buffer's prefix, and the per-channel (sum dpre*x,
+  sum dpre) and sum gy_eff;
+- K6 ``layer_dweight``: the layer's weight gradient, f32.
+
+Between the launches plain PyTorch does only per-channel vector math, as
+XLA does in JAX: the BN folds, the (C1, C2) updates, summing K4's and K5's
+per-block partials, and the final fix-up dx = g + C1 + C2*x (JAX :1307),
+besides the block input's statistics and its copy into ``buf``.
+
+In place: K4 writes into ``buf``; the backward clones the incoming
+gradient once into a fresh buffer and K5 adds into that buffer's prefix
+(the JAX kernel's aliased ``gx_in``/``gseg_in``, :895-897). Nothing the
+caller holds is modified.
+
+On CUDA tensors each per-layer call launches its kernel or raises; on CPU
+tensors it runs its plain PyTorch twin (``*_reference``). The
+orchestration (``BlockEngine``) is the same on both, so the CPU tests
+exercise the (C1, C2) bookkeeping that runs on the card. Callers gate on
+``supported``, by shape, before any launch.
+
+Not ported: the cross-device reductions of JAX's ``axis_name`` (its
+``pmean``/``psum``, :585-586, :1171-1172) wait for the multi-GPU port.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+# kernel launches in this process, by kernel
+LAUNCHES = {"block_engine_fwd": 0, "block_engine_dinput": 0,
+            "block_engine_dweight": 0}
+MAX_GROWTH = 16        # the kernels' compiled maximum of F
+EPS = 1e-5             # BatchNorm's, as torch's and the JAX package's
+TILE_H, TILE_W = 16, 32  # K4's and K5's output tile
+DWEIGHT_TILE_H = 8     # K6's tile is 8 x 32
+CHUNK = 16             # channels per chunk
+TARGET_BLOCKS = 1024   # K5 and K6 split work across blocks up to about this
+_SOURCES = ("block_engine.cu",)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def supported(b: int, h: int, w: int, n_layers: int, growth: int) -> bool:
+    """The port's shape gate: what the kernels take (growth up to
+    ``MAX_GROWTH``, a batch that fits the grid). The TPU engine's gate
+    (JAX :91-94) exists for its packed layout and does not apply."""
+    return (1 <= growth <= MAX_GROWTH and n_layers >= 1 and 1 <= b <= 65535
+            and h >= 1 and w >= 1)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("block_engine", _SOURCES)
+    if lib.block_engine_fwd.argtypes is None:
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.block_engine_fwd.argtypes = [i] + [p] * 6 + [i] * 7 + [p]
+        lib.block_engine_dinput.argtypes = [i] + [p] * 9 + [i] * 8 + [p]
+        lib.block_engine_dweight.argtypes = [i] + [p] * 8 + [i] * 7 + [p]
+        for fn in (lib.block_engine_fwd, lib.block_engine_dinput,
+                   lib.block_engine_dweight):
+            fn.restype = i
+        lib.block_engine_max_growth.argtypes = []
+        lib.block_engine_max_growth.restype = i
+        if lib.block_engine_max_growth() != MAX_GROWTH:
+            raise RuntimeError("block_engine library and wrapper disagree on "
+                               "the maximum growth")
+    return lib
+
+
+def build_report() -> str:
+    """Build the kernel library if needed; return ptxas's register/spill
+    report for it."""
+    _library()
+    return _build.build_report("block_engine", _SOURCES)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _fold(gamma, beta, mu, m2):
+    """Folded BN in f32 (JAX ``_fold`` :129-134): relu(v*scale + shift) ==
+    relu(bn(v)) with the biased variance m2 - mu^2. Returns (scale, shift,
+    1/sqrt(var + EPS))."""
+    inv = torch.rsqrt(m2 - mu.square() + EPS)
+    scale = gamma.float() * inv
+    return scale, beta.float() - mu * scale, inv
+
+
+# -- the plain twins: per-layer functions on the whole buffers ---------------
+
+
+def _activation(buf, c, scale, shift) -> torch.Tensor:
+    """relu(x*scale + shift) over the prefix, in f32, rounded to buf's
+    dtype, back in f32 (the kernels' a)."""
+    a = torch.relu(buf[..., :c].float() * scale + shift)
+    return a.to(buf.dtype).float()
+
+
+def _gy_eff(grad, buf, c, f, c1, c2) -> torch.Tensor:
+    """g + c1 + c2*y of the layer's channels, rounded to buf's dtype,
+    back in f32 (the kernels' gy_eff)."""
+    y = buf[..., c:c + f].float()
+    return (grad[..., c:c + f].float() + c1 + c2 * y).to(buf.dtype).float()
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2)
+
+
+def layer_forward_reference(buf, c, scale, shift, w, bias) -> torch.Tensor:
+    """K4's plain version: y = conv3x3(a, w) + bias in f32, rounded, into
+    ``buf[..., c:c+F]``; returns (2, F) f32: the sum and the sum of
+    squares of the stored y."""
+    f = w.shape[3]
+    y = F.conv2d(_nchw(_activation(buf, c, scale, shift)),
+                 w.float().permute(3, 2, 0, 1), bias.float(), padding=1)
+    buf[..., c:c + f] = y.permute(0, 2, 3, 1).to(buf.dtype)
+    yf = buf[..., c:c + f].float()
+    return torch.stack([yf.sum((0, 1, 2)), yf.square().sum((0, 1, 2))])
+
+
+def layer_dinput_reference(grad, buf, c, scale, shift, w, c1, c2):
+    """K5's plain version: da = conv3x3^T(gy_eff, w), dpre = da*(a > 0),
+    grad[..., :c] += dpre*scale (rounded, in place); returns (sum dpre*x,
+    sum dpre) per prefix channel and sum gy_eff per output channel, f32."""
+    f = w.shape[3]
+    gy = _gy_eff(grad, buf, c, f, c1, c2)
+    a = _activation(buf, c, scale, shift)
+    da = torch.nn.grad.conv2d_input(
+        (a.shape[0], c, a.shape[1], a.shape[2]),
+        w.float().permute(3, 2, 0, 1), _nchw(gy), padding=1)
+    dpre = da.permute(0, 2, 3, 1) * (a > 0)
+    grad[..., :c] = (grad[..., :c].float() + dpre * scale).to(grad.dtype)
+    x = buf[..., :c].float()
+    return ((dpre * x).sum((0, 1, 2)), dpre.sum((0, 1, 2)),
+            gy.sum((0, 1, 2)))
+
+
+def layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2):
+    """K6's plain version: dW[ky, kx, c, f] = sum_p a[p + (ky-1, kx-1), c]
+    * gy_eff[p, f], f32 (3, 3, c, F)."""
+    gy = _gy_eff(grad, buf, c, f, c1, c2)
+    a = _activation(buf, c, scale, shift)
+    dw = torch.nn.grad.conv2d_weight(_nchw(a), (f, c, 3, 3), _nchw(gy),
+                                     padding=1)
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+# -- the kernel wrappers -------------------------------------------------------
+
+
+def _check(buf, c, f, vectors, w=None, grad=None) -> None:
+    if buf.dim() != 4 or not buf.is_contiguous():
+        raise ValueError(f"buf must be a contiguous (B, H, W, C) tensor, got "
+                         f"{tuple(buf.shape)}")
+    if buf.dtype not in _DTYPES:
+        raise TypeError(f"buf must be float32 or bfloat16, got {buf.dtype}")
+    if not (1 <= f <= MAX_GROWTH and 1 <= c and c + f <= buf.shape[3]):
+        raise ValueError(f"layer channels [0, {c}) + {f} do not fit buf "
+                         f"{tuple(buf.shape)} (growth <= {MAX_GROWTH})")
+    if not supported(buf.shape[0], buf.shape[1], buf.shape[2], 1, f):
+        raise ValueError(f"buf {tuple(buf.shape)} is outside the engine's gate")
+    tensors = list(vectors)
+    if grad is not None:
+        if grad.shape != buf.shape or grad.dtype != buf.dtype or \
+                not grad.is_contiguous():
+            raise ValueError("grad must be a contiguous tensor of buf's shape "
+                             "and dtype")
+        tensors.append(("grad", grad, None))
+    if w is not None:
+        if w.shape != (3, 3, c, f) or w.dtype != buf.dtype or \
+                not w.is_contiguous():
+            raise ValueError(f"w must be a contiguous (3, 3, {c}, {f}) tensor "
+                             f"of buf's dtype, got {w.dtype} {tuple(w.shape)}")
+        tensors.append(("w", w, None))
+    for name, t, n in tensors:
+        if n is not None and (t.shape != (n,) or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 ({n},) "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.device != buf.device:
+            raise ValueError(f"all inputs must lie on {buf.device}, found "
+                             f"{name} on {t.device}")
+    if buf.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no block_engine kernel for device {buf.device}")
+
+
+def _n_part(b: int, h: int, w: int) -> int:
+    return b * _ceil(h, TILE_H) * _ceil(w, TILE_W)
+
+
+def _launch(name: str, buf, tensors, ints) -> None:
+    """Launch ``name`` on buf's device and its current stream with buf's
+    dtype code, the tensors' pointers and the ints."""
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(_library(), name)(_DTYPES[buf.dtype],
+                                       *(t.data_ptr() for t in tensors), *ints,
+                                       stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} for buf "
+                           f"{tuple(buf.shape)} {buf.dtype}, ints {ints}")
+    LAUNCHES[name] += 1
+
+
+def layer_forward(buf, c, scale, shift, w, bias) -> torch.Tensor:
+    """Layer output into ``buf[..., c:c+F]`` (in place) from the prefix
+    [0, c); returns (2, F) f32, the sum and the sum of squares of the
+    stored y. K4 on the card, ``layer_forward_reference`` on the CPU."""
+    f = w.shape[3]
+    _check(buf, c, f, [("scale", scale, c), ("shift", shift, c),
+                       ("bias", bias, f)], w=w)
+    if buf.device.type == "cpu":
+        return layer_forward_reference(buf, c, scale, shift, w, bias)
+    b, h, wd, ld = buf.shape
+    n_part = _n_part(b, h, wd)
+    part = torch.empty((2, n_part, f), dtype=torch.float32, device=buf.device)
+    _launch("block_engine_fwd", buf, (buf, scale, shift, w, bias, part),
+            (b, h, wd, c, f, ld, n_part))
+    return part.sum(1)
+
+
+def layer_dinput(grad, buf, c, scale, shift, w, c1, c2):
+    """Adds the prefix cotangent dpre*scale into ``grad[..., :c]`` (in
+    place); returns (sum dpre*x, sum dpre) per prefix channel and
+    sum gy_eff per output channel, f32. K5 on the card,
+    ``layer_dinput_reference`` on the CPU."""
+    f = w.shape[3]
+    _check(buf, c, f, [("scale", scale, c), ("shift", shift, c),
+                       ("c1", c1, f), ("c2", c2, f)], w=w, grad=grad)
+    if buf.device.type == "cpu":
+        return layer_dinput_reference(grad, buf, c, scale, shift, w, c1, c2)
+    b, h, wd, ld = buf.shape
+    n_part = _n_part(b, h, wd)
+    n_chunks = _ceil(c, CHUNK)
+    n_split = max(1, min(n_chunks, _ceil(TARGET_BLOCKS, n_part), 65535 // b))
+    part = torch.empty((2, n_part, c), dtype=torch.float32, device=buf.device)
+    part_bias = torch.empty((n_part, f), dtype=torch.float32, device=buf.device)
+    _launch("block_engine_dinput", buf,
+            (grad, buf, scale, shift, w, c1, c2, part, part_bias),
+            (b, h, wd, c, f, ld, n_part, n_split))
+    sums = part.sum(1)
+    return sums[0], sums[1], part_bias.sum(0)
+
+
+def layer_dweight(grad, buf, c, f, scale, shift, c1, c2) -> torch.Tensor:
+    """The layer's weight gradient (3, 3, c, F) f32 from the prefix [0, c)
+    and gy_eff. K6 on the card, ``layer_dweight_reference`` on the CPU."""
+    _check(buf, c, f, [("scale", scale, c), ("shift", shift, c),
+                       ("c1", c1, f), ("c2", c2, f)], grad=grad)
+    if buf.device.type == "cpu":
+        return layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2)
+    b, h, wd, ld = buf.shape
+    n_tiles = b * _ceil(h, DWEIGHT_TILE_H) * _ceil(wd, TILE_W)
+    n_split = max(1, min(n_tiles, _ceil(TARGET_BLOCKS, _ceil(c, CHUNK))))
+    part = torch.empty((n_split, 9, c, f), dtype=torch.float32,
+                       device=buf.device)
+    dw = torch.empty((3, 3, c, f), dtype=torch.float32, device=buf.device)
+    _launch("block_engine_dweight", buf,
+            (grad, buf, scale, shift, c1, c2, part, dw),
+            (b, h, wd, c, f, ld, n_split))
+    return dw
+
+
+# -- the block -----------------------------------------------------------------
+
+
+def _split(params, n_layers: int):
+    return [params[i * n_layers:(i + 1) * n_layers] for i in range(4)]
+
+
+class BlockEngine(torch.autograd.Function):
+    """The block's forward (JAX ``_engine_impl``) and backward (JAX
+    ``_engine_bwd``) over the per-layer calls. Saves only ``buf`` and the
+    statistics (and the parameters)."""
+
+    @staticmethod
+    def forward(ctx, x, n_layers, *params):
+        gammas, betas, kernels, biases = _split(params, n_layers)
+        b, h, w, c0 = x.shape
+        growth = biases[0].shape[0]
+        n = b * h * w
+        buf = torch.empty((b, h, w, c0 + n_layers * growth), dtype=x.dtype,
+                          device=x.device)
+        buf[..., :c0] = x
+        xf = x.float()
+        mus, m2s = [xf.mean((0, 1, 2))], [xf.square().mean((0, 1, 2))]
+        for j in range(n_layers):
+            mu, m2 = torch.cat(mus), torch.cat(m2s)
+            scale, shift, _ = _fold(gammas[j], betas[j], mu, m2)
+            sums = layer_forward(buf, c0 + j * growth, scale, shift,
+                                 kernels[j].to(x.dtype).contiguous(),
+                                 biases[j].float().contiguous())
+            mus.append(sums[0] / n)
+            m2s.append(sums[1] / n)
+        mu, m2 = torch.cat(mus), torch.cat(m2s)
+        ctx.save_for_backward(buf, mu, m2, *params)
+        ctx.n_layers = n_layers
+        return buf, mu, m2
+
+    @staticmethod
+    def backward(ctx, gbuf, gmu, gm2):
+        buf, mu, m2, *params = ctx.saved_tensors
+        n_layers = ctx.n_layers
+        gammas, betas, kernels, biases = _split(params, n_layers)
+        b, h, w, ctot = buf.shape
+        growth = biases[0].shape[0]
+        c0 = ctot - n_layers * growth
+        n = b * h * w
+        grad = torch.empty_like(buf)  # K5 accumulates into it in place
+        grad.copy_(gbuf)
+        # the statistics' cotangent, d buf += gmu/n + 2*buf*gm2/n, is affine
+        # in buf: kept as per-channel coefficients (C1, C2) and applied
+        # lazily (JAX :1195-1205)
+        c1 = gmu.float() / n
+        c2 = 2.0 * gm2.float() / n
+        dgammas, dbetas, dkernels, dbiases = ([None] * n_layers for _ in range(4))
+        for j in reversed(range(n_layers)):
+            c = c0 + j * growth
+            scale, shift, inv = _fold(gammas[j], betas[j], mu[:c], m2[:c])
+            c1j = c1[c:c + growth].contiguous()
+            c2j = c2[c:c + growth].contiguous()
+            dsx, dss, dbiases[j] = layer_dinput(
+                grad, buf, c, scale, shift, kernels[j].to(buf.dtype).contiguous(),
+                c1j, c2j)
+            dkernels[j] = layer_dweight(grad, buf, c, growth, scale, shift,
+                                        c1j, c2j)
+            # dgamma, dbeta, and layer j's BN-through-statistics gradient
+            # folded into the prefix's (C1, C2) (JAX :1262-1301)
+            dgamma = inv * (dsx - mu[:c] * dss)
+            dgammas[j], dbetas[j] = dgamma, dss
+            gamma = gammas[j].float()
+            c2[:c] -= gamma * inv * inv * dgamma / n
+            c1[:c] += gamma * inv * (inv * mu[:c] * dgamma - dss) / n
+        x = buf[..., :c0].float()
+        dx = (grad[..., :c0].float() + c1[:c0] + c2[:c0] * x).to(buf.dtype)
+        return (dx.contiguous(), None, *dgammas, *dbetas, *dkernels, *dbiases)
+
+
+def block_engine_apply(x: torch.Tensor, gammas: Sequence[torch.Tensor],
+                       betas: Sequence[torch.Tensor],
+                       kernels: Sequence[torch.Tensor],
+                       biases: Sequence[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode dense block (JAX ``block_engine_apply``).
+
+    x (B, H, W, C0) NHWC in float32 or bfloat16; per layer j, BN
+    ``gammas[j]``, ``betas[j]`` (C0 + j*F,) and conv ``kernels[j]`` (3, 3,
+    C0 + j*F, F) HWIO and ``biases[j]`` (F,), all float32. Returns
+    (buf (B, H, W, C0 + L*F) in x's dtype, mu, m2 (C0 + L*F,) float32): the
+    block output [x, y_0 .. y_{L-1}] and its per-channel mean and mean of
+    squares. Differentiable in x and every parameter, through mu and m2
+    too. Callers gate on ``supported``.
+    """
+    n_layers = len(kernels)
+    if not (len(gammas) == len(betas) == len(biases) == n_layers):
+        raise ValueError("need one gamma, beta, kernel and bias per layer")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
+    b, h, w, _ = x.shape
+    if not supported(b, h, w, n_layers, biases[0].shape[0]):
+        raise ValueError(f"x {tuple(x.shape)} with growth "
+                         f"{biases[0].shape[0]} is outside the engine's gate")
+    return BlockEngine.apply(x.contiguous(), n_layers, *gammas, *betas, *kernels,
+                             *biases)

@@ -1,0 +1,213 @@
+"""The port's whole-dense-block engine (ops/block_engine.py) against the
+JAX package's engine and against the port's own materialized dense block,
+on the CPU in f32 (TF32 off).
+
+On CPU tensors the engine's per-layer calls run their plain twins, so
+these tests hold the orchestration that the card runs around K4, K5 and
+K6: the folds, the one buffer per block, the gradient buffer updated in
+place, and the lazily applied (C1, C2) BN-through-statistics gradient.
+JAX's engine runs its Pallas kernels in interpret mode.
+
+Tolerances: outputs at rtol 1e-5 (f32 sums in another order); gradients at
+rtol/atol 2e-4, the JAX package's own engine-vs-materialized tolerance
+(tests/test_block_engine.py); the twins against autograd of
+``fused_dense_conv_reference`` at 1e-5 of the reference's size.
+"""
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from endoscopydepthestimation_pytorch_tpu.ops import block_engine as jax_engine
+from endoscopydepthestimation_pytorch_tpu_torch.models.fcdensenet import (
+    BatchMoments, DenseBlock)
+from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine, dense_conv
+
+import torch_port_cases  # noqa: F401  (TF32 off, two threads)
+
+
+def _block_inputs(b, h, w, c0, growth, n_layers, seed):
+    """x, the per-layer (gammas, betas, kernels, biases) and cotangents of
+    (buf, mu, m2), as numpy f32."""
+    rng = np.random.RandomState(seed)
+    cs = [c0 + j * growth for j in range(n_layers)]
+    x = rng.randn(b, h, w, c0).astype(np.float32)
+    params = ([(rng.rand(c) + 0.5).astype(np.float32) for c in cs],
+              [(rng.randn(c) * 0.1).astype(np.float32) for c in cs],
+              [(rng.randn(3, 3, c, growth) * (2.0 / (9 * c)) ** 0.5)
+               .astype(np.float32) for c in cs],
+              [(rng.randn(growth) * 0.1).astype(np.float32) for _ in cs])
+    ctot = c0 + n_layers * growth
+    cots = (rng.randn(b, h, w, ctot).astype(np.float32),
+            rng.randn(ctot).astype(np.float32), rng.randn(ctot).astype(np.float32))
+    return x, params, cots
+
+
+@pytest.mark.parametrize("b,h,w,c0,growth,n_layers", [
+    (8, 8, 16, 6, 4, 3),
+    (8, 8, 16, 6, 12, 4),  # FCDenseNet-57's block: growth 12, 4 layers
+])
+def test_block_engine_apply_matches_jax(monkeypatch, b, h, w, c0, growth,
+                                        n_layers):
+    """Outputs (buf, mu, m2) and the gradients of all inputs for a
+    cotangent on all three outputs, so the statistics' cotangent path is
+    covered too."""
+    monkeypatch.setattr(jax_engine, "INTERPRET", True)
+    x, params, cots = _block_inputs(b, h, w, c0, growth, n_layers, seed=0)
+
+    def jax_run(x, params):
+        out, vjp = jax.vjp(lambda *a: jax_engine.block_engine_apply(
+            (growth, n_layers, 1e-5, None), *a), x, *params)
+        return out, vjp(tuple(jnp.asarray(c) for c in cots))
+
+    jparams = tuple(tuple(jnp.asarray(p) for p in group) for group in params)
+    jout, jgrads = jax.jit(jax_run)(jnp.asarray(x), jparams)
+
+    leaves = [torch.from_numpy(x).requires_grad_()] + [
+        torch.from_numpy(p).requires_grad_() for group in params for p in group]
+    groups = [leaves[1 + i * n_layers:1 + (i + 1) * n_layers] for i in range(4)]
+    out = block_engine.block_engine_apply(leaves[0], *groups)
+    grads = torch.autograd.grad(out, leaves, [torch.from_numpy(c) for c in cots])
+
+    for name, got, want in zip(("buf", "mu", "m2"), out, jout):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    want_grads = jax.tree.leaves(jgrads)
+    assert len(want_grads) == len(grads)
+    for i, (got, want) in enumerate(zip(grads, want_grads)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                                   atol=2e-4, err_msg=str(i))
+
+
+def _seeded_block(c0, growth, n_layers, upsample, seed):
+    rng = np.random.RandomState(seed)
+    block = DenseBlock(c0, growth, n_layers, upsample=upsample)
+    with torch.no_grad():
+        for layer in block.layers:
+            n = layer.norm.num_features
+            layer.norm.weight.copy_(torch.from_numpy(rng.rand(n).astype(np.float32) + 0.5))
+            layer.norm.bias.copy_(torch.from_numpy(rng.randn(n).astype(np.float32) * 0.1))
+            layer.conv.bias.copy_(torch.from_numpy(
+                rng.randn(growth).astype(np.float32) * 0.1))
+    return block.train()
+
+
+@pytest.mark.parametrize("upsample,with_stats", [(False, False), (True, False),
+                                                 (False, True)])
+def test_engine_block_matches_materialized(monkeypatch, upsample, with_stats):
+    """The port's train-mode ``DenseBlock`` (the engine) against its own
+    materialized route, the one a block the gate rejects takes (autograd
+    through the K1 path's plain version), at a shape the TPU engine's gate
+    rejects (B = 2, 5x7): output, its statistics when asked for, every
+    gradient, and the running statistics."""
+    calls = []
+    original = block_engine.layer_forward
+
+    def counting(*args):
+        calls.append(args[1])
+        return original(*args)
+
+    monkeypatch.setattr(block_engine, "layer_forward", counting)
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(2, 20, 5, 7).astype(np.float32))
+    x = x.contiguous(memory_format=torch.channels_last)
+    ref_block = _seeded_block(20, 12, 4, upsample, seed=2)
+    eng_block = copy.deepcopy(ref_block)
+    cot = torch.from_numpy(rng.randn(2, 48 if upsample else 68, 5, 7)
+                           .astype(np.float32))
+    results = []
+    for block in (ref_block, eng_block):
+        with monkeypatch.context() as gate:
+            if block is ref_block:
+                gate.setattr(block_engine, "supported", lambda *shape: False)
+            leaf = x.clone().requires_grad_()
+            out, stats = block(leaf, with_stats=True)
+        if stats is None:  # the materialized block leaves them to its consumer
+            stats = BatchMoments.apply(out)
+        loss = (out * cot).sum()
+        if with_stats:
+            loss = loss + torch.cos(3 * stats[0]).sum() + torch.sin(2 * stats[1]).sum()
+        grads = torch.autograd.grad(loss, [leaf] + list(block.parameters()))
+        results.append((out.detach(), [s.detach() for s in stats], grads,
+                        copy.deepcopy(block.state_dict())))
+    assert calls == [20, 32, 44, 56]  # the engine ran, once per layer
+    (out0, st0, g0, sd0), (out1, st1, g1, sd1) = results
+    np.testing.assert_allclose(out1.numpy(), out0.numpy(), rtol=1e-5, atol=1e-5)
+    if with_stats:
+        for a, r in zip(st1, st0):
+            np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=1e-5, atol=1e-6)
+    for i, (a, r) in enumerate(zip(g1, g0)):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=2e-4, atol=2e-4,
+                                   err_msg=str(i))
+    for k, v in sd0.items():
+        np.testing.assert_allclose(sd1[k].numpy(), v.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("b,h,w,c,growth,extra", [(2, 6, 9, 10, 12, 5),
+                                                  (1, 4, 4, 3, 4, 0)])
+def test_twins_match_autograd_of_the_dense_layer(b, h, w, c, growth, extra):
+    """K4's, K5's and K6's plain versions against autograd of
+    ``fused_dense_conv_reference`` for one layer reading the prefix
+    [0, c) of a buffer, with the cotangent gy_eff = g + c1 + c2*y."""
+    rng = np.random.RandomState(3)
+    ld = c + growth + extra
+    buf = torch.from_numpy(rng.randn(b, h, w, ld).astype(np.float32))
+    grad = torch.from_numpy(rng.randn(b, h, w, ld).astype(np.float32))
+    scale = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5)
+    shift = torch.from_numpy(rng.randn(c).astype(np.float32) * 0.3)
+    wk = torch.from_numpy(rng.randn(3, 3, c, growth).astype(np.float32) * 0.3)
+    bias = torch.from_numpy(rng.randn(growth).astype(np.float32) * 0.1)
+    c1 = torch.from_numpy(rng.randn(growth).astype(np.float32) * 0.1)
+    c2 = torch.from_numpy(rng.randn(growth).astype(np.float32) * 0.1)
+
+    leaves = [t.clone().requires_grad_() for t in
+              (buf[..., :c].contiguous(), scale, shift, wk, bias)]
+    y = dense_conv.fused_dense_conv_reference(*leaves)
+    fwd = buf.clone()
+    sums = block_engine.layer_forward_reference(fwd, c, scale, shift, wk, bias)
+    torch.testing.assert_close(fwd[..., c:c + growth], y.detach(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(sums, torch.stack([y.sum((0, 1, 2)), y.square().sum((0, 1, 2))]).detach(),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(fwd[..., :c], buf[..., :c])
+    assert torch.equal(fwd[..., c + growth:], buf[..., c + growth:])
+
+    # the layer's output is buf's y; its cotangent gy_eff
+    gy = grad[..., c:c + growth] + c1 + c2 * buf[..., c:c + growth]
+    want = torch.autograd.grad(y, leaves, gy)
+    new_grad = grad.clone()
+    dsx, dss, dbias = block_engine.layer_dinput_reference(
+        new_grad, buf, c, scale, shift, wk, c1, c2)
+    for got, ref in ((new_grad[..., :c] - grad[..., :c], want[0]), (dsx, want[1]),
+                     (dss, want[2]), (dbias, want[4])):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max())
+    assert torch.equal(new_grad[..., c:], grad[..., c:])
+    dw = block_engine.layer_dweight_reference(grad, buf, c, growth, scale, shift,
+                                              c1, c2)
+    torch.testing.assert_close(dw, want[3], rtol=1e-5, atol=1e-5 * want[3].abs().max())
+
+
+def test_gate_is_the_ports_own():
+    """Every FCDenseNet-57 block at 256x320, 128x160 and 512x576 passes,
+    and so do shapes the TPU gate rejects; growth above the kernels'
+    maximum does not."""
+    for height, width in ((256, 320), (128, 160), (512, 576)):
+        for level in range(6):
+            assert block_engine.supported(16, height >> level, width >> level, 4, 12)
+    assert block_engine.supported(2, 5, 7, 4, 12)
+    assert not jax_engine.supported(2, 5, 7, 4)
+    assert not block_engine.supported(2, 8, 8, 4, block_engine.MAX_GROWTH + 1)
+
+
+def test_cpu_engine_launches_no_kernel():
+    before = dict(block_engine.LAUNCHES)
+    x, params, cots = _block_inputs(1, 3, 4, 5, 4, 2, seed=4)
+    leaves = [torch.from_numpy(x).requires_grad_()] + [
+        torch.from_numpy(p).requires_grad_() for group in params for p in group]
+    out = block_engine.block_engine_apply(leaves[0], *(leaves[1 + 2 * i:3 + 2 * i]
+                                                       for i in range(4)))
+    torch.autograd.grad(out, leaves, [torch.from_numpy(c) for c in cots])
+    assert block_engine.LAUNCHES == before

@@ -11,7 +11,8 @@ import torch
 
 from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet57
 from endoscopydepthestimation_pytorch_tpu_torch.models.init import init_weights
-from endoscopydepthestimation_pytorch_tpu_torch.ops import dense_conv, warp_sample
+from endoscopydepthestimation_pytorch_tpu_torch.ops import (block_engine, dense_conv,
+                                                          warp_sample)
 
 pytestmark = pytest.mark.cuda
 
@@ -185,17 +186,7 @@ def test_fused_dense_conv_gradients_match_autograd_of_plain(device, b, h, w, c):
         assert _rel(a, r) <= 1e-4, name
 
 
-def test_tiny_train_step_bf16_launch_counts(device):
-    """Three bf16 train steps of a tiny FCDenseNet: every dense layer's
-    forward through K1, one K2 and one K3 launch per step."""
-    from endoscopydepthestimation_pytorch_tpu_torch import training
-    from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet
-    model = FCDenseNet(down_blocks=(2, 2), up_blocks=(2, 2), bottleneck_layers=2,
-                       growth_rate=12, out_chans_first_conv=24,
-                       dtype=torch.bfloat16)
-    init_weights(model, torch.Generator().manual_seed(0))
-    state = training.create_train_state(model.to(device))
-    b, h, w = 2, 64, 80
+def _tiny_batch(device, b=2, h=64, w=80):
     g = torch.Generator().manual_seed(1)
     k = torch.tensor([[80.0, 0, w / 2], [0, 80.0, h / 2], [0, 0, 1]])
     t12 = torch.tensor([[0.0], [0.0], [0.02]])
@@ -216,17 +207,145 @@ def test_tiny_train_step_bf16_launch_counts(device):
         "translation_2_wrt_1": (-t12).repeat(b, 1, 1),
         "intrinsic": k.repeat(b, 1, 1),
     }
-    batch = {key: v.to(device) for key, v in batch.items()}
+    return {key: v.to(device) for key, v in batch.items()}
+
+
+def _tiny_bf16_steps(device, steps=3):
+    """``steps`` bf16 train steps of a tiny FCDenseNet (10 dense layers),
+    one K2 and one K3 launch each; returns the K1 launches they made."""
+    from endoscopydepthestimation_pytorch_tpu_torch import training
+    from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet
+    model = FCDenseNet(down_blocks=(2, 2), up_blocks=(2, 2), bottleneck_layers=2,
+                       growth_rate=12, out_chans_first_conv=24,
+                       dtype=torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(0))
+    state = training.create_train_state(model.to(device))
+    batch = _tiny_batch(device)
     config = training.TrainConfig(lr_step_size=50, compute_dtype=torch.bfloat16)
     k1, k2 = dense_conv.LAUNCHES, dict(warp_sample.LAUNCHES)
     losses = []
-    for _ in range(3):
+    for _ in range(steps):
         state, metrics = training.train_step(state, batch,
                                              torch.tensor(0.1, device=device), config)
         losses.append(metrics["loss"])
     losses = torch.stack(losses).cpu()
     assert torch.isfinite(losses).all(), losses
-    assert int(state.step) == 3 and int(state.count) == 3
-    assert dense_conv.LAUNCHES == k1 + 3 * 10
+    assert int(state.step) == steps and int(state.count) == steps
     for name in ("warp_sample_fwd", "warp_sample_bwd"):
-        assert warp_sample.LAUNCHES[name] == k2[name] + 3, name
+        assert warp_sample.LAUNCHES[name] == k2[name] + steps, name
+    return dense_conv.LAUNCHES - k1
+
+
+@pytest.mark.parametrize("gate_open", [True, False])
+def test_tiny_train_step_bf16_launch_counts(device, monkeypatch, gate_open):
+    """Three bf16 train steps of a tiny FCDenseNet, one K2 and one K3
+    launch per step: through the engine, every dense layer runs K4, K5 and
+    K6 once per step and K1 never; with the engine's gate closed (the
+    route of a block it rejects), K1 once per layer and step."""
+    if not gate_open:
+        monkeypatch.setattr(block_engine, "supported", lambda *shape: False)
+    before = dict(block_engine.LAUNCHES)
+    assert _tiny_bf16_steps(device) == (0 if gate_open else 3 * 10)
+    for name, n in block_engine.LAUNCHES.items():
+        assert n == before[name] + (3 * 10 if gate_open else 0), name
+
+
+# (B, H, W, C, F, extra channels after the layer's): a full-resolution
+# up-block layer, a ragged tile with F < 12, a deep level whose K5 splits
+# its channel chunks across blocks, with F = 16
+ENGINE_SHAPES = [(8, 64, 80, 180, 12, 24), (2, 17, 33, 7, 5, 3),
+                 (4, 8, 10, 324, 16, 0)]
+
+
+def _engine_layer(b, h, w, c, f, extra, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    ld = c + f + extra
+    buf = torch.randn(b, h, w, ld, generator=g)
+    grad = torch.randn(b, h, w, ld, generator=g)
+    if dtype == torch.bfloat16:
+        grad[..., :c] = 0  # compare the increment itself after bf16 rounding
+    scale = torch.rand(c, generator=g) + 0.5
+    shift = torch.randn(c, generator=g) * 0.3
+    wk = torch.randn(3, 3, c, f, generator=g) * (2.0 / (9 * c)) ** 0.5
+    bias = torch.randn(f, generator=g) * 0.1
+    c1 = torch.randn(f, generator=g) * 0.1
+    c2 = torch.randn(f, generator=g) * 0.1
+    return (buf.to(device, dtype), grad.to(device, dtype), scale.to(device),
+            shift.to(device), wk.to(device, dtype), bias.to(device),
+            c1.to(device), c2.to(device))
+
+
+def _close(got, ref, dtype):
+    got, ref = got.float(), ref.float()
+    if dtype == torch.float32:  # f32 sums in another order (TF32 off)
+        return _rel(got, ref) <= 1e-4
+    # the same bf16 operands and roundings, f32 sums in another order: a
+    # stored value differs only where that order crosses a rounding edge
+    return ((got - ref).abs().mean() / ref.abs().mean()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,f,extra", ENGINE_SHAPES)
+def test_engine_kernels_match_twins(device, b, h, w, c, f, extra, dtype):
+    """K4, K5 and K6 against their plain versions on the same inputs; the
+    channels a kernel does not own stay as they were."""
+    buf, grad, scale, shift, wk, bias, c1, c2 = _engine_layer(
+        b, h, w, c, f, extra, dtype, device)
+    before = dict(block_engine.LAUNCHES)
+    got_buf, ref_buf = buf.clone(), buf.clone()
+    got = block_engine.layer_forward(got_buf, c, scale, shift, wk, bias)
+    ref = block_engine.layer_forward_reference(ref_buf, c, scale, shift, wk, bias)
+    torch.cuda.synchronize()
+    assert _close(got_buf[..., c:c + f], ref_buf[..., c:c + f], dtype)
+    assert _close(got, ref, dtype), (got, ref)
+    keep = torch.cat([buf[..., :c], buf[..., c + f:]], -1)
+    assert torch.equal(torch.cat([got_buf[..., :c], got_buf[..., c + f:]], -1), keep)
+
+    got_grad, ref_grad = grad.clone(), grad.clone()
+    got = block_engine.layer_dinput(got_grad, buf, c, scale, shift, wk, c1, c2)
+    ref = block_engine.layer_dinput_reference(ref_grad, buf, c, scale, shift, wk,
+                                              c1, c2)
+    torch.cuda.synchronize()
+    assert _close(got_grad[..., :c], ref_grad[..., :c], dtype)
+    assert torch.equal(got_grad[..., c:], grad[..., c:])
+    for name, a, r in zip(("dscale", "dshift", "dbias"), got, ref):
+        assert _close(a, r, dtype), name
+
+    got = block_engine.layer_dweight(grad, buf, c, f, scale, shift, c1, c2)
+    ref = block_engine.layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 3, c, f) and _close(got, ref, dtype)
+    for name, n in block_engine.LAUNCHES.items():
+        assert n == before[name] + 1, name
+
+
+def test_block_engine_apply_matches_cpu(device):
+    """A 4-layer growth-12 block, f32, forward and every gradient (through
+    mu and m2 too) on the card against the same orchestration on the CPU
+    twins."""
+    g = torch.Generator().manual_seed(3)
+    b, h, w, c0, n_layers, f = 4, 24, 40, 20, 4, 12
+    x = torch.randn(b, h, w, c0, generator=g)
+    params = ([torch.rand(c0 + j * f, generator=g) + 0.5 for j in range(n_layers)]
+              + [torch.randn(c0 + j * f, generator=g) * 0.1 for j in range(n_layers)]
+              + [torch.randn(3, 3, c0 + j * f, f, generator=g) * 0.1
+                 for j in range(n_layers)]
+              + [torch.randn(f, generator=g) * 0.1 for j in range(n_layers)])
+    ctot = c0 + n_layers * f
+    cots = (torch.randn(b, h, w, ctot, generator=g), torch.randn(ctot, generator=g),
+            torch.randn(ctot, generator=g))
+
+    def run(dev):
+        leaves = [t.to(dev).requires_grad_() for t in [x] + params]
+        outs = block_engine.block_engine_apply(
+            leaves[0], *(leaves[1 + i * n_layers:1 + (i + 1) * n_layers]
+                         for i in range(4)))
+        grads = torch.autograd.grad(outs, leaves, [t.to(dev) for t in cots])
+        return [t.detach().cpu() for t in list(outs) + list(grads)]
+
+    before = dict(block_engine.LAUNCHES)
+    got = run(device)
+    assert all(block_engine.LAUNCHES[k] == before[k] + n_layers for k in before)
+    ref = run("cpu")
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert _rel(a, r) <= 1e-4, i

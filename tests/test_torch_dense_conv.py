@@ -164,6 +164,7 @@ def test_port_imports_no_jax():
             "import endoscopydepthestimation_pytorch_tpu_torch.ops.geometry\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.ops.gridsample\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.ops.warp_sample\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.ops.block_engine\n"
             "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'triton')\n"
             "       if m in sys.modules]\n"
             "assert not bad, bad\n")

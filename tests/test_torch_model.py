@@ -101,6 +101,50 @@ def test_tiny_fused_fcdensenet_matches_jax_pallas(monkeypatch):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4)
 
 
+def test_jax_block_engine_variables_load_strict():
+    """JAX's engine flag does not change the parameter tree: a JAX
+    ``block_engine=True`` model's variables load ``strict=True`` into the
+    port's model, which trains through the engine without a flag."""
+    state = seeded_jax_state(JaxFCDenseNet57(n_classes=1, block_engine=True),
+                             (1, 32, 32, 3), seed=9)
+    FCDenseNet57().load_state_dict(port_state_dict(state), strict=True)
+
+
+def test_train_mode_runs_the_engine_where_the_gate_takes_the_block(monkeypatch):
+    """In train mode every block the engine's gate takes runs the engine; a
+    block it rejects (here every 16x16 block) runs the per-layer kernel,
+    layer by layer, and so does every block in eval mode."""
+    from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine
+    engine_calls, layer_calls = [], []
+    forward, reference = block_engine.layer_forward, dense_conv.fused_dense_conv_reference
+    supported = block_engine.supported
+
+    def engine_layer(*args):
+        engine_calls.append(args[1])
+        return forward(*args)
+
+    def kernel_layer(x, *args):
+        layer_calls.append(x.shape[-1])
+        return reference(x, *args)
+
+    monkeypatch.setattr(block_engine, "layer_forward", engine_layer)
+    monkeypatch.setattr(dense_conv, "fused_dense_conv_reference", kernel_layer)
+    monkeypatch.setattr(block_engine, "supported",
+                        lambda b, h, w, *rest: h != 16 and supported(b, h, w, *rest))
+    model = FCDenseNet(growth_rate=12, out_chans_first_conv=24, **TINY)
+    x = torch.zeros(2, 3, 32, 32)
+    with torch.no_grad():
+        model.eval()(x)
+        assert engine_calls == []
+        assert layer_calls == [24, 36, 48, 60, 72, 84, 96, 108, 72, 84]
+        layer_calls.clear()
+        model.train()(x)
+    # down 0 (32x32), the bottleneck (8x8), up 1 (32x32) through the engine;
+    # down 1 and up 0 (16x16) layer by layer
+    assert engine_calls == [24, 36, 72, 84, 72, 84]
+    assert layer_calls == [48, 60, 96, 108]
+
+
 def test_jax_written_pt_loads_strict(jax57, port57, tmp_path):
     path = tmp_path / "jax_export.pt"
     save_reference_checkpoint(path, {"params": jax57.params,

@@ -37,13 +37,15 @@ from torch import nn
 from endoscopydepthestimation_pytorch_tpu import training as jtraining
 from endoscopydepthestimation_pytorch_tpu.models import FCDenseNet57 as JaxFCDenseNet57
 from endoscopydepthestimation_pytorch_tpu.models.fcdensenet import FCDenseNet as JaxFCDenseNet
+from endoscopydepthestimation_pytorch_tpu.ops import block_engine as jax_block_engine
 from endoscopydepthestimation_pytorch_tpu.ops import dense_conv as jax_dense_conv
 from endoscopydepthestimation_pytorch_tpu.ops import gridsample as jgridsample
 from endoscopydepthestimation_pytorch_tpu.ops import warp_pallas
 from endoscopydepthestimation_pytorch_tpu_torch import training
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
     FCDenseNet, FCDenseNet57, from_jax_variables)
-from endoscopydepthestimation_pytorch_tpu_torch.ops import dense_conv, warp_sample
+from endoscopydepthestimation_pytorch_tpu_torch.ops import (block_engine, dense_conv,
+                                                          warp_sample)
 
 from test_training import _synthetic_batch
 from torch_port_cases import jax_numpy_variables, seeded_jax_state
@@ -59,11 +61,14 @@ DCL = 0.1
 def pallas_interpret():
     """Pallas in interpret mode, and the JAX sampler on the Pallas backend
     (the backend is picked when a function is traced)."""
-    saved = (warp_pallas.INTERPRET, jax_dense_conv.INTERPRET)
+    saved = (warp_pallas.INTERPRET, jax_dense_conv.INTERPRET,
+             jax_block_engine.INTERPRET)
     warp_pallas.INTERPRET = jax_dense_conv.INTERPRET = True
+    jax_block_engine.INTERPRET = True
     with jgridsample.backend_scope("pallas"):
         yield
-    warp_pallas.INTERPRET, jax_dense_conv.INTERPRET = saved
+    (warp_pallas.INTERPRET, jax_dense_conv.INTERPRET,
+     jax_block_engine.INTERPRET) = saved
 
 
 def _jax_loss(apply_fn, params, batch_stats, batch, dcl_weight):
@@ -139,12 +144,30 @@ def _assert_tensors_close(got: dict, want: dict, rel: float, what: str):
     assert not bad, (what, max(worst.values()), bad)
 
 
-def _check_step(jstate, model, batch, arch):
-    """One step of each side from the same start; compare everything."""
-    jbatch, tbatch = _to_jax(batch), _to_torch(batch)
+def _jax_step(jstate, batch, via_train_step=True):
+    """The JAX side of one step: loss, new statistics, aux and gradients by
+    the value_and_grad that train_step runs, and the new state and metrics
+    by the jitted train_step; with ``via_train_step=False`` the new state
+    and metrics come from ``apply_gradients`` on those gradients, which is
+    train_step's own body at grad_accum=1, so the model compiles once."""
+    jbatch = _to_jax(batch)
     loss, new_stats, aux, grads = _jax_grads(jstate, jbatch)
-    jnew, jmetrics = jax.jit(partial(jtraining.train_step, config=JCONFIG))(
-        jax.tree.map(jnp.array, jstate), jbatch, jnp.float32(DCL))
+    if via_train_step:
+        jnew, jmetrics = jax.jit(partial(jtraining.train_step, config=JCONFIG))(
+            jax.tree.map(jnp.array, jstate), jbatch, jnp.float32(DCL))
+        # the value_and_grad and the jitted train_step agree on the JAX side
+        np.testing.assert_allclose(float(jmetrics["loss"]), float(loss), rtol=1e-5)
+    else:
+        jnew, jmetrics = jax.jit(jtraining.apply_gradients)(
+            jax.tree.map(jnp.array, jstate), loss, grads, new_stats, aux)
+    return loss, new_stats, aux, grads, jnew, jmetrics
+
+
+def _check_step(jstate, model, batch, arch, jax_side=None):
+    """One step of each side from the same start; compare everything.
+    ``jax_side``: ``_jax_step``'s result, when already computed."""
+    tbatch = _to_torch(batch)
+    loss, new_stats, aux, grads, jnew, jmetrics = jax_side or _jax_step(jstate, batch)
 
     p_loss, p_aux, p_grads = _port_grads(model, tbatch)
     state = training.create_train_state(model)
@@ -158,8 +181,6 @@ def _check_step(jstate, model, batch, arch):
         np.testing.assert_allclose(float(metrics[key]), float(want), rtol=1e-3,
                                    err_msg=key)
     np.testing.assert_allclose(float(p_loss), float(loss), rtol=1e-3)
-    # the value_and_grad and the jitted train_step agree on the JAX side
-    np.testing.assert_allclose(float(jmetrics["loss"]), float(loss), rtol=1e-5)
 
     want_grads = {k: v.numpy() for k, v in
                   _named_jax(grads, new_stats, **arch).items() if k in p_grads}
@@ -203,9 +224,36 @@ def test_seed4_tiny_fused_step_matches_jax(monkeypatch):
     assert calls and all(s[0] == 8 and s[2] == 80 for s in calls)
 
 
+def test_seed4_tiny_engine_step_matches_jax(monkeypatch):
+    """TINY net at B=4, 32x32 against JAX's ``block_engine=True``: the port
+    runs every dense block through the engine (its twins on the CPU); on
+    the JAX side the 16x16 down block (stacked 2B = 8 passes the TPU gate)
+    runs the Pallas engine, the others the materialized path, which is the
+    same math."""
+    calls = []
+    original = jax_block_engine.block_engine_apply
+
+    def counting(dims, x, *args):
+        calls.append(x.shape)
+        return original(dims, x, *args)
+
+    monkeypatch.setattr(jax_block_engine, "block_engine_apply", counting)
+    jstate = _conditioned(seeded_jax_state(
+        JaxFCDenseNet(block_engine=True, block_engine_levels=("denseBlocksDown1",),
+                      **TINY_ARCH), (8, 32, 32, 3), seed=4))
+    model = _port_model(jstate, FCDenseNet(**TINY_ARCH), **TINY)
+    calls.clear()
+    batch = _synthetic_batch(seed=4, batch=4, h=32, w=32)
+    before = dict(block_engine.LAUNCHES)
+    _check_step(jstate, model, batch, TINY, _jax_step(jstate, batch, False))
+    assert calls == [(8, 16, 16, 48)]
+    assert block_engine.LAUNCHES == before  # CPU tensors: the twins
+
+
 def test_seed4_full_width_step_matches_jax():
     """Full-width FCDenseNet-57 at 64x64, B=2 (tests/test_training.py's
-    size)."""
+    size): the port's dense blocks through the engine against JAX's
+    default materialized path, which is the same math."""
     jstate = _conditioned(seeded_jax_state(JaxFCDenseNet57(n_classes=1),
                                            (1, 64, 64, 3), seed=4))
     model = _port_model(jstate, FCDenseNet57())
@@ -427,10 +475,44 @@ def test_dcl_weight_for_epoch():
     assert training.dcl_weight_for_epoch(21, CONFIG) == 5.0
 
 
+def test_engine_model_runs_every_step_kind(tiny, monkeypatch):
+    """train_step with grad_accum, and eval_step with batch statistics
+    (a no-grad train-mode forward), through the engine agree with the same
+    steps through the materialized route (the gate closed)."""
+    _, model = tiny
+    batch = _to_torch(_synthetic_batch(seed=7, batch=4, h=32, w=40))
+    results = []
+    for gate_open in (False, True):
+        with monkeypatch.context() as gate:
+            if not gate_open:
+                gate.setattr(block_engine, "supported", lambda *shape: False)
+            ev = training.eval_step(training.create_train_state(model), batch,
+                                    torch.tensor(DCL), CONFIG, use_batch_stats=True)
+            state = training.create_train_state(copy.deepcopy(model))
+            state, metrics = training.train_step(state, batch, torch.tensor(DCL),
+                                                 CONFIG, grad_accum=2)
+        results.append((ev, metrics, state.model.state_dict()))
+    (ev0, m0, sd0), (ev1, m1, sd1) = results
+    for key in ("loss", "sparse_flow_loss", "depth_consistency_loss"):
+        np.testing.assert_allclose(float(ev1[key]), float(ev0[key]), rtol=1e-4,
+                                   err_msg=key)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m1[key]), float(m0[key]), rtol=1e-3,
+                                   err_msg=key)
+    _assert_tensors_close({k: v for k, v in sd1.items()},
+                          {k: v for k, v in sd0.items() if "running" not in k},
+                          1e-5, "param")
+    for k in (k for k in sd0 if "running" in k):
+        np.testing.assert_allclose(sd1[k].numpy(), sd0[k].numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+
+
 def test_cpu_step_launches_no_kernel(tiny):
     _, model = tiny
     k1, k23 = dense_conv.LAUNCHES, dict(warp_sample.LAUNCHES)
+    k456 = dict(block_engine.LAUNCHES)
     state = training.create_train_state(copy.deepcopy(model))
     training.train_step(state, _to_torch(_synthetic_batch(batch=2, h=32, w=40)),
                         torch.tensor(DCL), CONFIG)
     assert dense_conv.LAUNCHES == k1 and warp_sample.LAUNCHES == k23
+    assert block_engine.LAUNCHES == k456
