@@ -324,6 +324,26 @@ def build_phase() -> None:
                         if "registers" in line or "spill" in line))
         if "sm_90a" not in report:
             raise AssertionError("a kernel was not compiled for sm_90a")
+    dinput_sass_check()
+
+
+def dinput_sass_check() -> None:
+    """``cuobjdump -sass`` of the block_engine library: the bf16 K5 must
+    run on the tensor cores (HMMA instructions), and no bf16 instantiation
+    of the FFMA K5 may exist."""
+    lib = block_engine._build.library_path("block_engine", block_engine._SOURCES)
+    cuobjdump = Path(block_engine._build.nvcc_path()).parent / "cuobjdump"
+    functions = {}  # mangled name -> its SASS
+    for chunk in _run([str(cuobjdump), "-sass", str(lib)]).split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        functions[name.strip()] = body
+    hmma = {name: sum("HMMA" in line for line in body.splitlines())
+            for name, body in functions.items() if "dinput_mma_kernel" in name}
+    ffma_bf16 = [n for n in functions if "dinput_kernel" in n and "bfloat16" in n]
+    print(f"cuobjdump -sass block_engine: HMMA instructions in the bf16 K5 "
+          f"{hmma}; bf16 instantiations of the FFMA K5: {ffma_bf16 or 'none'}")
+    if not hmma or min(hmma.values()) == 0 or ffma_bf16:
+        raise AssertionError("the bf16 K5 does not run on the tensor cores only")
 
 
 def _value_and_grads(fn, leaves, cot):
@@ -446,6 +466,7 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
     tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
            for n in names}
     max_abs, max_f32, max_bf16 = dict.fromkeys(names, 0.0), 0.0, 0.0
+    k5_levels = dict.fromkeys(("full resolution", "middle levels", "<= 32x40"), 0.0)
     print(f"engine kernel phase, batch {batch}, {height}x{width}, {card}:")
     print("  H    W    C    f32 max|d|/max|ref| (K4 K5 K6)  bf16 mean rel (K4 K5 K6)"
           "  bf16 ms kernel / plain / cuDNN (K4; K5; K6)")
@@ -535,6 +556,9 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
                 tot[name]["bytes"] += _engine_bytes(name, batch * h * w, c, f, 2)
                 tot[name]["ops"] += 2 * 9 * c * f * batch * h * w
                 row.append(" / ".join(f"{v:.3f}" for v in t))
+                if name == names[1]:
+                    k5_levels["full resolution" if h == height else "<= 32x40"
+                              if h <= height // 8 else "middle levels"] += t[0]
             print(f"  {h:<4} {w:<4} {c:<4} "
                   + " ".join(f"{v:.2e}" for v in errs[torch.float32]) + "   "
                   + " ".join(f"{v:.2e}" for v in errs[torch.bfloat16]) + "   "
@@ -553,6 +577,8 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
               f"call on the activated tensor {t['library_ms']:.4f} ms; bound "
               f"{bound_ms:.4f} ms ({bound_by}: {t['bytes'] / 1e9:.3f} GB, "
               f"{t['ops'] / 1e9:.1f} GFLOP)")
+    print(f"timing [{card}] block_engine_dinput bf16 by level: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in k5_levels.items()))
     print(f"engine kernel phase ok: 11 blocks, 44 layers, f32 max|d|/max|ref| "
           f"{max_f32:.3e} <= 1e-4, bf16 mean rel {max_bf16:.3e} <= 1e-4")
     return result

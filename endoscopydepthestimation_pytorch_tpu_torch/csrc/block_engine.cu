@@ -32,23 +32,44 @@
 //
 // What bounds them on an H100. FCDenseNet-57's 44 layers of one train step
 // at 2B = 16, 256x320 take ~392 GFLOP per kernel and move ~4.0 GB (K4, K6)
-// and ~11.2 GB (K5: the bf16 prefix gradient read and written): below the
-// bf16 tensor-core ridge, so memory-bound at ~1.2 / ~3.4 ms with tensor
-// cores. These kernels do their MACs as f32 FFMAs on the CUDA cores, which
-// makes them FFMA-bound at ~5.8 ms each (67 TFLOP/s). Derived from the
-// shapes, not measured.
+// and 11.56 GB (K5: the bf16 prefix, and its gradient read and written):
+// below the bf16 tensor-core ridge, so memory-bound with tensor cores, at
+// ~1.2 ms (K4, K6) and 11.56 GB / 3.35 TB/s = 3.45 ms (K5; its 392 GFLOP
+// are 0.4 ms at the 989 TFLOP/s bf16 peak). K4 and K6, and K5 in f32, do
+// their MACs as f32 FFMAs on the CUDA cores, which makes them FFMA-bound at
+// ~5.8 ms each (67 TFLOP/s). Derived from the shapes, not measured.
 //
-// Designs (direct convolution, simple first; mma/wgmma are later work):
+// Designs (K4, K6 and K5 in f32: direct convolution, simple first):
 //   K4  K1's design (csrc/dense_conv.cu): a 16x32 output tile of one image,
 //       128 threads, 4 rows x all F per thread, the (18x34) x 16-channel
 //       activated halo in shared memory; plus the prefix stride and the
 //       output offset, and a block reduction of the stored y.
-//   K5  the same tile; the gy_eff halo (F channels) is loaded ONCE into
-//       shared memory and the block then loops over 16-channel chunks of the
-//       prefix, each thread accumulating 4 rows x 16 channels over the
-//       transposed taps; the epilogue reads x, applies the mask and updates
-//       the gradient in place. At the deep levels a grid axis splits the
-//       chunks so the card has enough blocks.
+//   K5  bf16 (the train path): an implicit GEMM on the tensor cores,
+//       M = 256 pixels of one image (8x32, 16x16 or 32x8, the wrapper picks
+//       the shape that pads the image least), N = 32 prefix channels,
+//       K = 9 taps x 16 (F zero-padded to 16: one k16 step per tap), one
+//       block per (tile, channel chunk), 8 warps of 32 pixels x 32 channels,
+//       mma.sync m16n8k16 with f32 accumulators. Since it is memory-bound,
+//       the design spends its effort on the bytes: the block first starts
+//       cp.async copies of its x and gradient tile (16-byte vectors along
+//       the channels) into shared memory, then stages the gy_eff halo (bf16,
+//       rounded as the plain version rounds it, 48-byte rows so that
+//       ldmatrix rows hit distinct banks) and the weight slice [9][32][16],
+//       runs the 9 taps from ldmatrix fragments while the copies land, and
+//       applies the mask and scale from the fragments to the shared tile,
+//       which it writes back with 16-byte stores. Each x and gradient byte
+//       crosses HBM once; gy and y are re-read from L2 by the few chunk
+//       blocks of a tile, which launch next to each other. Rows whose
+//       stride or base is not 16-byte aligned take scalar copies instead.
+//       The per-channel sums reduce over lanes, then over warps in shared
+//       memory, in a fixed order: one writer per (tile, channel).
+//   K5  f32 (the parity dtype; mma has no full-f32 input): the K4 tile; the
+//       gy_eff halo (F channels) is loaded ONCE into shared memory and the
+//       block then loops over 16-channel chunks of the prefix, each thread
+//       accumulating 4 rows x 16 channels over the transposed taps; the
+//       epilogue reads x, applies the mask and updates the gradient in
+//       place. At the deep levels a grid axis splits the chunks so the card
+//       has enough blocks.
 //   K6  an 8x32 tile set per (16-channel chunk, split) block, 192 threads =
 //       16 channels x 3 row taps x 4 row groups; each thread slides a
 //       3-wide window of the activated row over the tile and accumulates
@@ -57,6 +78,8 @@
 //       grid axis), the 4 row groups are reduced in shared memory, and a
 //       second kernel sums the S partials.
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -64,7 +87,7 @@ namespace {
 
 constexpr int MAX_GROWTH = 16;
 
-// K4 and K5 tile (the K1 tile)
+// K4 and f32 K5 tile (the K1 tile)
 constexpr int TW = 32;                      // tile width (threads in x)
 constexpr int RPT = 4;                      // output rows per thread
 constexpr int TY = 4;                       // threads in y
@@ -82,6 +105,16 @@ constexpr int Q6 = 4;                       // row groups
 constexpr int NT6 = CC * 3 * Q6;            // 192 threads
 constexpr int HALO6 = (TH6 + 2) * (TW6 + 2);
 constexpr int PS6 = HALO6 + 1;
+
+// bf16 K5 tile
+constexpr int M5 = 256;                     // pixels per block
+constexpr int N5 = 32;                      // prefix channels per block
+constexpr int NT5 = 256;                    // threads: 8 warps x 32 pixels
+constexpr int HALO5 = 340;                  // max (M5/tw + 2)*(tw + 2), tw 8..32
+constexpr int GP = 24;                      // halo and weight row pitch (bf16)
+constexpr int XP = N5 + 8;                  // x and gradient tile pitch (bf16)
+constexpr int SMEM5 = 2 * (HALO5 * GP + 9 * N5 * GP + 2 * M5 * XP) +
+                      4 * 2 * (NT5 / 32) * N5;  // + the f32 reduction
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -397,6 +430,258 @@ __global__ void __launch_bounds__(NT) dinput_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// K5 in bf16: the same function as an implicit GEMM on the tensor cores
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One block: the tile of M5 pixels at (blockIdx.y, image blockIdx.z), tw
+// = 1 << twl wide, and the N5 prefix channels from blockIdx.x * N5. vec:
+// buf and grad rows are 16-byte aligned (ld % 8 == 0, aligned bases), so
+// the x and gradient tile move as 16-byte vectors; else as scalars.
+__global__ void __launch_bounds__(NT5, 2) dinput_mma_kernel(
+    __nv_bfloat16* grad, const __nv_bfloat16* buf,
+    const float* __restrict__ scale, const float* __restrict__ shift,
+    const __nv_bfloat16* __restrict__ w, const float* __restrict__ c1,
+    const float* __restrict__ c2, float* __restrict__ part,
+    float* __restrict__ part_bias, int H, int W, int C, int F, int ld,
+    int twl, int vec) {
+  extern __shared__ __align__(16) unsigned char smem5[];
+  __nv_bfloat16* s_g = reinterpret_cast<__nv_bfloat16*>(smem5);  // [pos][f]
+  __nv_bfloat16* s_w = s_g + HALO5 * GP;   // [tap][n][f]
+  __nv_bfloat16* s_x = s_w + 9 * N5 * GP;  // [m][n]
+  __nv_bfloat16* s_d = s_x + M5 * XP;      // [m][n], the gradient tile
+  float* s_red = reinterpret_cast<float*>(s_d + M5 * XP);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tw = 1 << twl, hp = tw + 2;  // tile width, halo row pitch
+  const int tiles_w = (W + tw - 1) >> twl;
+  const int w0 = (blockIdx.y % tiles_w) * tw, h0 = (blockIdx.y / tiles_w) * (M5 >> twl);
+  const int c0 = blockIdx.x * N5;
+  const size_t img = (size_t)blockIdx.z * H * W * ld;
+  __nv_bfloat16* gb = grad + img;
+  const __nv_bfloat16* bb = buf + img;
+  const size_t nsp = (size_t)gridDim.z * gridDim.y;
+  const size_t sb = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+
+  // 1. the x and gradient tile, pixel m at tile row m >> twl, column
+  //    m & (tw - 1): in flight while the halo is staged and the MMAs run
+  if (vec) {
+    for (int e = tid; e < M5 * (N5 / 8); e += NT5) {
+      const int m = e / (N5 / 8), v = e % (N5 / 8);
+      const int gh = h0 + (m >> twl), gw = w0 + (m & (tw - 1)), gc = c0 + 8 * v;
+      if (gh < H && gw < W && gc < C) {  // gc + 8 <= ld: both are multiples of 8
+        const size_t p = ((size_t)gh * W + gw) * ld + gc;
+        cp_async16(smem_addr(s_x + m * XP + 8 * v), bb + p);
+        cp_async16(smem_addr(s_d + m * XP + 8 * v), gb + p);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  } else {
+    for (int e = tid; e < M5 * N5; e += NT5) {
+      const int m = e / N5, n = e % N5;
+      const int gh = h0 + (m >> twl), gw = w0 + (m & (tw - 1)), gc = c0 + n;
+      if (gh < H && gw < W && gc < C) {
+        const size_t p = ((size_t)gh * W + gw) * ld + gc;
+        s_x[m * XP + n] = bb[p];
+        s_d[m * XP + n] = gb[p];
+      }
+    }
+  }
+
+  // 2. the weight slice, zero for f >= F and c >= C
+  for (int e = tid; e < 9 * N5 * 16; e += NT5) {
+    const int f = e % 16, n = (e / 16) % N5, tap = e / (16 * N5);
+    const int gc = c0 + n;
+    __nv_bfloat16 v = __float2bfloat16(0.f);
+    if (f < F && gc < C) v = w[((size_t)tap * C + gc) * F + f];
+    s_w[(tap * N5 + n) * GP + f] = v;
+  }
+
+  // 3. gy_eff = g + c1 + c2*y over the halo, rounded to bf16, zero outside
+  //    the image and for f >= F; the layer's own channels [C, C+F) are never
+  //    written by this kernel
+  const int n_halo = ((M5 >> twl) + 2) * hp;
+  for (int e = tid; e < n_halo * 16; e += NT5) {
+    const int f = e % 16, pos = e / 16;
+    const int gh = h0 + pos / hp - 1, gw = w0 + pos % hp - 1;
+    float v = 0.f;
+    if (f < F && gh >= 0 && gh < H && gw >= 0 && gw < W) {
+      const size_t p = ((size_t)gh * W + gw) * ld + C + f;
+      v = gy_eff(to_float(gb[p]), to_float(bb[p]), c1[f], c2[f]);
+    }
+    s_g[pos * GP + f] = __float2bfloat16(v);
+  }
+  __syncthreads();
+
+  if (blockIdx.x == 0) {  // sum gy_eff over the tile (zeros outside the image)
+    const int f = tid % 16;
+    float s = 0.f;
+    for (int m = tid / 16; m < M5; m += NT5 / 16)
+      s += to_float(s_g[(((m >> twl) + 1) * hp + (m & (tw - 1)) + 1) * GP + f]);
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    if (lane < 16) s_red[warp * 16 + lane] = s;
+    __syncthreads();
+    if (tid < F) {
+      float t = 0.f;
+      for (int i = 0; i < NT5 / 32; ++i) t += s_red[i * 16 + tid];
+      part_bias[sb * F + tid] = t;
+    }
+  }
+
+  // 4. the GEMM: warp w owns pixels [32w, 32w + 32) as two m16 tiles and all
+  //    N5 channels as four n8 tiles. Output pixel (r, x) of tap (ky, kx)
+  //    reads gy_eff at halo position (r + 2 - ky, x + 2 - kx); the tap's B
+  //    is W[ky, kx, c, 0:16], [n][k] in shared memory as mma's col operand.
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
+  unsigned a_base[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // ldmatrix row: pixel lane % 16, k half lane / 16
+    const int m = warp * 32 + i * 16 + lane % 16;
+    a_base[i] = smem_addr(s_g + ((m >> twl) * hp + (m & (tw - 1))) * GP + (lane / 16) * 8);
+  }
+  // B rows: channel (lane / 16) * 8 + lane % 8 of a 16-channel pair, k half (lane / 8) % 2
+  const unsigned b_base =
+      smem_addr(s_w + ((lane / 16) * 8 + lane % 8) * GP + ((lane / 8) % 2) * 8);
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      const unsigned a_off = 2 * GP * ((2 - ky) * hp + 2 - kx);
+      unsigned a[2][4], b[2][4];
+      ldmatrix_x4(a_base[0] + a_off, a[0]);
+      ldmatrix_x4(a_base[1] + a_off, a[1]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        ldmatrix_x4(b_base + 2 * GP * ((ky * 3 + kx) * N5 + 16 * j), b[j]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[i][nt], a[i], b[nt / 2][(nt % 2) * 2], b[nt / 2][(nt % 2) * 2 + 1]);
+    }
+
+  // 5. epilogue from the fragments: thread (g, t) = (lane / 4, lane % 4)
+  //    holds pixels row0 + g and row0 + 8 + g of each m16 tile and channels
+  //    nt*8 + 2t + {0, 1}: mask, scale, the in-place gradient update in the
+  //    shared tile, and the per-channel sums
+  if (vec) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const int g = lane / 4, t = lane % 4;
+  float sc[4][2], sh[4][2], sx[4][2], ss[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int gc = c0 + nt * 8 + 2 * t + j;
+      sc[nt][j] = gc < C ? scale[gc] : 0.f;
+      sh[nt][j] = gc < C ? shift[gc] : 0.f;
+      sx[nt][j] = ss[nt][j] = 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = warp * 32 + i * 16 + half * 8 + g;
+      if (h0 + (m >> twl) < H && w0 + (m & (tw - 1)) < W) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int n = nt * 8 + 2 * t + j;
+            if (c0 + n < C) {
+              const float xv = to_float(s_x[m * XP + n]);
+              const float a = rounded<__nv_bfloat16>(affine_relu(xv, sc[nt][j], sh[nt][j]));
+              const float d = a > 0.f ? acc[i][nt][half * 2 + j] : 0.f;
+              s_d[m * XP + n] = from_float<__nv_bfloat16>(
+                  __fadd_rn(to_float(s_d[m * XP + n]), __fmul_rn(d, sc[nt][j])));
+              sx[nt][j] = fmaf(d, xv, sx[nt][j]);
+              ss[nt][j] += d;
+            }
+          }
+      }
+    }
+  // over the 8 lanes of one channel, then over the warps in order
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float a = sx[nt][j], d = ss[nt][j];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        d += __shfl_xor_sync(0xffffffffu, d, o);
+      }
+      if (g == 0) {
+        const int n = nt * 8 + 2 * t + j;
+        s_red[(warp * 2) * N5 + n] = a;
+        s_red[(warp * 2 + 1) * N5 + n] = d;
+      }
+    }
+  __syncthreads();
+  if (tid < 2 * N5) {
+    const int k = tid / N5, n = tid % N5;
+    if (c0 + n < C) {
+      float s = 0.f;
+      for (int i = 0; i < NT5 / 32; ++i) s += s_red[(i * 2 + k) * N5 + n];
+      part[(k * nsp + sb) * C + c0 + n] = s;
+    }
+  }
+
+  // 6. the gradient tile back, channels < C only
+  if (vec) {
+    for (int e = tid; e < M5 * (N5 / 8); e += NT5) {
+      const int m = e / (N5 / 8), v = e % (N5 / 8);
+      const int gh = h0 + (m >> twl), gw = w0 + (m & (tw - 1)), gc = c0 + 8 * v;
+      if (gh < H && gw < W && gc < C) {
+        const size_t p = ((size_t)gh * W + gw) * ld + gc;
+        const __nv_bfloat16* src = s_d + m * XP + 8 * v;
+        if (gc + 8 <= C)
+          *reinterpret_cast<uint4*>(gb + p) = *reinterpret_cast<const uint4*>(src);
+        else
+          for (int k = 0; gc + k < C; ++k) gb[p + k] = src[k];
+      }
+    }
+  } else {
+    for (int e = tid; e < M5 * N5; e += NT5) {
+      const int m = e / N5, n = e % N5;
+      const int gh = h0 + (m >> twl), gw = w0 + (m & (tw - 1)), gc = c0 + n;
+      if (gh < H && gw < W && gc < C)
+        gb[((size_t)gh * W + gw) * ld + gc] = s_d[m * XP + n];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K6: weight gradients of one layer
 
 template <int FP>
@@ -543,12 +828,13 @@ cudaError_t launch_fwd(void* buf, const float* scale, const float* shift,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dinput(void* grad, const void* buf, const float* scale,
-                          const float* shift, const void* w, const float* c1,
-                          const float* c2, float* part, float* part_bias,
-                          int B, int H, int W, int C, int F, int ld,
-                          int n_split, cudaStream_t s) {
+// f32 K5 (FFMA); bf16 goes to launch_dinput_mma
+cudaError_t launch_dinput_f32(void* grad, const void* buf, const float* scale,
+                              const float* shift, const void* w, const float* c1,
+                              const float* c2, float* part, float* part_bias,
+                              int B, int H, int W, int C, int F, int ld,
+                              int n_split, cudaStream_t s) {
+  using T = float;
   const int cpb = tiles(tiles(C, CC), n_split);
   const dim3 block(TW, TY), grid(tiles(W, TW), tiles(H, TH), B * n_split);
   T* g = static_cast<T*>(grad);
@@ -560,6 +846,26 @@ cudaError_t launch_dinput(void* grad, const void* buf, const float* scale,
     case 3: dinput_kernel<T, 12><<<grid, block, 0, s>>>(g, b, scale, shift, wt, c1, c2, part, part_bias, B, H, W, C, F, ld, n_split, cpb); break;
     default: dinput_kernel<T, 16><<<grid, block, 0, s>>>(g, b, scale, shift, wt, c1, c2, part, part_bias, B, H, W, C, F, ld, n_split, cpb); break;
   }
+  return cudaGetLastError();
+}
+
+int log2_tile(int tw) { return tw == 32 ? 5 : tw == 16 ? 4 : tw == 8 ? 3 : -1; }
+
+cudaError_t launch_dinput_mma(void* grad, const void* buf, const float* scale,
+                              const float* shift, const void* w, const float* c1,
+                              const float* c2, float* part, float* part_bias,
+                              int B, int H, int W, int C, int F, int ld,
+                              int tile_w, cudaStream_t s) {
+  const dim3 grid(tiles(C, N5), tiles(H, M5 / tile_w) * tiles(W, tile_w), B);
+  const bool vec = ld % 8 == 0 && reinterpret_cast<uintptr_t>(grad) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(buf) % 16 == 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      dinput_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM5);
+  if (err != cudaSuccess) return err;
+  dinput_mma_kernel<<<grid, NT5, SMEM5, s>>>(
+      static_cast<__nv_bfloat16*>(grad), static_cast<const __nv_bfloat16*>(buf),
+      scale, shift, static_cast<const __nv_bfloat16*>(w), c1, c2, part,
+      part_bias, H, W, C, F, ld, log2_tile(tile_w), vec);
   return cudaGetLastError();
 }
 
@@ -594,8 +900,8 @@ int block_engine_max_growth() { return MAX_GROWTH; }
 // All three: dtype 0 = float32, 1 = bfloat16 for buf, grad and w; scale,
 // shift, bias, c1, c2 and every partial are float32. buf and grad are
 // contiguous (B, H, W, ld); the layer reads channels [0, C) and owns
-// [C, C+F). n_part must be the kernel's count of spatial blocks,
-// B * ceil(H/16) * ceil(W/32) (K4, K5). Each returns cudaGetLastError()
+// [C, C+F). n_part must be the kernel's count of spatial tiles: K4's
+// B * ceil(H/16) * ceil(W/32); K5's below. Each returns cudaGetLastError()
 // after its launches, or cudaErrorInvalidValue for arguments it does not
 // take.
 
@@ -620,17 +926,24 @@ int block_engine_fwd(int dtype, void* buf, const void* scale,
   return (int)cudaErrorInvalidValue;
 }
 
-// K5. part: (2, n_part, C), the per-block (sum dpre*x, sum dpre); part_bias:
-// (n_part, F), the per-block sum of gy_eff. n_split: how many blocks share
-// one tile's channel chunks (1 .. ceil(C/16)).
+// K5. part: (2, n_part, C), the per-tile (sum dpre*x, sum dpre); part_bias:
+// (n_part, F), the per-tile sum of gy_eff. n_split: how many blocks share
+// one tile's channels. float32: tile_w = 32 (16x32 tiles), n_split in
+// 1 .. ceil(C/16). bfloat16: tile_w = 32, 16 or 8 (tiles of 256 pixels,
+// 256/tile_w rows), n_split = ceil(C/32), one block per 32 channels.
 int block_engine_dinput(int dtype, void* grad, const void* buf,
                         const void* scale, const void* shift, const void* w,
                         const void* c1, const void* c2, void* part,
                         void* part_bias, int B, int H, int W, int C, int F,
-                        int ld, int n_part, int n_split, void* stream) {
-  if (bad_dims(B, H, W, C, F, ld) ||
-      n_part != B * tiles(H, TH) * tiles(W, TW) || n_split < 1 ||
-      n_split > tiles(C, CC) || B * n_split > 65535)
+                        int ld, int n_part, int n_split, int tile_w,
+                        void* stream) {
+  if (bad_dims(B, H, W, C, F, ld)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && (tile_w != TW || n_part != B * tiles(H, TH) * tiles(W, TW) ||
+                     n_split < 1 || n_split > tiles(C, CC) || B * n_split > 65535))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (log2_tile(tile_w) < 0 || n_split != tiles(C, N5) ||
+                     tiles(H, M5 / tile_w) * tiles(W, tile_w) > 65535 ||
+                     n_part != B * tiles(H, M5 / tile_w) * tiles(W, tile_w)))
     return (int)cudaErrorInvalidValue;
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
@@ -640,12 +953,11 @@ int block_engine_dinput(int dtype, void* grad, const void* buf,
   float* pb = static_cast<float*>(part_bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_dinput<float>(grad, buf, sc, sh, w, a, b, p, pb, B, H,
-                                     W, C, F, ld, n_split, s);
+    return (int)launch_dinput_f32(grad, buf, sc, sh, w, a, b, p, pb, B, H, W,
+                                  C, F, ld, n_split, s);
   if (dtype == 1)
-    return (int)launch_dinput<__nv_bfloat16>(grad, buf, sc, sh, w, a, b, p,
-                                             pb, B, H, W, C, F, ld, n_split,
-                                             s);
+    return (int)launch_dinput_mma(grad, buf, sc, sh, w, a, b, p, pb, B, H, W,
+                                  C, F, ld, tile_w, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -64,10 +64,12 @@ LAUNCHES = {"block_engine_fwd": 0, "block_engine_dinput": 0,
             "block_engine_dweight": 0}
 MAX_GROWTH = 16        # the kernels' compiled maximum of F
 EPS = 1e-5             # BatchNorm's, as torch's and the JAX package's
-TILE_H, TILE_W = 16, 32  # K4's and K5's output tile
+TILE_H, TILE_W = 16, 32  # K4's and f32 K5's output tile
 DWEIGHT_TILE_H = 8     # K6's tile is 8 x 32
 CHUNK = 16             # channels per chunk
-TARGET_BLOCKS = 1024   # K5 and K6 split work across blocks up to about this
+TARGET_BLOCKS = 1024   # f32 K5 and K6 split work across blocks up to about this
+DINPUT_PIXELS = 256    # bf16 K5's tile: 256 pixels, 32, 16 or 8 wide
+DINPUT_CHUNK = 32      # bf16 K5's prefix channels per block
 _SOURCES = ("block_engine.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -85,7 +87,7 @@ def _library() -> ctypes.CDLL:
     if lib.block_engine_fwd.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.block_engine_fwd.argtypes = [i] + [p] * 6 + [i] * 7 + [p]
-        lib.block_engine_dinput.argtypes = [i] + [p] * 9 + [i] * 8 + [p]
+        lib.block_engine_dinput.argtypes = [i] + [p] * 9 + [i] * 9 + [p]
         lib.block_engine_dweight.argtypes = [i] + [p] * 8 + [i] * 7 + [p]
         for fn in (lib.block_engine_fwd, lib.block_engine_dinput,
                    lib.block_engine_dweight):
@@ -217,8 +219,26 @@ def _check(buf, c, f, vectors, w=None, grad=None) -> None:
         raise ValueError(f"no block_engine kernel for device {buf.device}")
 
 
-def _n_part(b: int, h: int, w: int) -> int:
-    return b * _ceil(h, TILE_H) * _ceil(w, TILE_W)
+def _n_part(b: int, h: int, w: int, tile_h: int = TILE_H,
+            tile_w: int = TILE_W) -> int:
+    return b * _ceil(h, tile_h) * _ceil(w, tile_w)
+
+
+def dinput_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
+                  ) -> Tuple[int, int, int]:
+    """K5's (tile_h, tile_w, n_split) for a (b, h, w) image with prefix c:
+    in bf16, 256-pixel tiles in the width of 32, 16 and 8 that pads the
+    image least (the widest on a tie) and one block per 32 channels; in
+    f32, 16x32 tiles and the 16-channel chunks split across blocks up to
+    about ``TARGET_BLOCKS`` blocks."""
+    if dtype == torch.bfloat16:
+        tile_h, tile_w = min(
+            ((DINPUT_PIXELS // tw, tw) for tw in (32, 16, 8)),
+            key=lambda t: _ceil(h, t[0]) * t[0] * _ceil(w, t[1]) * t[1])
+        return tile_h, tile_w, _ceil(c, DINPUT_CHUNK)
+    n_split = max(1, min(_ceil(c, CHUNK),
+                         _ceil(TARGET_BLOCKS, _n_part(b, h, w)), 65535 // b))
+    return TILE_H, TILE_W, n_split
 
 
 def _launch(name: str, buf, tensors, ints) -> None:
@@ -263,14 +283,13 @@ def layer_dinput(grad, buf, c, scale, shift, w, c1, c2):
     if buf.device.type == "cpu":
         return layer_dinput_reference(grad, buf, c, scale, shift, w, c1, c2)
     b, h, wd, ld = buf.shape
-    n_part = _n_part(b, h, wd)
-    n_chunks = _ceil(c, CHUNK)
-    n_split = max(1, min(n_chunks, _ceil(TARGET_BLOCKS, n_part), 65535 // b))
+    tile_h, tile_w, n_split = dinput_tiling(buf.dtype, b, h, wd, c)
+    n_part = _n_part(b, h, wd, tile_h, tile_w)
     part = torch.empty((2, n_part, c), dtype=torch.float32, device=buf.device)
     part_bias = torch.empty((n_part, f), dtype=torch.float32, device=buf.device)
     _launch("block_engine_dinput", buf,
             (grad, buf, scale, shift, w, c1, c2, part, part_bias),
-            (b, h, wd, c, f, ld, n_part, n_split))
+            (b, h, wd, c, f, ld, n_part, n_split, tile_w))
     sums = part.sum(1)
     return sums[0], sums[1], part_bias.sum(0)
 

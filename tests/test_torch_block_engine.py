@@ -202,6 +202,21 @@ def test_gate_is_the_ports_own():
     assert not block_engine.supported(2, 8, 8, 4, block_engine.MAX_GROWTH + 1)
 
 
+def test_dinput_tiling():
+    """K5's tiles: in bf16, 256 pixels in the width that pads the image
+    least (the widest on a tie), one block per 32 channels; in f32, 16x32
+    tiles with the 16-channel chunks split up to ~TARGET_BLOCKS blocks."""
+    want = {(256, 320): (8, 32), (128, 160): (8, 32), (64, 80): (16, 16),
+            (32, 40): (32, 8), (16, 20): (8, 32), (8, 10): (8, 32),
+            (20, 44): (8, 32)}
+    for (h, w), tile in want.items():
+        assert block_engine.dinput_tiling(torch.bfloat16, 16, h, w, 60) == (*tile, 2)
+    assert block_engine.dinput_tiling(torch.bfloat16, 2, 17, 33, 7)[2] == 1
+    assert block_engine.dinput_tiling(torch.float32, 16, 256, 320, 48) == (16, 32, 1)
+    # 16 * 1 * 1 tiles at 8x10: every one of the 24 chunks of 372 channels
+    assert block_engine.dinput_tiling(torch.float32, 16, 8, 10, 372) == (16, 32, 24)
+
+
 def test_cpu_engine_launches_no_kernel():
     before = dict(block_engine.LAUNCHES)
     x, params, cots = _block_inputs(1, 3, 4, 5, 4, 2, seed=4)

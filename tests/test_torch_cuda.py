@@ -251,10 +251,14 @@ def test_tiny_train_step_bf16_launch_counts(device, monkeypatch, gate_open):
 
 
 # (B, H, W, C, F, extra channels after the layer's): a full-resolution
-# up-block layer, a ragged tile with F < 12, a deep level whose K5 splits
-# its channel chunks across blocks, with F = 16
+# up-block layer, a ragged tile with F < 12 and a row stride (15) that is
+# not 16-byte aligned, a deep level whose f32 K5 splits its channel chunks
+# across blocks, with F = 16; a first-down-block layer (C = 60 = 4 mod 8,
+# row stride 96: bf16 K5's 16-byte path with a ragged last vector); a
+# width (44) and height (20) that no 256-pixel tile divides, with C = 36
 ENGINE_SHAPES = [(8, 64, 80, 180, 12, 24), (2, 17, 33, 7, 5, 3),
-                 (4, 8, 10, 324, 16, 0)]
+                 (4, 8, 10, 324, 16, 0), (4, 32, 64, 60, 12, 24),
+                 (2, 20, 44, 36, 12, 0)]
 
 
 def _engine_layer(b, h, w, c, f, extra, dtype, device, seed=0):
@@ -317,6 +321,22 @@ def test_engine_kernels_match_twins(device, b, h, w, c, f, extra, dtype):
     assert got.shape == (3, 3, c, f) and _close(got, ref, dtype)
     for name, n in block_engine.LAUNCHES.items():
         assert n == before[name] + 1, name
+
+
+def test_engine_dinput_is_deterministic(device):
+    """Two bf16 K5 launches on the same inputs give bitwise-equal gradient
+    prefixes and sums: every reduction runs in a fixed order, no atomics."""
+    b, h, w, c, f, extra = ENGINE_SHAPES[3]
+    buf, grad, scale, shift, wk, _, c1, c2 = _engine_layer(
+        b, h, w, c, f, extra, torch.bfloat16, device, seed=1)
+    runs = []
+    for _ in range(2):
+        got_grad = grad.clone()
+        sums = block_engine.layer_dinput(got_grad, buf, c, scale, shift, wk, c1, c2)
+        runs.append((got_grad, *sums))
+    torch.cuda.synchronize()
+    for name, a, r in zip(("grad", "dscale", "dshift", "dbias"), *runs):
+        assert torch.equal(a, r), name
 
 
 def test_block_engine_apply_matches_cpu(device):
