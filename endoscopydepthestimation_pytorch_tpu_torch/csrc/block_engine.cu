@@ -79,6 +79,7 @@
 //       second kernel sums the S partials.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,7 +115,7 @@ constexpr int HALO5 = 340;                  // max (M5/tw + 2)*(tw + 2), tw 8..3
 constexpr int GP = 24;                      // halo and weight row pitch (bf16)
 constexpr int XP = N5 + 8;                  // x and gradient tile pitch (bf16)
 constexpr int SMEM5 = 2 * (HALO5 * GP + 9 * N5 * GP + 2 * M5 * XP) +
-                      4 * 2 * (NT5 / 32) * N5;  // + the f32 reduction
+                      4 * (2 * (NT5 / 32) * N5 + 2 * N5);  // + f32 sums, scale, shift
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -141,6 +142,13 @@ template <typename T> __device__ __forceinline__ float rounded(float v) {
 // which passes or drops a whole da term
 __device__ __forceinline__ float affine_relu(float x, float scale, float shift) {
   return fmaxf(__fadd_rn(__fmul_rn(x, scale), shift), 0.f);
+}
+
+// rounded<bf16>(affine_relu(x, scale, shift)) > 0, K5's bf16 ReLU mask,
+// without the rounding: a positive f32 rounds to a bf16 0 exactly when it
+// is at most 2^-134, half of bf16's least subnormal (the tie goes to 0)
+__device__ __forceinline__ bool active_bf16(float x, float scale, float shift) {
+  return __fadd_rn(__fmul_rn(x, scale), shift) > 0x1p-134f;
 }
 
 // gy_eff = (g + c1) + c2*y, each step rounded as in the plain version
@@ -458,43 +466,50 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One block: the tile of M5 pixels at (blockIdx.y, image blockIdx.z), tw
-// = 1 << twl wide, and the N5 prefix channels from blockIdx.x * N5. vec:
-// buf and grad rows are 16-byte aligned (ld % 8 == 0, aligned bases), so
-// the x and gradient tile move as 16-byte vectors; else as scalars.
-__global__ void __launch_bounds__(NT5, 2) dinput_mma_kernel(
+// One block: the tile of M5 pixels at (blockIdx.y, image blockIdx.z),
+// 1 << TWL wide, and the N5 prefix channels from blockIdx.x * N5. VEC: buf
+// and grad rows are 16-byte aligned and C and F are even (ld % 8 == 0,
+// aligned bases), so the x and gradient tile move as 16-byte vectors and the
+// halo and the weights as channel pairs; else everything moves as scalars.
+template <int TWL, bool VEC>
+__global__ void __launch_bounds__(NT5, 3) dinput_mma_kernel(
     __nv_bfloat16* grad, const __nv_bfloat16* buf,
     const float* __restrict__ scale, const float* __restrict__ shift,
     const __nv_bfloat16* __restrict__ w, const float* __restrict__ c1,
     const float* __restrict__ c2, float* __restrict__ part,
-    float* __restrict__ part_bias, int H, int W, int C, int F, int ld,
-    int twl, int vec) {
+    float* __restrict__ part_bias, int H, int W, int C, int F, int ld) {
+  constexpr int TW5 = 1 << TWL, HP = TW5 + 2;  // tile width, halo row pitch
+  constexpr int N_HALO = (M5 / TW5 + 2) * HP;  // halo positions
+  static_assert(N_HALO <= HALO5, "the halo does not fit its shared memory");
   extern __shared__ __align__(16) unsigned char smem5[];
   __nv_bfloat16* s_g = reinterpret_cast<__nv_bfloat16*>(smem5);  // [pos][f]
   __nv_bfloat16* s_w = s_g + HALO5 * GP;   // [tap][n][f]
   __nv_bfloat16* s_x = s_w + 9 * N5 * GP;  // [m][n]
   __nv_bfloat16* s_d = s_x + M5 * XP;      // [m][n], the gradient tile
-  float* s_red = reinterpret_cast<float*>(s_d + M5 * XP);
+  float* s_red = reinterpret_cast<float*>(s_d + M5 * XP);  // [warp][2][n]
+  float* s_ss = s_red + 2 * (NT5 / 32) * N5;               // scale, shift
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int tw = 1 << twl, hp = tw + 2;  // tile width, halo row pitch
-  const int tiles_w = (W + tw - 1) >> twl;
-  const int w0 = (blockIdx.y % tiles_w) * tw, h0 = (blockIdx.y / tiles_w) * (M5 >> twl);
+  const int tiles_w = (W + TW5 - 1) / TW5;
+  const int w0 = (blockIdx.y % tiles_w) * TW5, h0 = (blockIdx.y / tiles_w) * (M5 / TW5);
   const int c0 = blockIdx.x * N5;
   const size_t img = (size_t)blockIdx.z * H * W * ld;
   __nv_bfloat16* gb = grad + img;
   const __nv_bfloat16* bb = buf + img;
   const size_t nsp = (size_t)gridDim.z * gridDim.y;
   const size_t sb = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  // pixel m of the tile: (h0 + m / TW5, w0 + m % TW5)
+  auto inside = [&](int m) { return h0 + m / TW5 < H && w0 + m % TW5 < W; };
+  auto row = [&](int m) { return ((size_t)(h0 + m / TW5) * W + w0 + m % TW5) * ld; };
 
-  // 1. the x and gradient tile, pixel m at tile row m >> twl, column
-  //    m & (tw - 1): in flight while the halo is staged and the MMAs run
-  if (vec) {
-    for (int e = tid; e < M5 * (N5 / 8); e += NT5) {
-      const int m = e / (N5 / 8), v = e % (N5 / 8);
-      const int gh = h0 + (m >> twl), gw = w0 + (m & (tw - 1)), gc = c0 + 8 * v;
-      if (gh < H && gw < W && gc < C) {  // gc + 8 <= ld: both are multiples of 8
-        const size_t p = ((size_t)gh * W + gw) * ld + gc;
+  // 1. the x and gradient tile: in flight while the halo is staged and the
+  //    MMAs run
+  if constexpr (VEC) {
+#pragma unroll
+    for (int k = 0; k < M5 * (N5 / 8) / NT5; ++k) {
+      const int e = tid + k * NT5, m = e / (N5 / 8), v = e % (N5 / 8);
+      if (inside(m) && c0 + 8 * v < C) {  // c0 + 8v + 8 <= ld: multiples of 8
+        const size_t p = row(m) + c0 + 8 * v;
         cp_async16(smem_addr(s_x + m * XP + 8 * v), bb + p);
         cp_async16(smem_addr(s_d + m * XP + 8 * v), gb + p);
       }
@@ -503,45 +518,102 @@ __global__ void __launch_bounds__(NT5, 2) dinput_mma_kernel(
   } else {
     for (int e = tid; e < M5 * N5; e += NT5) {
       const int m = e / N5, n = e % N5;
-      const int gh = h0 + (m >> twl), gw = w0 + (m & (tw - 1)), gc = c0 + n;
-      if (gh < H && gw < W && gc < C) {
-        const size_t p = ((size_t)gh * W + gw) * ld + gc;
-        s_x[m * XP + n] = bb[p];
-        s_d[m * XP + n] = gb[p];
+      if (inside(m) && c0 + n < C) {
+        s_x[m * XP + n] = bb[row(m) + c0 + n];
+        s_d[m * XP + n] = gb[row(m) + c0 + n];
       }
     }
   }
 
-  // 2. the weight slice, zero for f >= F and c >= C
-  for (int e = tid; e < 9 * N5 * 16; e += NT5) {
-    const int f = e % 16, n = (e / 16) % N5, tap = e / (16 * N5);
-    const int gc = c0 + n;
-    __nv_bfloat16 v = __float2bfloat16(0.f);
-    if (f < F && gc < C) v = w[((size_t)tap * C + gc) * F + f];
-    s_w[(tap * N5 + n) * GP + f] = v;
-  }
-
-  // 3. gy_eff = g + c1 + c2*y over the halo, rounded to bf16, zero outside
-  //    the image and for f >= F; the layer's own channels [C, C+F) are never
-  //    written by this kernel
-  const int n_halo = ((M5 >> twl) + 2) * hp;
-  for (int e = tid; e < n_halo * 16; e += NT5) {
-    const int f = e % 16, pos = e / 16;
-    const int gh = h0 + pos / hp - 1, gw = w0 + pos % hp - 1;
-    float v = 0.f;
-    if (f < F && gh >= 0 && gh < H && gw >= 0 && gw < W) {
-      const size_t p = ((size_t)gh * W + gw) * ld + C + f;
-      v = gy_eff(to_float(gb[p]), to_float(bb[p]), c1[f], c2[f]);
+  // 2. the weight slice (zero for f >= F and c >= C), the chunk's scale and
+  //    shift (zero for c >= C), and g and y of the layer's channels [C, C+F)
+  //    over the halo (never written by this kernel), LP lanes per position
+  //    and CPL channels per lane: every load is issued before the first
+  //    store, so the block waits for one round trip, not one per step
+  constexpr int LP = VEC ? 8 : 16, CPL = 16 / LP;
+  constexpr int W_STEPS = 9 * N5 * LP / NT5;
+  constexpr int G_STEPS = (N_HALO * LP + NT5 - 1) / NT5;
+  using G = std::conditional_t<VEC, __nv_bfloat162, __nv_bfloat16>;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const int f0 = (tid % LP) * CPL;  // the same at every step: NT5 % LP == 0
+  G wv[W_STEPS];
+#pragma unroll
+  for (int k = 0; k < W_STEPS; ++k) {  // weight (tap, n), channels f0 ..
+    const int e = tid / LP + k * (NT5 / LP), n = e % N5, tap = e / N5;
+    const size_t p = ((size_t)tap * C + c0 + n) * F + f0;
+    if constexpr (VEC) {
+      wv[k] = __halves2bfloat162(zero, zero);
+      if (f0 < F && c0 + n < C) wv[k] = *reinterpret_cast<const __nv_bfloat162*>(w + p);
+    } else {
+      wv[k] = zero;
+      if (f0 < F && c0 + n < C) wv[k] = w[p];
     }
-    s_g[pos * GP + f] = __float2bfloat16(v);
+  }
+  float ssv = 0.f;  // scale (tid < N5), shift (N5 <= tid < 2*N5)
+  if (tid < 2 * N5 && c0 + tid % N5 < C)
+    ssv = (tid < N5 ? scale : shift)[c0 + tid % N5];
+  G gr[G_STEPS], yr[G_STEPS];
+#pragma unroll
+  for (int k = 0; k < G_STEPS; ++k) {
+    const int pos = tid / LP + k * (NT5 / LP);
+    const int gh = h0 + pos / HP - 1, gw = w0 + pos % HP - 1;
+    if constexpr (VEC) gr[k] = yr[k] = __halves2bfloat162(zero, zero);
+    else gr[k] = yr[k] = zero;
+    if (pos < N_HALO && gh >= 0 && gh < H && gw >= 0 && gw < W && f0 < F) {
+      const size_t p = ((size_t)gh * W + gw) * ld + C + f0;
+      if constexpr (VEC) {
+        gr[k] = *reinterpret_cast<const __nv_bfloat162*>(gb + p);
+        yr[k] = *reinterpret_cast<const __nv_bfloat162*>(bb + p);
+      } else {
+        gr[k] = gb[p];
+        yr[k] = bb[p];
+      }
+    }
+  }
+  float c1v[CPL], c2v[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    c1v[j] = f0 + j < F ? c1[f0 + j] : 0.f;
+    c2v[j] = f0 + j < F ? c2[f0 + j] : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < W_STEPS; ++k)  // [tap][n][f]: tid / LP + k * (NT5 / LP) = tap*N5 + n
+    *reinterpret_cast<G*>(s_w + (tid / LP + k * (NT5 / LP)) * GP + f0) = wv[k];
+  if (tid < 2 * N5) s_ss[tid] = ssv;
+  // 3. gy_eff = g + c1 + c2*y over the halo, rounded to bf16, zero outside
+  //    the image and for f >= F
+#pragma unroll
+  for (int k = 0; k < G_STEPS; ++k) {
+    const int pos = tid / LP + k * (NT5 / LP);
+    const int gh = h0 + pos / HP - 1, gw = w0 + pos % HP - 1;
+    if (pos < N_HALO) {
+      const bool in = gh >= 0 && gh < H && gw >= 0 && gw < W;
+      float v[CPL];
+      if constexpr (VEC) {
+        const float2 g2 = __bfloat1622float2(gr[k]), y2 = __bfloat1622float2(yr[k]);
+        v[0] = gy_eff(g2.x, y2.x, c1v[0], c2v[0]);
+        v[1] = gy_eff(g2.y, y2.y, c1v[1], c2v[1]);
+      } else {
+        v[0] = gy_eff(to_float(gr[k]), to_float(yr[k]), c1v[0], c2v[0]);
+      }
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+        if (!in || f0 + j >= F) v[j] = 0.f;
+      if constexpr (VEC)
+        *reinterpret_cast<__nv_bfloat162*>(s_g + pos * GP + f0) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      else
+        s_g[pos * GP + f0] = __float2bfloat16(v[0]);
+    }
   }
   __syncthreads();
 
   if (blockIdx.x == 0) {  // sum gy_eff over the tile (zeros outside the image)
     const int f = tid % 16;
     float s = 0.f;
+#pragma unroll 4
     for (int m = tid / 16; m < M5; m += NT5 / 16)
-      s += to_float(s_g[(((m >> twl) + 1) * hp + (m & (tw - 1)) + 1) * GP + f]);
+      s += to_float(s_g[((m / TW5 + 1) * HP + m % TW5 + 1) * GP + f]);
     s += __shfl_xor_sync(0xffffffffu, s, 16);
     if (lane < 16) s_red[warp * 16 + lane] = s;
     __syncthreads();
@@ -567,7 +639,7 @@ __global__ void __launch_bounds__(NT5, 2) dinput_mma_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {  // ldmatrix row: pixel lane % 16, k half lane / 16
     const int m = warp * 32 + i * 16 + lane % 16;
-    a_base[i] = smem_addr(s_g + ((m >> twl) * hp + (m & (tw - 1))) * GP + (lane / 16) * 8);
+    a_base[i] = smem_addr(s_g + ((m / TW5) * HP + m % TW5) * GP + (lane / 16) * 8);
   }
   // B rows: channel (lane / 16) * 8 + lane % 8 of a 16-channel pair, k half (lane / 8) % 2
   const unsigned b_base =
@@ -576,10 +648,10 @@ __global__ void __launch_bounds__(NT5, 2) dinput_mma_kernel(
   for (int ky = 0; ky < 3; ++ky)
 #pragma unroll
     for (int kx = 0; kx < 3; ++kx) {
-      const unsigned a_off = 2 * GP * ((2 - ky) * hp + 2 - kx);
       unsigned a[2][4], b[2][4];
-      ldmatrix_x4(a_base[0] + a_off, a[0]);
-      ldmatrix_x4(a_base[1] + a_off, a[1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldmatrix_x4(a_base[i] + 2 * GP * ((2 - ky) * HP + 2 - kx), a[i]);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
         ldmatrix_x4(b_base + 2 * GP * ((ky * 3 + kx) * N5 + 16 * j), b[j]);
@@ -591,43 +663,39 @@ __global__ void __launch_bounds__(NT5, 2) dinput_mma_kernel(
     }
 
   // 5. epilogue from the fragments: thread (g, t) = (lane / 4, lane % 4)
-  //    holds pixels row0 + g and row0 + 8 + g of each m16 tile and channels
-  //    nt*8 + 2t + {0, 1}: mask, scale, the in-place gradient update in the
-  //    shared tile, and the per-channel sums
-  if (vec) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  //    holds pixels row0 + g (accumulators 0, 1) and row0 + 8 + g (2, 3) of
+  //    each m16 tile and the channel pair nt*8 + 2t + {0, 1}: mask, scale,
+  //    the in-place gradient update in the shared tile, and the per-channel
+  //    sums. A channel >= C has scale = shift = 0, so a = 0 and d = 0; its
+  //    values are never stored.
+  if constexpr (VEC) asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   const int g = lane / 4, t = lane % 4;
-  float sc[4][2], sh[4][2], sx[4][2], ss[4][2];
+  float2 sx[4], ss[4];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int gc = c0 + nt * 8 + 2 * t + j;
-      sc[nt][j] = gc < C ? scale[gc] : 0.f;
-      sh[nt][j] = gc < C ? shift[gc] : 0.f;
-      sx[nt][j] = ss[nt][j] = 0.f;
-    }
+  for (int nt = 0; nt < 4; ++nt) sx[nt] = ss[nt] = make_float2(0.f, 0.f);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int m = warp * 32 + i * 16 + half * 8 + g;
-      if (h0 + (m >> twl) < H && w0 + (m & (tw - 1)) < W) {
+      if (inside(m)) {
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int n = nt * 8 + 2 * t + j;
-            if (c0 + n < C) {
-              const float xv = to_float(s_x[m * XP + n]);
-              const float a = rounded<__nv_bfloat16>(affine_relu(xv, sc[nt][j], sh[nt][j]));
-              const float d = a > 0.f ? acc[i][nt][half * 2 + j] : 0.f;
-              s_d[m * XP + n] = from_float<__nv_bfloat16>(
-                  __fadd_rn(to_float(s_d[m * XP + n]), __fmul_rn(d, sc[nt][j])));
-              sx[nt][j] = fmaf(d, xv, sx[nt][j]);
-              ss[nt][j] += d;
-            }
-          }
+        for (int nt = 0; nt < 4; ++nt) {
+          const int o = m * XP + nt * 8 + 2 * t;
+          const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s_x + o));
+          const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s_d + o));
+          const float2 sc = *reinterpret_cast<const float2*>(s_ss + nt * 8 + 2 * t);
+          const float2 sh = *reinterpret_cast<const float2*>(s_ss + N5 + nt * 8 + 2 * t);
+          const float d0 = active_bf16(xv.x, sc.x, sh.x) ? acc[i][nt][2 * half] : 0.f;
+          const float d1 = active_bf16(xv.y, sc.y, sh.y) ? acc[i][nt][2 * half + 1] : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(s_d + o) = __floats2bfloat162_rn(
+              __fadd_rn(gv.x, __fmul_rn(d0, sc.x)), __fadd_rn(gv.y, __fmul_rn(d1, sc.y)));
+          sx[nt].x = fmaf(d0, xv.x, sx[nt].x);
+          sx[nt].y = fmaf(d1, xv.y, sx[nt].y);
+          ss[nt].x += d0;
+          ss[nt].y += d1;
+        }
       }
     }
   // over the 8 lanes of one channel, then over the warps in order
@@ -635,7 +703,7 @@ __global__ void __launch_bounds__(NT5, 2) dinput_mma_kernel(
   for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      float a = sx[nt][j], d = ss[nt][j];
+      float a = j ? sx[nt].y : sx[nt].x, d = j ? ss[nt].y : ss[nt].x;
 #pragma unroll
       for (int o = 4; o < 32; o <<= 1) {
         a += __shfl_xor_sync(0xffffffffu, a, o);
@@ -658,25 +726,24 @@ __global__ void __launch_bounds__(NT5, 2) dinput_mma_kernel(
   }
 
   // 6. the gradient tile back, channels < C only
-  if (vec) {
-    for (int e = tid; e < M5 * (N5 / 8); e += NT5) {
-      const int m = e / (N5 / 8), v = e % (N5 / 8);
-      const int gh = h0 + (m >> twl), gw = w0 + (m & (tw - 1)), gc = c0 + 8 * v;
-      if (gh < H && gw < W && gc < C) {
-        const size_t p = ((size_t)gh * W + gw) * ld + gc;
+  if constexpr (VEC) {
+#pragma unroll
+    for (int k = 0; k < M5 * (N5 / 8) / NT5; ++k) {
+      const int e = tid + k * NT5, m = e / (N5 / 8), v = e % (N5 / 8);
+      const int gc = c0 + 8 * v;
+      if (inside(m) && gc < C) {
         const __nv_bfloat16* src = s_d + m * XP + 8 * v;
+        __nv_bfloat16* dst = gb + row(m) + gc;
         if (gc + 8 <= C)
-          *reinterpret_cast<uint4*>(gb + p) = *reinterpret_cast<const uint4*>(src);
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
         else
-          for (int k = 0; gc + k < C; ++k) gb[p + k] = src[k];
+          for (int j = 0; gc + j < C; ++j) dst[j] = src[j];
       }
     }
   } else {
     for (int e = tid; e < M5 * N5; e += NT5) {
       const int m = e / N5, n = e % N5;
-      const int gh = h0 + (m >> twl), gw = w0 + (m & (tw - 1)), gc = c0 + n;
-      if (gh < H && gw < W && gc < C)
-        gb[((size_t)gh * W + gw) * ld + gc] = s_d[m * XP + n];
+      if (inside(m) && c0 + n < C) gb[row(m) + c0 + n] = s_d[m * XP + n];
     }
   }
 }
@@ -849,24 +916,43 @@ cudaError_t launch_dinput_f32(void* grad, const void* buf, const float* scale,
   return cudaGetLastError();
 }
 
-int log2_tile(int tw) { return tw == 32 ? 5 : tw == 16 ? 4 : tw == 8 ? 3 : -1; }
+bool k5_tile_width(int tw) { return tw == 32 || tw == 16 || tw == 8; }
+
+template <int TWL, bool VEC>
+cudaError_t launch_mma(dim3 grid, cudaStream_t s, __nv_bfloat16* grad,
+                       const __nv_bfloat16* buf, const float* scale,
+                       const float* shift, const __nv_bfloat16* w,
+                       const float* c1, const float* c2, float* part,
+                       float* part_bias, int H, int W, int C, int F, int ld) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      dinput_mma_kernel<TWL, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM5);
+  if (err != cudaSuccess) return err;
+  dinput_mma_kernel<TWL, VEC><<<grid, NT5, SMEM5, s>>>(
+      grad, buf, scale, shift, w, c1, c2, part, part_bias, H, W, C, F, ld);
+  return cudaGetLastError();
+}
 
 cudaError_t launch_dinput_mma(void* grad, const void* buf, const float* scale,
                               const float* shift, const void* w, const float* c1,
                               const float* c2, float* part, float* part_bias,
                               int B, int H, int W, int C, int F, int ld,
-                              int tile_w, cudaStream_t s) {
-  const dim3 grid(tiles(C, N5), tiles(H, M5 / tile_w) * tiles(W, tile_w), B);
-  const bool vec = ld % 8 == 0 && reinterpret_cast<uintptr_t>(grad) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(buf) % 16 == 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      dinput_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM5);
-  if (err != cudaSuccess) return err;
-  dinput_mma_kernel<<<grid, NT5, SMEM5, s>>>(
-      static_cast<__nv_bfloat16*>(grad), static_cast<const __nv_bfloat16*>(buf),
-      scale, shift, static_cast<const __nv_bfloat16*>(w), c1, c2, part,
-      part_bias, H, W, C, F, ld, log2_tile(tile_w), vec);
-  return cudaGetLastError();
+                              int n_split, int tile_w, cudaStream_t s) {
+  const dim3 grid(n_split, tiles(H, M5 / tile_w) * tiles(W, tile_w), B);
+  auto* g = static_cast<__nv_bfloat16*>(grad);
+  auto* b = static_cast<const __nv_bfloat16*>(buf);
+  auto* wt = static_cast<const __nv_bfloat16*>(w);
+  const bool vec = ld % 8 == 0 && C % 2 == 0 && F % 2 == 0 &&
+                   reinterpret_cast<uintptr_t>(grad) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(buf) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  switch (tile_w + vec) {
+    case 33: return launch_mma<5, true>(grid, s, g, b, scale, shift, wt, c1, c2, part, part_bias, H, W, C, F, ld);
+    case 32: return launch_mma<5, false>(grid, s, g, b, scale, shift, wt, c1, c2, part, part_bias, H, W, C, F, ld);
+    case 17: return launch_mma<4, true>(grid, s, g, b, scale, shift, wt, c1, c2, part, part_bias, H, W, C, F, ld);
+    case 16: return launch_mma<4, false>(grid, s, g, b, scale, shift, wt, c1, c2, part, part_bias, H, W, C, F, ld);
+    case 9: return launch_mma<3, true>(grid, s, g, b, scale, shift, wt, c1, c2, part, part_bias, H, W, C, F, ld);
+    default: return launch_mma<3, false>(grid, s, g, b, scale, shift, wt, c1, c2, part, part_bias, H, W, C, F, ld);
+  }
 }
 
 template <typename T>
@@ -941,7 +1027,7 @@ int block_engine_dinput(int dtype, void* grad, const void* buf,
   if (dtype == 0 && (tile_w != TW || n_part != B * tiles(H, TH) * tiles(W, TW) ||
                      n_split < 1 || n_split > tiles(C, CC) || B * n_split > 65535))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && (log2_tile(tile_w) < 0 || n_split != tiles(C, N5) ||
+  if (dtype == 1 && (!k5_tile_width(tile_w) || n_split != tiles(C, N5) ||
                      tiles(H, M5 / tile_w) * tiles(W, tile_w) > 65535 ||
                      n_part != B * tiles(H, M5 / tile_w) * tiles(W, tile_w)))
     return (int)cudaErrorInvalidValue;
@@ -957,7 +1043,7 @@ int block_engine_dinput(int dtype, void* grad, const void* buf,
                                   C, F, ld, n_split, s);
   if (dtype == 1)
     return (int)launch_dinput_mma(grad, buf, sc, sh, w, a, b, p, pb, B, H, W,
-                                  C, F, ld, tile_w, s);
+                                  C, F, ld, n_split, tile_w, s);
   return (int)cudaErrorInvalidValue;
 }
 

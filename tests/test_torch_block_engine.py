@@ -209,7 +209,7 @@ def test_dinput_tiling():
     want = {(256, 320): (8, 32), (128, 160): (8, 32), (64, 80): (16, 16),
             (32, 40): (32, 8), (16, 20): (8, 32), (8, 10): (8, 32),
             (20, 44): (8, 32)}
-    for (h, w), tile in want.items():
+    for (h, w), tile in want.items():  # C = 60: two 32-channel chunks
         assert block_engine.dinput_tiling(torch.bfloat16, 16, h, w, 60) == (*tile, 2)
     assert block_engine.dinput_tiling(torch.bfloat16, 2, 17, 33, 7)[2] == 1
     assert block_engine.dinput_tiling(torch.float32, 16, 256, 320, 48) == (16, 32, 1)
