@@ -56,8 +56,8 @@
 //       rounded as the plain version rounds it, 48-byte rows so that
 //       ldmatrix rows hit distinct banks) and the weight slice [9][32][16],
 //       runs the 9 taps from ldmatrix fragments while the copies land, and
-//       applies the mask and scale from the fragments to the shared tile,
-//       which it writes back with 16-byte stores. Each x and gradient byte
+//       applies the mask and scale from the fragments, storing the updated
+//       gradient as channel pairs straight from them. Each x and gradient byte
 //       crosses HBM once; gy and y are re-read from L2 by the few chunk
 //       blocks of a tile, which launch next to each other. Rows whose
 //       stride or base is not 16-byte aligned take scalar copies instead.
@@ -665,9 +665,10 @@ __global__ void __launch_bounds__(NT5, 3) dinput_mma_kernel(
   // 5. epilogue from the fragments: thread (g, t) = (lane / 4, lane % 4)
   //    holds pixels row0 + g (accumulators 0, 1) and row0 + 8 + g (2, 3) of
   //    each m16 tile and the channel pair nt*8 + 2t + {0, 1}: mask, scale,
-  //    the in-place gradient update in the shared tile, and the per-channel
-  //    sums. A channel >= C has scale = shift = 0, so a = 0 and d = 0; its
-  //    values are never stored.
+  //    the gradient update, stored in place as channel pairs (the four lanes
+  //    of a pixel write 16 contiguous bytes), and the per-channel sums. A
+  //    channel >= C has scale = shift = 0, so its mask is 0 and d = 0; it is
+  //    never stored.
   if constexpr (VEC) asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   const int g = lane / 4, t = lane % 4;
@@ -689,8 +690,15 @@ __global__ void __launch_bounds__(NT5, 3) dinput_mma_kernel(
           const float2 sh = *reinterpret_cast<const float2*>(s_ss + N5 + nt * 8 + 2 * t);
           const float d0 = active_bf16(xv.x, sc.x, sh.x) ? acc[i][nt][2 * half] : 0.f;
           const float d1 = active_bf16(xv.y, sc.y, sh.y) ? acc[i][nt][2 * half + 1] : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(s_d + o) = __floats2bfloat162_rn(
+          const __nv_bfloat162 nv = __floats2bfloat162_rn(
               __fadd_rn(gv.x, __fmul_rn(d0, sc.x)), __fadd_rn(gv.y, __fmul_rn(d1, sc.y)));
+          const int gc = c0 + nt * 8 + 2 * t;
+          if constexpr (VEC) {
+            if (gc < C) *reinterpret_cast<__nv_bfloat162*>(gb + row(m) + gc) = nv;
+          } else {
+            if (gc < C) gb[row(m) + gc] = nv.x;
+            if (gc + 1 < C) gb[row(m) + gc + 1] = nv.y;
+          }
           sx[nt].x = fmaf(d0, xv.x, sx[nt].x);
           sx[nt].y = fmaf(d1, xv.y, sx[nt].y);
           ss[nt].x += d0;
@@ -722,28 +730,6 @@ __global__ void __launch_bounds__(NT5, 3) dinput_mma_kernel(
       float s = 0.f;
       for (int i = 0; i < NT5 / 32; ++i) s += s_red[(i * 2 + k) * N5 + n];
       part[(k * nsp + sb) * C + c0 + n] = s;
-    }
-  }
-
-  // 6. the gradient tile back, channels < C only
-  if constexpr (VEC) {
-#pragma unroll
-    for (int k = 0; k < M5 * (N5 / 8) / NT5; ++k) {
-      const int e = tid + k * NT5, m = e / (N5 / 8), v = e % (N5 / 8);
-      const int gc = c0 + 8 * v;
-      if (inside(m) && gc < C) {
-        const __nv_bfloat16* src = s_d + m * XP + 8 * v;
-        __nv_bfloat16* dst = gb + row(m) + gc;
-        if (gc + 8 <= C)
-          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-        else
-          for (int j = 0; gc + j < C; ++j) dst[j] = src[j];
-      }
-    }
-  } else {
-    for (int e = tid; e < M5 * N5; e += NT5) {
-      const int m = e / N5, n = e % N5;
-      if (inside(m) && c0 + n < C) gb[row(m) + c0 + n] = s_d[m * XP + n];
     }
   }
 }
