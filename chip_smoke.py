@@ -10,7 +10,9 @@ to the CPU or to a kernel's plain version):
      versions, whether OpenCV imports;
   2. build: ``csrc/dense_conv.cu`` (K1), ``csrc/warp_sample.cu`` (K2, K3)
      and ``csrc/block_engine.cu`` (K4, K5, K6), one nvcc each, started
-     together, for sm_90a, with ptxas's register and spill report;
+     together, for sm_90a, with ptxas's register and spill report; then
+     ``cuobjdump -sass``: the bf16 K5 must hold HMMA (tensor-core)
+     instructions, and no bf16 instantiation of the FFMA K5 may exist;
   3. K1: the dense-layer kernel against its plain PyTorch version at every
      one of FCDenseNet-57's 44 dense-layer shapes at 256x320, batch 8
      (serving) and 16 (the train step's), in f32 (TF32 off) and bf16, with
@@ -24,7 +26,7 @@ to the CPU or to a kernel's plain version):
   5. K4/K5/K6: the block engine's kernels against their plain versions at
      every layer of FCDenseNet-57's 11 dense blocks at 2B = 16, 256x320,
      in f32 and bf16, with their times beside the plain versions' and the
-     nearest cuDNN call on the activated tensor;
+     nearest cuDNN call on the activated tensor, and K5's summed by level;
   6. K1 backward: ``FusedDenseConv``'s output and five gradients against
      autograd of the plain version at four layer shapes of the train step
      (f32), the route of a train-mode block the engine's gate rejects;
@@ -42,8 +44,8 @@ to the CPU or to a kernel's plain version):
      CUDA events; (c) a step with an empty depth mask, which must leave
      params, momentum, count and step and advance the BN statistics;
  10. profile: torch.profiler over three more bf16 train steps, the device
-     time by op and the device's idle share, of the profiled window and of
-     the median step of (b);
+     time by op and by kernel and the device's idle share, of the profiled
+     window and of the median step of (b);
  11. for comparison, the same with the engine's gate closed, so every
      block takes the materialized route (44 K1 launches per step and no
      K4-K6), then ten pairs of one step on each route, alternating which
@@ -813,6 +815,14 @@ def profile_train_step(state, data, config, card: str, steady_ms: float,
     for e in sorted((e for e in ops if e not in kernels),
                     key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 3e3:9.3f}  x{e.count // 3:<5} {e.key[:80]}")
+    by_function = {}  # kernel function (template arguments dropped) -> [us, count]
+    for e in kernels:
+        total = by_function.setdefault(e.key.split("(")[0].split("<")[0], [0.0, 0])
+        total[0] += e.self_device_time_total
+        total[1] += e.count
+    print(f"profile [{card}] {label}device ms/step by kernel function:")
+    for name, (us, count) in sorted(by_function.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {us / 3e3:9.3f}  x{count // 3:<5} {name[:100]}")
 
 
 def paired_steps_phase(card: str, config, engine_state, materialized_state, data,

@@ -60,7 +60,10 @@
 //       gradient as channel pairs straight from them. Each x and gradient byte
 //       crosses HBM once; gy and y are re-read from L2 by the few chunk
 //       blocks of a tile, which launch next to each other. Rows whose
-//       stride or base is not 16-byte aligned take scalar copies instead.
+//       stride or base is not 16-byte aligned, and an odd C or F, take
+//       scalar copies instead. Three blocks share an SM (80 registers, 73 KB
+//       of shared memory each); a chunk loop with a double-buffered tile at
+//       two blocks per SM, and 128-pixel blocks, were both slower.
 //       The per-channel sums reduce over lanes, then over warps in shared
 //       memory, in a fixed order: one writer per (tile, channel).
 //   K5  f32 (the parity dtype; mma has no full-f32 input): the K4 tile; the
@@ -470,9 +473,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 // 1 << TWL wide, and the N5 prefix channels from blockIdx.x * N5. VEC: buf
 // and grad rows are 16-byte aligned and C and F are even (ld % 8 == 0,
 // aligned bases), so the x and gradient tile move as 16-byte vectors and the
-// halo and the weights as channel pairs; else everything moves as scalars.
+// halo and the weights as channel pairs; else everything moves as scalars
+// (with more registers: its staging holds twice the values).
 template <int TWL, bool VEC>
-__global__ void __launch_bounds__(NT5, 3) dinput_mma_kernel(
+__global__ void __launch_bounds__(NT5, VEC ? 3 : 2) dinput_mma_kernel(
     __nv_bfloat16* grad, const __nv_bfloat16* buf,
     const float* __restrict__ scale, const float* __restrict__ shift,
     const __nv_bfloat16* __restrict__ w, const float* __restrict__ c1,

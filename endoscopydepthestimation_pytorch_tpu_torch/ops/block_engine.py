@@ -27,7 +27,8 @@ Per layer the work is three kernels, in ``csrc/block_engine.cu``:
   BN-through-statistics gradient, JAX :689-699), the transposed-tap
   cotangent of the prefix through the ReLU mask and the BN scale, added
   into the gradient buffer's prefix, and the per-channel (sum dpre*x,
-  sum dpre) and sum gy_eff;
+  sum dpre) and sum gy_eff; in bf16 an implicit GEMM on the tensor cores,
+  in f32 (the parity dtype) a direct convolution on FFMAs;
 - K6 ``layer_dweight``: the layer's weight gradient, f32.
 
 Between the launches plain PyTorch does only per-channel vector math, as
