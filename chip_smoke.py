@@ -62,6 +62,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -817,7 +818,8 @@ def profile_train_step(state, data, config, card: str, steady_ms: float,
         print(f"  {e.self_device_time_total / 3e3:9.3f}  x{e.count // 3:<5} {e.key[:80]}")
     by_function = {}  # kernel function (template arguments dropped) -> [us, count]
     for e in kernels:
-        total = by_function.setdefault(e.key.split("(")[0].split("<")[0], [0.0, 0])
+        name = re.split(r"[<(]", e.key.replace("(anonymous namespace)::", ""))[0]
+        total = by_function.setdefault(name, [0.0, 0])
         total[0] += e.self_device_time_total
         total[1] += e.count
     print(f"profile [{card}] {label}device ms/step by kernel function:")
