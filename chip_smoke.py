@@ -233,6 +233,26 @@ def _cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device ms of one ``fn()``: ``iters`` calls captured in one CUDA graph
+    and replayed, so no host work stands between the launches."""
+    fn()  # one-time set-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def kernel_phase(card: str, batches=(8, 16), height: int = 256,
                  width: int = 320) -> dict:
     """Kernel vs plain version at every dense-layer shape, in f32 and bf16,
@@ -470,6 +490,9 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
            for n in names}
     max_abs, max_f32, max_bf16 = dict.fromkeys(names, 0.0), 0.0, 0.0
     k5_levels = dict.fromkeys(("full resolution", "middle levels", "<= 32x40"), 0.0)
+    k5_device = dict.fromkeys(k5_levels, 0.0)
+    tile_ablation = {hh: {"chosen": [0.0, 0.0], "8x32": [0.0, 0.0]}
+                     for hh in (height // 4, height // 8)}
     print(f"engine kernel phase, batch {batch}, {height}x{width}, {card}:")
     print("  H    W    C    f32 max|d|/max|ref| (K4 K5 K6)  bf16 mean rel (K4 K5 K6)"
           "  bf16 ms kernel / plain / cuDNN (K4; K5; K6)")
@@ -500,20 +523,29 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
             errs = {}
             for dtype in (torch.float32, torch.bfloat16):
                 buf, grad, w_t = buf32.to(dtype), grad32.to(dtype), wk.to(dtype)
-                if dtype == torch.bfloat16:
-                    grad[..., :c] = 0  # the increment itself, after rounding
                 e = []
                 got_b, ref_b = buf.clone(), buf.clone()
                 got = block_engine.layer_forward(got_b, c, scale, shift, w_t, bias)
                 ref = block_engine.layer_forward_reference(ref_b, c, scale, shift, w_t, bias)
                 e.append(max(compare(got_b[..., c:c + f], ref_b[..., c:c + f], dtype,
                                      names[0]), compare(got, ref, dtype)))
-                got_g, ref_g = grad.clone(), grad.clone()
-                got = block_engine.layer_dinput(got_g, buf, c, scale, shift, w_t, c1, c2)
-                ref = block_engine.layer_dinput_reference(ref_g, buf, c, scale, shift,
-                                                          w_t, c1, c2)
-                e.append(max([compare(got_g[..., :c], ref_g[..., :c], dtype, names[1])]
-                             + [compare(a, r, dtype) for a, r in zip(got, ref)]))
+                # K5 adds into the random gradient prefix; in bf16 also into
+                # a zero one, which compares the increment itself after rounding
+                grads = [grad]
+                if dtype == torch.bfloat16:
+                    grads.append(torch.cat([torch.zeros_like(grad[..., :c]),
+                                            grad[..., c:]], -1))
+                k5 = []
+                for grad0 in grads:
+                    got_g, ref_g = grad0.clone(), grad0.clone()
+                    got = block_engine.layer_dinput(got_g, buf, c, scale, shift, w_t,
+                                                    c1, c2)
+                    ref = block_engine.layer_dinput_reference(ref_g, buf, c, scale, shift,
+                                                              w_t, c1, c2)
+                    k5 += [compare(got_g[..., :c], ref_g[..., :c], dtype, names[1])]
+                    k5 += [compare(a, r, dtype) for a, r in zip(got, ref)]
+                e.append(max(k5))
+                del grads
                 got = block_engine.layer_dweight(grad, buf, c, f, scale, shift, c1, c2)
                 ref = block_engine.layer_dweight_reference(grad, buf, c, f, scale, shift,
                                                            c1, c2)
@@ -550,6 +582,8 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
                            lambda: conv_bwd(gy, a, w_oihw, None, [1, 1], [1, 1], [1, 1],
                                             False, [0, 0], 1, (False, True, False))),
             }
+            level = ("full resolution" if h == height else "<= 32x40"
+                     if h <= height // 8 else "middle levels")
             row = []
             for name, (kernel, plain, library) in calls.items():
                 t = (_cuda_ms(kernel, 10), _cuda_ms(plain, 3, warmup=1),
@@ -560,8 +594,22 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
                 tot[name]["ops"] += 2 * 9 * c * f * batch * h * w
                 row.append(" / ".join(f"{v:.3f}" for v in t))
                 if name == names[1]:
-                    k5_levels["full resolution" if h == height else "<= 32x40"
-                              if h <= height // 8 else "middle levels"] += t[0]
+                    k5_levels[level] += t[0]
+            k5 = calls[names[1]][0]
+            # K5's device time alone, no wrapper host work between launches;
+            # where the wrapper picks a narrow tile, beside one 8x32 tile,
+            # alternating twice
+            k5_device[level] += _graph_ms(k5)
+            if h in tile_ablation:
+                tiling = block_engine.dinput_tiling
+                for rep in range(2):
+                    tile_ablation[h]["chosen"][rep] += _graph_ms(k5)
+                    block_engine.dinput_tiling = lambda dtype, b, hh, ww, cc: (
+                        8, 32, -(-cc // 32))
+                    try:
+                        tile_ablation[h]["8x32"][rep] += _graph_ms(k5)
+                    finally:
+                        block_engine.dinput_tiling = tiling
             print(f"  {h:<4} {w:<4} {c:<4} "
                   + " ".join(f"{v:.2e}" for v in errs[torch.float32]) + "   "
                   + " ".join(f"{v:.2e}" for v in errs[torch.bfloat16]) + "   "
@@ -581,7 +629,16 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
               f"{bound_ms:.4f} ms ({bound_by}: {t['bytes'] / 1e9:.3f} GB, "
               f"{t['ops'] / 1e9:.1f} GFLOP)")
     print(f"timing [{card}] block_engine_dinput bf16 by level: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in k5_levels.items()))
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in k5_levels.items())
+          + "; device alone (CUDA graph replay): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in k5_device.items()))
+    for hh, t in tile_ablation.items():
+        tile = block_engine.dinput_tiling(torch.bfloat16, batch, hh, hh * width // height, 48)
+        print(f"timing [{card}] block_engine_dinput bf16 device ms, the 8 layers at "
+              f"{hh}x{hh * width // height} (CUDA graph replay, two alternating rounds): "
+              f"the wrapper's {tile[0]}x{tile[1]} tile "
+              + " / ".join(f"{v:.4f}" for v in t["chosen"]) + ", one 8x32 tile "
+              + " / ".join(f"{v:.4f}" for v in t["8x32"]))
     print(f"engine kernel phase ok: 11 blocks, 44 layers, f32 max|d|/max|ref| "
           f"{max_f32:.3e} <= 1e-4, bf16 mean rel {max_bf16:.3e} <= 1e-4")
     return result

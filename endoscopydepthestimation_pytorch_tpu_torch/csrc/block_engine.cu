@@ -81,6 +81,7 @@
 //       grid axis), the 4 row groups are reduced in shared memory, and a
 //       second kernel sums the S partials.
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -914,9 +915,18 @@ cudaError_t launch_mma(dim3 grid, cudaStream_t s, __nv_bfloat16* grad,
                        const float* shift, const __nv_bfloat16* w,
                        const float* c1, const float* c2, float* part,
                        float* part_bias, int H, int W, int C, int F, int ld) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      dinput_mma_kernel<TWL, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM5);
+  // the shared-memory opt-in, once per device (bit d of `ready`)
+  static std::atomic<unsigned long long> ready{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(ready.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(dinput_mma_kernel<TWL, VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM5);
+    if (err != cudaSuccess) return err;
+    ready.fetch_or(bit, std::memory_order_release);
+  }
   dinput_mma_kernel<TWL, VEC><<<grid, NT5, SMEM5, s>>>(
       grad, buf, scale, shift, w, c1, c2, part, part_bias, H, W, C, F, ld);
   return cudaGetLastError();

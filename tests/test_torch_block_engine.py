@@ -211,7 +211,10 @@ def test_dinput_tiling():
             (20, 44): (8, 32)}
     for (h, w), tile in want.items():  # C = 60: two 32-channel chunks
         assert block_engine.dinput_tiling(torch.bfloat16, 16, h, w, 60) == (*tile, 2)
-    assert block_engine.dinput_tiling(torch.bfloat16, 2, 17, 33, 7)[2] == 1
+    assert block_engine.dinput_tiling(torch.bfloat16, 2, 17, 33, 7) == (32, 8, 1)
+    # the card tests' odd-C shapes that reach the scalar path's wider tiles
+    assert block_engine.dinput_tiling(torch.bfloat16, 2, 16, 20, 7) == (8, 32, 1)
+    assert block_engine.dinput_tiling(torch.bfloat16, 2, 64, 80, 7) == (16, 16, 1)
     assert block_engine.dinput_tiling(torch.float32, 16, 256, 320, 48) == (16, 32, 1)
     # 16 * 1 * 1 tiles at 8x10: every one of the 24 chunks of 372 channels
     assert block_engine.dinput_tiling(torch.float32, 16, 8, 10, 372) == (16, 32, 24)
