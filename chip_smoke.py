@@ -11,8 +11,9 @@ to the CPU or to a kernel's plain version):
   2. build: ``csrc/dense_conv.cu`` (K1), ``csrc/warp_sample.cu`` (K2, K3)
      and ``csrc/block_engine.cu`` (K4, K5, K6), one nvcc each, started
      together, for sm_90a, with ptxas's register and spill report; then
-     ``cuobjdump -sass``: the bf16 K5 must hold HMMA (tensor-core)
-     instructions, and no bf16 instantiation of the FFMA K5 may exist;
+     ``cuobjdump -sass``: the bf16 K4 and K5 must hold HMMA (tensor-core)
+     instructions, and no bf16 instantiation of their FFMA kernels may
+     exist;
   3. K1: the dense-layer kernel against its plain PyTorch version at every
      one of FCDenseNet-57's 44 dense-layer shapes at 256x320, batch 8
      (serving) and 16 (the train step's), in f32 (TF32 off) and bf16, with
@@ -22,11 +23,15 @@ to the CPU or to a kernel's plain version):
      version and its autograd at the train step's shape, image
      (16, 256, 320, 2) f32, full and grad-first variants, plus NaN
      coordinates; forward and backward times beside the plain ones and
-     ``F.grid_sample``'s;
+     ``F.grid_sample``'s, through the wrappers and alone (CUDA graph
+     replay);
   5. K4/K5/K6: the block engine's kernels against their plain versions at
      every layer of FCDenseNet-57's 11 dense blocks at 2B = 16, 256x320,
      in f32 and bf16, with their times beside the plain versions' and the
-     nearest cuDNN call on the activated tensor, and K5's summed by level;
+     nearest cuDNN call on the activated tensor; K4's and K5's summed by
+     level, through the wrapper and alone (CUDA graph replay); K4 at the
+     levels <= 64x80 with its chunks split and in one pass, K5 at 64x80
+     and 32x40 in its narrow tile and in 8x32;
   6. K1 backward: ``FusedDenseConv``'s output and five gradients against
      autograd of the plain version at four layer shapes of the train step
      (f32), the route of a train-mode block the engine's gate rejects;
@@ -347,26 +352,29 @@ def build_phase() -> None:
                         if "registers" in line or "spill" in line))
         if "sm_90a" not in report:
             raise AssertionError("a kernel was not compiled for sm_90a")
-    dinput_sass_check()
+    tensor_core_sass_check()
 
 
-def dinput_sass_check() -> None:
-    """``cuobjdump -sass`` of the block_engine library: the bf16 K5 must
-    run on the tensor cores (HMMA instructions), and no bf16 instantiation
-    of the FFMA K5 may exist."""
+def tensor_core_sass_check() -> None:
+    """``cuobjdump -sass`` of the block_engine library: the bf16 K4 and K5
+    must run on the tensor cores (HMMA instructions in every instantiation),
+    and no bf16 instantiation of their FFMA kernels may exist."""
     lib = block_engine._build.library_path("block_engine", block_engine._SOURCES)
     cuobjdump = Path(block_engine._build.nvcc_path()).parent / "cuobjdump"
     functions = {}  # mangled name -> its SASS
     for chunk in _run([str(cuobjdump), "-sass", str(lib)]).split("Function : ")[1:]:
         name, _, body = chunk.partition("\n")
         functions[name.strip()] = body
-    hmma = {name: sum("HMMA" in line for line in body.splitlines())
-            for name, body in functions.items() if "dinput_mma_kernel" in name}
-    ffma_bf16 = [n for n in functions if "dinput_kernel" in n and "bfloat16" in n]
-    print(f"cuobjdump -sass block_engine: HMMA instructions in the bf16 K5 "
-          f"{hmma}; bf16 instantiations of the FFMA K5: {ffma_bf16 or 'none'}")
-    if not hmma or min(hmma.values()) == 0 or ffma_bf16:
-        raise AssertionError("the bf16 K5 does not run on the tensor cores only")
+    for kernel, mma, ffma in (("K4", "fwd_mma_kernel", "fwd_kernel"),
+                              ("K5", "dinput_mma_kernel", "dinput_kernel")):
+        hmma = {name: sum("HMMA" in line for line in body.splitlines())
+                for name, body in functions.items() if mma in name}
+        ffma_bf16 = [n for n in functions if ffma in n and "bfloat16" in n]
+        print(f"cuobjdump -sass block_engine: HMMA instructions in the bf16 {kernel} "
+              f"{hmma}; bf16 instantiations of the FFMA {kernel}: {ffma_bf16 or 'none'}")
+        if len(hmma) != 6 or min(hmma.values()) == 0 or ffma_bf16:
+            raise AssertionError(f"the bf16 {kernel} does not run on the tensor cores "
+                                 "only, in its six instantiations")
 
 
 def _value_and_grads(fn, leaves, cot):
@@ -426,27 +434,31 @@ def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
                             torch.arange(w, dtype=torch.float32), indexing="ij")
     sx = (xx + 2 * torch.sin(yy / 17) + 0.3).expand(b, h, w).contiguous().to(dev)
     sy = (yy + 2 * torch.cos(xx / 23) - 0.2).expand(b, h, w).contiguous().to(dev)
-    ms = {"fwd": _cuda_ms(lambda: warp_sample.sample_bilinear(image, sx, sy), 50),
-          "plain_fwd": _cuda_ms(
-              lambda: warp_sample.sample_bilinear_reference(image, sx, sy), 50),
-          # the train step's variant: channel 0 only
-          "bwd": _cuda_ms(lambda: warp_sample._backward(image, sx, sy, cot, 1), 50)}
-    leaves = [image[..., :1].contiguous().requires_grad_(), sx.requires_grad_(),
-              sy.requires_grad_()]
-    ref = warp_sample.sample_bilinear_reference(*leaves)
-    cot1 = cot[..., :1].contiguous()
-    ms["plain_bwd"] = _cuda_ms(
-        lambda: torch.autograd.grad(ref, leaves, cot1, retain_graph=True), 50)
     # F.grid_sample (bilinear, zeros, align_corners) on the same image and
     # warp, NCHW with the grid normalized: pixel x = (gx + 1) / 2 * (W - 1)
     img = image.permute(0, 3, 1, 2).contiguous()
-    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], -1).detach()
-    ms["library_fwd"] = _cuda_ms(lambda: F.grid_sample(
-        img, grid, mode="bilinear", padding_mode="zeros", align_corners=True), 50)
+    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], -1)
+    cot1 = cot[..., :1].contiguous()
     img1 = img[:, :1].contiguous()
     gout1 = cot1.permute(0, 3, 1, 2).contiguous()
-    ms["library_bwd"] = _cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-        gout1, img1, grid, 0, 0, True, [True, True]), 50)
+    calls = {"fwd": lambda: warp_sample.sample_bilinear(image, sx, sy),
+             # the train step's variant: channel 0 only
+             "bwd": lambda: warp_sample._backward(image, sx, sy, cot, 1),
+             "library_fwd": lambda: F.grid_sample(
+                 img, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+             "library_bwd": lambda: torch.ops.aten.grid_sampler_2d_backward(
+                 gout1, img1, grid, 0, 0, True, [True, True])}
+    # through the wrappers (CUDA events over back-to-back calls), and the
+    # device time alone (CUDA graph replay: no host work between launches)
+    ms = {k: _cuda_ms(fn, 50) for k, fn in calls.items()}
+    alone = {k: _graph_ms(fn) for k, fn in calls.items()}
+    ms["plain_fwd"] = _cuda_ms(
+        lambda: warp_sample.sample_bilinear_reference(image, sx, sy), 50)
+    leaves = [image[..., :1].contiguous().requires_grad_(), sx.requires_grad_(),
+              sy.requires_grad_()]
+    ref = warp_sample.sample_bilinear_reference(*leaves)
+    ms["plain_bwd"] = _cuda_ms(
+        lambda: torch.autograd.grad(ref, leaves, cot1, retain_graph=True), 50)
     q = b * h * w  # queries; f32 bytes: image, px, py in, samples out
     bounds = {"fwd": bound(4 * q * (2 + 2 + 2), q * (8 * 2 + 10), torch.float32),
               # grad-first: image and g channel 0, px, py in; dimg (both
@@ -458,6 +470,10 @@ def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
           f"(grad-first) {ms['bwd']:.4f} ms vs plain autograd {ms['plain_bwd']:.4f} ms "
           f"vs aten.grid_sampler_2d_backward on channel 0 {ms['library_bwd']:.4f} ms "
           f"(bound {bounds['bwd'][0]:.4f} ms)")
+    print(f"timing [{card}] sampler device time alone (CUDA graph replay): K2 "
+          f"{alone['fwd']:.4f} ms vs F.grid_sample {alone['library_fwd']:.4f} ms; K3 "
+          f"(grad-first) {alone['bwd']:.4f} ms vs aten.grid_sampler_2d_backward "
+          f"{alone['library_bwd']:.4f} ms")
     return {"err": err, "ms": ms, "bounds": bounds}
 
 
@@ -489,8 +505,15 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
     tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
            for n in names}
     max_abs, max_f32, max_bf16 = dict.fromkeys(names, 0.0), 0.0, 0.0
-    k5_levels = dict.fromkeys(("full resolution", "middle levels", "<= 32x40"), 0.0)
-    k5_device = dict.fromkeys(k5_levels, 0.0)
+    levels = ("full resolution", "middle levels", "<= 32x40")
+    by_level = {n: dict.fromkeys(levels, 0.0) for n in names[:2]}  # through the wrapper
+    alone = {n: dict.fromkeys(levels, 0.0) for n in names[:2]}      # CUDA graph replay
+    # K4 at the deep levels, its chunks split across ~FORWARD_BLOCKS blocks
+    # against one pass, device ms by CUDA graph replay, two alternating
+    # rounds (the wrapper splits below SPLIT_BELOW tiles)
+    split_ablation = {hh: {"split": [0.0, 0.0], "one pass": [0.0, 0.0], "n_split": [],
+                           "wrapper": []}
+                      for hh in (height // 4, height // 8, height // 16, height // 32)}
     tile_ablation = {hh: {"chosen": [0.0, 0.0], "8x32": [0.0, 0.0]}
                      for hh in (height // 4, height // 8)}
     print(f"engine kernel phase, batch {batch}, {height}x{width}, {card}:")
@@ -593,13 +616,28 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
                 tot[name]["bytes"] += _engine_bytes(name, batch * h * w, c, f, 2)
                 tot[name]["ops"] += 2 * 9 * c * f * batch * h * w
                 row.append(" / ".join(f"{v:.3f}" for v in t))
-                if name == names[1]:
-                    k5_levels[level] += t[0]
-            k5 = calls[names[1]][0]
-            # K5's device time alone, no wrapper host work between launches;
-            # where the wrapper picks a narrow tile, beside one 8x32 tile,
+                if name in by_level:
+                    by_level[name][level] += t[0]
+                    # the device time alone, no wrapper host work between launches
+                    alone[name][level] += _graph_ms(kernel)
+            k4, k5 = calls[names[0]][0], calls[names[1]][0]
+            if h in split_ablation:
+                tiling = block_engine.forward_tiling
+                tile = block_engine._mma_tile(h, w)
+                n_part = block_engine._n_part(batch, h, w, *tile)
+                n_split = min(-(-c // block_engine.CHUNK),
+                              -(-block_engine.FORWARD_BLOCKS // n_part))
+                split_ablation[h]["n_split"].append(n_split)
+                split_ablation[h]["wrapper"].append(tiling(torch.bfloat16, batch, h, w, c)[2])
+                for rep in range(2):
+                    for key, n in (("split", n_split), ("one pass", 1)):
+                        block_engine.forward_tiling = lambda *_, n=n: (*tile, n)
+                        try:
+                            split_ablation[h][key][rep] += _graph_ms(k4)
+                        finally:
+                            block_engine.forward_tiling = tiling
+            # where the wrapper picks a narrow K5 tile, beside one 8x32 tile,
             # alternating twice
-            k5_device[level] += _graph_ms(k5)
             if h in tile_ablation:
                 tiling = block_engine.dinput_tiling
                 for rep in range(2):
@@ -628,10 +666,19 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
               f"call on the activated tensor {t['library_ms']:.4f} ms; bound "
               f"{bound_ms:.4f} ms ({bound_by}: {t['bytes'] / 1e9:.3f} GB, "
               f"{t['ops'] / 1e9:.1f} GFLOP)")
-    print(f"timing [{card}] block_engine_dinput bf16 by level: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in k5_levels.items())
-          + "; device alone (CUDA graph replay): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in k5_device.items()))
+    for name in names[:2]:
+        print(f"timing [{card}] {name} bf16 by level: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in by_level[name].items())
+              + f" (total {sum(by_level[name].values()):.4f}); device alone (CUDA graph "
+              "replay): " + ", ".join(f"{k} {v:.4f} ms" for k, v in alone[name].items())
+              + f" (total {sum(alone[name].values()):.4f})")
+    for hh, t in split_ablation.items():
+        print(f"timing [{card}] block_engine_fwd bf16 device ms, the {len(t['n_split'])} "
+              f"layers at {hh}x{hh * width // height} (CUDA graph replay, two alternating "
+              f"rounds): split (n_split {t['n_split']}) "
+              + " / ".join(f"{v:.4f}" for v in t["split"]) + ", one pass "
+              + " / ".join(f"{v:.4f}" for v in t["one pass"])
+              + f"; the wrapper's n_split {t['wrapper']}")
     for hh, t in tile_ablation.items():
         tile = block_engine.dinput_tiling(torch.bfloat16, batch, hh, hh * width // height, 48)
         print(f"timing [{card}] block_engine_dinput bf16 device ms, the 8 layers at "

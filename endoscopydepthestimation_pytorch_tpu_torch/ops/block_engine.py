@@ -22,7 +22,8 @@ Per layer the work is three kernels, in ``csrc/block_engine.cu``:
 
 - K4 ``layer_forward``: y into ``buf[..., C_j:C_j+F]`` and the (sum y,
   sum y^2) of the stored y, from which the layer's statistics come
-  (JAX :625-628);
+  (JAX :625-628); in bf16 an implicit GEMM on the tensor cores, in f32
+  (the parity dtype) a direct convolution on FFMAs;
 - K5 ``layer_dinput``: with gy_eff = g + C1 + C2*y (the lazily applied
   BN-through-statistics gradient, JAX :689-699), the transposed-tap
   cotangent of the prefix through the ReLU mask and the BN scale, added
@@ -69,7 +70,9 @@ TILE_H, TILE_W = 16, 32  # K4's and f32 K5's output tile
 DWEIGHT_TILE_H = 8     # K6's tile is 8 x 32
 CHUNK = 16             # channels per chunk
 TARGET_BLOCKS = 1024   # f32 K5 and K6 split work across blocks up to about this
-DINPUT_PIXELS = 256    # bf16 K5's tile: 256 pixels, 32, 16 or 8 wide
+SPLIT_BELOW = 132      # bf16 K4 splits its channel chunks below this many tiles
+FORWARD_BLOCKS = 256   # (an H100's SMs) across about this many blocks
+MMA_PIXELS = 256       # bf16 K4's and K5's tile: 256 pixels, 32, 16 or 8 wide
 DINPUT_CHUNK = 32      # bf16 K5's prefix channels per block
 _SOURCES = ("block_engine.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,11 +86,12 @@ def supported(b: int, h: int, w: int, n_layers: int, growth: int) -> bool:
             and h >= 1 and w >= 1)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("block_engine", _SOURCES)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument and result types on a loaded
+    ``block_engine`` library (once); check its compiled maximum growth."""
     if lib.block_engine_fwd.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.block_engine_fwd.argtypes = [i] + [p] * 6 + [i] * 7 + [p]
+        lib.block_engine_fwd.argtypes = [i] + [p] * 7 + [i] * 9 + [p]
         lib.block_engine_dinput.argtypes = [i] + [p] * 9 + [i] * 9 + [p]
         lib.block_engine_dweight.argtypes = [i] + [p] * 8 + [i] * 7 + [p]
         for fn in (lib.block_engine_fwd, lib.block_engine_dinput,
@@ -99,6 +103,10 @@ def _library() -> ctypes.CDLL:
             raise RuntimeError("block_engine library and wrapper disagree on "
                                "the maximum growth")
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return bind(_build.load("block_engine", _SOURCES))
 
 
 def build_report() -> str:
@@ -225,18 +233,38 @@ def _n_part(b: int, h: int, w: int, tile_h: int = TILE_H,
     return b * _ceil(h, tile_h) * _ceil(w, tile_w)
 
 
+def _mma_tile(h: int, w: int) -> Tuple[int, int]:
+    """The bf16 kernels' (tile_h, tile_w): 256 pixels in the width of 32,
+    16 and 8 that pads an (h, w) image least, the widest on a tie."""
+    return min(((MMA_PIXELS // tw, tw) for tw in (32, 16, 8)),
+               key=lambda t: _ceil(h, t[0]) * t[0] * _ceil(w, t[1]) * t[1])
+
+
+def forward_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
+                   ) -> Tuple[int, int, int]:
+    """K4's (tile_h, tile_w, n_split) for a (b, h, w) image with prefix c:
+    in bf16, the 256-pixel tile of ``_mma_tile``, and where the tiles are
+    fewer than ``SPLIT_BELOW``, the 16-channel chunks split evenly across
+    about ``FORWARD_BLOCKS`` blocks (measured on an H100: faster at 32x40
+    and below with 2B = 16, slower at 64x80's 320 tiles); in f32, 16x32
+    tiles."""
+    if dtype != torch.bfloat16:
+        return TILE_H, TILE_W, 1
+    tile_h, tile_w = _mma_tile(h, w)
+    n_part = _n_part(b, h, w, tile_h, tile_w)
+    if n_part >= SPLIT_BELOW:
+        return tile_h, tile_w, 1
+    return tile_h, tile_w, min(_ceil(c, CHUNK), _ceil(FORWARD_BLOCKS, n_part))
+
+
 def dinput_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
                   ) -> Tuple[int, int, int]:
     """K5's (tile_h, tile_w, n_split) for a (b, h, w) image with prefix c:
-    in bf16, 256-pixel tiles in the width of 32, 16 and 8 that pads the
-    image least (the widest on a tie) and one block per 32 channels; in
-    f32, 16x32 tiles and the 16-channel chunks split across blocks up to
-    about ``TARGET_BLOCKS`` blocks."""
+    in bf16, the 256-pixel tile of ``_mma_tile`` and one block per 32
+    channels; in f32, 16x32 tiles and the 16-channel chunks split across
+    blocks up to about ``TARGET_BLOCKS`` blocks."""
     if dtype == torch.bfloat16:
-        tile_h, tile_w = min(
-            ((DINPUT_PIXELS // tw, tw) for tw in (32, 16, 8)),
-            key=lambda t: _ceil(h, t[0]) * t[0] * _ceil(w, t[1]) * t[1])
-        return tile_h, tile_w, _ceil(c, DINPUT_CHUNK)
+        return (*_mma_tile(h, w), _ceil(c, DINPUT_CHUNK))
     n_split = max(1, min(_ceil(c, CHUNK),
                          _ceil(TARGET_BLOCKS, _n_part(b, h, w)), 65535 // b))
     return TILE_H, TILE_W, n_split
@@ -266,10 +294,15 @@ def layer_forward(buf, c, scale, shift, w, bias) -> torch.Tensor:
     if buf.device.type == "cpu":
         return layer_forward_reference(buf, c, scale, shift, w, bias)
     b, h, wd, ld = buf.shape
-    n_part = _n_part(b, h, wd)
+    tile_h, tile_w, n_split = forward_tiling(buf.dtype, b, h, wd, c)
+    n_part = _n_part(b, h, wd, tile_h, tile_w)
     part = torch.empty((2, n_part, f), dtype=torch.float32, device=buf.device)
-    _launch("block_engine_fwd", buf, (buf, scale, shift, w, bias, part),
-            (b, h, wd, c, f, ld, n_part))
+    # split chunks: the blocks' f32 partial y, summed in order by a second pass
+    ypart = (torch.empty((n_split, n_part, MMA_PIXELS, MAX_GROWTH),
+                         dtype=torch.float32, device=buf.device)
+             if n_split > 1 else part)
+    _launch("block_engine_fwd", buf, (buf, scale, shift, w, bias, part, ypart),
+            (b, h, wd, c, f, ld, n_part, n_split, tile_w))
     return part.sum(1)
 
 

@@ -40,9 +40,12 @@ def _library() -> ctypes.CDLL:
         lib.warp_sample_fwd.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.warp_sample_fwd.restype = ctypes.c_int
-        lib.warp_sample_bwd.argtypes = (
+        lib.warp_sample_bwd_count.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.warp_sample_bwd.restype = ctypes.c_int
+        lib.warp_sample_bwd_count.restype = ctypes.c_int
+        lib.warp_sample_bwd_dimg.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.warp_sample_bwd_dimg.restype = ctypes.c_int
         lib.warp_sample_max_channels.argtypes = []
         lib.warp_sample_max_channels.restype = ctypes.c_int
         if lib.warp_sample_max_channels() != MAX_CHANNELS:
@@ -144,7 +147,6 @@ def _cuda_call(fn: str, tensors, ints, shape) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc} for "
                            f"image {shape}")
-    LAUNCHES[fn] += 1
 
 
 def _forward(image, px, py) -> torch.Tensor:
@@ -155,6 +157,7 @@ def _forward(image, px, py) -> torch.Tensor:
     out = torch.empty((b, hq, wq, c), dtype=image.dtype, device=image.device)
     _cuda_call("warp_sample_fwd", (image, px, py, out), (b, h, w, c, hq, wq),
                tuple(image.shape))
+    LAUNCHES["warp_sample_fwd"] += 1
     return out
 
 
@@ -164,10 +167,21 @@ def _backward(image, px, py, g, grad_channels: int):
         return _backward_plain(image, px, py, g, grad_channels)
     b, h, w, c = image.shape
     hq, wq = px.shape[1:]
-    dimg = torch.zeros_like(image)
+    ints, shape = (b, h, w, c, grad_channels, hq, wq), tuple(image.shape)
+    dev = image.device
+    # K3 sums dimg in a fixed order (csrc/warp_sample.cu): per cell (a
+    # query's top-left tap, (H+1) x (W+1) an image) the count of its
+    # queries, their segment of a query list by the scan of the counts
+    count = torch.zeros(b * (h + 1) * (w + 1), dtype=torch.int32, device=dev)
+    dimg = torch.empty_like(image)
     dpx, dpy = torch.empty_like(px), torch.empty_like(py)
-    _cuda_call("warp_sample_bwd", (image, px, py, g, dimg, dpx, dpy),
-               (b, h, w, c, grad_channels, hq, wq), tuple(image.shape))
+    _cuda_call("warp_sample_bwd_count", (image, px, py, g, dpx, dpy, count),
+               ints, shape)
+    end = torch.cumsum(count, 0, dtype=torch.int32)
+    order = torch.empty(b * hq * wq, dtype=torch.int32, device=dev)
+    _cuda_call("warp_sample_bwd_dimg", (px, py, g, count, end, end - count,
+                                        order, dimg), ints, shape)
+    LAUNCHES["warp_sample_bwd"] += 1
     return dimg, dpx, dpy
 
 

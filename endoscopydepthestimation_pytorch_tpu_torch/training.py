@@ -270,18 +270,23 @@ def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
     ``use_batch_stats=True`` BatchNorm uses the batch statistics, as the
     reference's training-loop validation does (it never leaves train
     mode, train.py:234, 380); by default the running ones, as its
-    evaluate.py does. The running statistics are never written."""
+    evaluate.py does. The running statistics are never written, and the
+    model is left in the mode it was in."""
     model = state.model
     _check_dtype(model, config)
-    with torch.no_grad():
-        model.train(use_batch_stats)
-        # a train-mode forward advances the running statistics: give it
-        # copies to advance
-        buffers = ({k: v.clone() for k, v in model.named_buffers()}
-                   if use_batch_stats else None)
-        d1, d2 = _forward_pair(model, batch, buffers)
-        loss, aux = compute_losses(d1, d2, batch, config.sfl_weight,
-                                   dcl_weight, config.zero_division_epsilon)
+    was_training = model.training
+    try:
+        with torch.no_grad():
+            model.train(use_batch_stats)
+            # a train-mode forward advances the running statistics: give it
+            # copies to advance
+            buffers = ({k: v.clone() for k, v in model.named_buffers()}
+                       if use_batch_stats else None)
+            d1, d2 = _forward_pair(model, batch, buffers)
+            loss, aux = compute_losses(d1, d2, batch, config.sfl_weight,
+                                       dcl_weight, config.zero_division_epsilon)
+    finally:
+        model.train(was_training)
     metrics = {"loss": loss,
                "sparse_flow_loss": aux["sparse_flow_loss"],
                "depth_consistency_loss": aux["depth_consistency_loss"]}

@@ -220,6 +220,30 @@ def test_dinput_tiling():
     assert block_engine.dinput_tiling(torch.float32, 16, 8, 10, 372) == (16, 32, 24)
 
 
+def test_forward_tiling():
+    """K4's tiles: in bf16, K5's 256-pixel tile, and below SPLIT_BELOW
+    tiles the 16-channel chunks split across ~FORWARD_BLOCKS blocks; in
+    f32, 16x32 tiles and no split. Pinned for FCDenseNet-57's 44 layers at
+    2B = 16, 256x320 (by level, first and last prefix) and for the card
+    tests' shapes."""
+    levels = {(256, 320): ((8, 32), 48, 1, 180, 1), (128, 160): ((8, 32), 96, 1, 228, 1),
+              (64, 80): ((16, 16), 144, 1, 276, 1), (32, 40): ((32, 8), 192, 4, 324, 4),
+              (16, 20): ((8, 32), 240, 8, 372, 8), (8, 10): ((8, 32), 288, 16, 324, 16)}
+    for (h, w), (tile, c_first, s_first, c_last, s_last) in levels.items():
+        assert block_engine.forward_tiling(torch.bfloat16, 16, h, w, c_first) == (
+            *tile, s_first)
+        assert block_engine.forward_tiling(torch.bfloat16, 16, h, w, c_last) == (
+            *tile, s_last)
+        assert block_engine.forward_tiling(torch.float32, 16, h, w, c_last) == (16, 32, 1)
+    # every bf16 tile width, with and without the split
+    cards = {(8, 64, 80, 180): (16, 16, 1), (2, 17, 33, 7): (32, 8, 1),
+             (4, 8, 10, 324): (8, 32, 21), (4, 32, 64, 60): (8, 32, 4),
+             (2, 20, 44, 36): (8, 32, 3), (2, 16, 20, 7): (8, 32, 1),
+             (2, 64, 80, 7): (16, 16, 1), (2, 32, 40, 16): (32, 8, 1)}
+    for (b, h, w, c), want in cards.items():
+        assert block_engine.forward_tiling(torch.bfloat16, b, h, w, c) == want
+
+
 def test_cpu_engine_launches_no_kernel():
     before = dict(block_engine.LAUNCHES)
     x, params, cots = _block_inputs(1, 3, 4, 5, 4, 2, seed=4)

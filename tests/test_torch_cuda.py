@@ -149,10 +149,24 @@ def test_warp_sample_matches_plain(device, b, h, w, c, grad_first):
                         ) if grad_first else cot
     ref_grads = torch.autograd.grad(ref, ref_leaves, ref_cot)
     torch.cuda.synchronize()
-    # the same f32 arithmetic; dimg's atomics land in another order
+    # the same f32 arithmetic; K3 sums each texel's dimg in query order,
+    # scatter_add_ in its own
     assert _rel(got, ref) <= 1e-5
     for name, a, r in zip(("dimg", "dpx", "dpy"), got_grads, ref_grads):
         assert _rel(a, r) <= 1e-5, name
+
+
+@pytest.mark.parametrize("grad_first", [False, True])
+def test_warp_sample_bwd_is_deterministic(device, grad_first):
+    """Two K3 launches at the train step's image on the same inputs give
+    bitwise-equal dimg, dpx and dpy: dimg sums in a fixed order, with no
+    float atomics."""
+    image, px, py, cot = _warp_case(16, 256, 320, 2, device, seed=2)
+    runs = [warp_sample._backward(image, px, py, cot, 1 if grad_first else 2)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dimg", "dpx", "dpy"), *runs):
+        assert torch.equal(a, r), name
 
 
 def test_warp_sample_nan_coordinate_gives_nan(device):
@@ -256,11 +270,15 @@ def test_tiny_train_step_bf16_launch_counts(device, monkeypatch, gate_open):
 # across blocks, with F = 16; a first-down-block layer (C = 60 = 4 mod 8,
 # row stride 96: bf16 K5's 16-byte path with a ragged last vector); a
 # width (44) and height (20) that no 256-pixel tile divides, with C = 36;
-# bf16 K5's scalar path (odd C and F) in its 32- and 16-wide tiles
+# bf16 K5's scalar path (odd C and F) in its 32- and 16-wide tiles; a
+# 16-byte row with C = 16 (one chunk: bf16 K4 in one pass, 8 wide). With
+# them the bf16 K4 runs every tile width on both paths, its one-pass
+# epilogue and its split chunks (``forward_tiling``; the third to fifth
+# shapes split)
 ENGINE_SHAPES = [(8, 64, 80, 180, 12, 24), (2, 17, 33, 7, 5, 3),
                  (4, 8, 10, 324, 16, 0), (4, 32, 64, 60, 12, 24),
                  (2, 20, 44, 36, 12, 0), (2, 16, 20, 7, 5, 3),
-                 (2, 64, 80, 7, 5, 3)]
+                 (2, 64, 80, 7, 5, 3), (2, 32, 40, 16, 12, 4)]
 
 
 def _engine_layer(b, h, w, c, f, extra, dtype, device, seed=0):
@@ -344,6 +362,62 @@ def test_engine_dinput_is_deterministic(device):
     torch.cuda.synchronize()
     for name, a, r in zip(("grad", "dscale", "dshift", "dbias"), *runs):
         assert torch.equal(a, r), name
+
+
+@pytest.mark.parametrize("shape", [ENGINE_SHAPES[3], ENGINE_SHAPES[7]],
+                         ids=["split", "one-pass"])
+def test_engine_forward_is_deterministic(device, shape):
+    """Two bf16 K4 launches on the same inputs give bitwise-equal y and
+    sums, with its chunks split across blocks and without: every reduction
+    runs in a fixed order, no atomics."""
+    b, h, w, c, f, extra = shape
+    buf, _, scale, shift, wk, bias, _, _ = _engine_layer(
+        b, h, w, c, f, extra, torch.bfloat16, device, seed=2)
+    runs = []
+    for _ in range(2):
+        got = buf.clone()
+        runs.append((got, block_engine.layer_forward(got, c, scale, shift, wk, bias)))
+    torch.cuda.synchronize()
+    for name, a, r in zip(("buf", "sums"), *runs):
+        assert torch.equal(a, r), name
+
+
+def test_dinput_check_catches_a_kernel_that_drops_the_old_gradient(
+        device, tmp_path, monkeypatch):
+    """A copy of block_engine.cu whose bf16 K5 stores its increment without
+    adding the old gradient, built with the package's nvcc flags: on a
+    random gradient prefix the comparison of
+    ``test_engine_kernels_match_twins`` fails on it, and passes on the
+    real kernel with the same inputs."""
+    import ctypes
+    import subprocess
+
+    from endoscopydepthestimation_pytorch_tpu_torch.ops import _build
+    source = (_build.CSRC / "block_engine.cu").read_text()
+    store = "__fadd_rn(gv.x, __fmul_rn(d0, sc.x)), __fadd_rn(gv.y, __fmul_rn(d1, sc.y))"
+    assert source.count(store) == 1
+    mutant_src = tmp_path / "block_engine.cu"
+    mutant_src.write_text(source.replace(store, "__fmul_rn(d0, sc.x), __fmul_rn(d1, sc.y)"))
+    mutant_lib = tmp_path / "block_engine_mutant.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(mutant_lib),
+                    str(mutant_src)], check=True, capture_output=True)
+    mutant = block_engine.bind(ctypes.CDLL(str(mutant_lib)))
+
+    b, h, w, c, f, extra = ENGINE_SHAPES[3]
+    buf, grad, scale, shift, wk, _, c1, c2 = _engine_layer(
+        b, h, w, c, f, extra, torch.bfloat16, device)
+    ref_grad = grad.clone()
+    block_engine.layer_dinput_reference(ref_grad, buf, c, scale, shift, wk, c1, c2)
+
+    def passes() -> bool:
+        got = grad.clone()
+        block_engine.layer_dinput(got, buf, c, scale, shift, wk, c1, c2)
+        torch.cuda.synchronize()
+        return _close(got[..., :c], ref_grad[..., :c], torch.bfloat16)
+
+    assert passes()
+    monkeypatch.setattr(block_engine, "_library", lambda: mutant)
+    assert not passes()
 
 
 def test_block_engine_apply_matches_cpu(device):

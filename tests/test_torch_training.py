@@ -315,6 +315,24 @@ def test_eval_step_matches_jax(tiny, use_batch_stats):
         assert torch.equal(v, before[k]), k
 
 
+@pytest.mark.parametrize("training_mode", [False, True])
+@pytest.mark.parametrize("use_batch_stats", [False, True])
+def test_eval_step_leaves_the_mode_as_it_found_it(tiny, use_batch_stats,
+                                                  training_mode):
+    """eval_step sets the BatchNorm mode it needs and restores the model's
+    own afterwards; on an eval-mode model a predict_step then runs."""
+    _, model = tiny
+    model = copy.deepcopy(model).train(training_mode)
+    batch = _to_torch(_synthetic_batch(seed=8, batch=2, h=32, w=40))
+    training.eval_step(training.create_train_state(model), batch,
+                       torch.tensor(DCL), CONFIG, use_batch_stats=use_batch_stats)
+    assert model.training == training_mode
+    assert all(m.training == training_mode for m in model.modules())
+    if not training_mode:
+        depth = training.predict_step(model, batch["color_1"], batch["boundary"])
+        assert depth.shape == (2, 32, 40, 1) and torch.isfinite(depth).all()
+
+
 def test_non_finite_loss_guard(tiny):
     """Empty depth masks: 0/0 in scale recovery, a NaN loss. Params,
     momentum, count and step stay put; the BN running statistics advance."""
