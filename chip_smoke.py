@@ -9,16 +9,20 @@ to the CPU or to a kernel's plain version):
   1. environment: the card's name and power limit, torch, CUDA and nvcc
      versions, whether OpenCV imports;
   2. build: ``csrc/dense_conv.cu`` (K1), ``csrc/warp_sample.cu`` (K2, K3)
-     and ``csrc/block_engine.cu`` (K4, K5, K6), one nvcc each, started
-     together, for sm_90a, with ptxas's register and spill report; then
-     ``cuobjdump -sass``: the bf16 K4 and K5 must hold HMMA (tensor-core)
-     instructions, and no bf16 instantiation of their FFMA kernels may
-     exist;
-  3. K1: the dense-layer kernel against its plain PyTorch version at every
-     one of FCDenseNet-57's 44 dense-layer shapes at 256x320, batch 8
-     (serving) and 16 (the train step's), in f32 (TF32 off) and bf16, with
-     its time beside the plain version's and cuDNN's conv on the activated
-     tensor;
+     and ``csrc/block_engine.cu`` (K4, K5, K6; K1 and K4 share the bf16
+     body in ``csrc/conv3x3_mma.cuh``), one nvcc each, started together,
+     for sm_90a, with ptxas's register and spill report; then ``cuobjdump
+     -sass``: the bf16 K1, K4 and K5 must hold HMMA (tensor-core)
+     instructions in every instantiation, and no bf16 instantiation of
+     their FFMA kernels may exist;
+  3. K1: the dense-layer kernel at every one of FCDenseNet-57's 44
+     dense-layer shapes at batch 1 (256x320 and the 512x576 crop), 8
+     (offline serving) and 16 (the train step's), in f32 (TF32 off)
+     against its plain PyTorch version and in bf16 against its tight twin
+     and the plain version, bitwise-equal repeats; its time through the
+     wrapper and alone, by level, beside the plain version's and cuDNN's
+     conv on the activated tensor; then at every level <= 128x160, batch 1
+     and 8, its chunks split against one pass;
   4. K2/K3: the warp sampler's kernels against the plain four-gather
      version and its autograd at the train step's shape, image
      (16, 256, 320, 2) f32, full and grad-first variants, plus NaN
@@ -40,7 +44,10 @@ to the CPU or to a kernel's plain version):
      256x320 batch 8, ``predict_frame`` at the real 512x576 crop batch 1.
      Every forward must launch K1 44 times, and the depth must match the
      port's own CPU float32 forward inside the boundary mask;
-  8. timing: forward latencies with CUDA events;
+  8. timing: forward latencies with CUDA events; a torch.profiler table
+     of the b1 256x320 forward (device busy, idle share, launches per
+     forward, the host's enqueue time) on a ``DepthPredictor`` built with
+     its default device;
   9. training, FCDenseNet-57 at full width on a synthetic, geometrically
      consistent batch, every dense block through the engine: (a) one f32
      step on the card against the same step on the CPU (b2 128x160);
@@ -258,20 +265,43 @@ def _graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def kernel_phase(card: str, batches=(8, 16), height: int = 256,
-                 width: int = 320) -> dict:
-    """Kernel vs plain version at every dense-layer shape, in f32 and bf16,
-    at batch 8 (serving) and 16 (the train step's stacked 2B); times in
-    bf16, beside cuDNN's conv of the already activated tensor (the nearest
-    library call: none folds the BN and ReLU in). Returns the batch-8
-    times and bound."""
+# K1's cases: (batch, height, width), live serving at batch 1 (the training
+# size and the real crop), offline serving at batch 8, the train step's 2B
+K1_CASES = ((1, 256, 320), (1, 512, 576), (8, 256, 320), (16, 256, 320))
+
+
+def _levels(height: int, width: int) -> tuple:
+    return ("full resolution", "middle levels", f"<= {height // 8}x{width // 8}")
+
+
+def _level(h: int, height: int, width: int) -> str:
+    names = _levels(height, width)
+    return names[0] if h == height else names[2] if h <= height // 8 else names[1]
+
+
+def kernel_phase(card: str, cases=K1_CASES) -> dict:
+    """K1 at every one of FCDenseNet-57's 44 dense-layer shapes of each
+    (batch, height, width) case: f32 (TF32 off) against the plain version,
+    max|d| <= 1e-4 max|ref|; bf16 against its tight twin (the same bf16
+    operands, f32 sums, the f32 bias, one rounding) mean|d|/mean|ref| <=
+    1e-4, and against the plain version (cuDNN's bf16 conv, another
+    rounding) <= 1e-2; two bf16 launches bitwise equal. Times in bf16
+    through the wrapper (CUDA events over back-to-back calls) and alone
+    (CUDA graph replay), summed by level, beside the plain version's and
+    cuDNN's conv of the already activated tensor (the nearest library call:
+    none folds the BN and ReLU in). Returns the batch-8 256x320 times and
+    bound, and the f32 max|d|."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    max_abs, max_f32_ratio, max_bf16_rel, times = 0.0, 0.0, 0.0, {}
-    for batch in batches:
-        ms, plain_ms, lib_ms, n_bytes, n_ops = 0.0, 0.0, 0.0, 0.0, 0.0
+    max_abs, worst, times = 0.0, {"f32": 0.0, "twin": 0.0, "plain": 0.0}, {}
+    for batch, height, width in cases:
+        keys = ("ms", "alone_ms", "plain_ms", "library_ms", "library_alone_ms")
+        tot = dict.fromkeys(keys, 0.0)
+        by_level = {k: dict.fromkeys(_levels(height, width), 0.0)
+                    for k in ("ms", "alone_ms", "library_ms")}
+        n_bytes, n_ops = 0.0, 0.0
         print(f"kernel phase, batch {batch}, {height}x{width}, {card}:")
-        print("  H    W    Cin  f32 max|d|/max|ref|  bf16 mean|d|/mean|ref|  "
-              "kernel ms  plain ms  cuDNN conv of the activated tensor ms")
+        print("  H    W    Cin  tiling      f32 max|d|/max|ref|  bf16 mean rel: twin  "
+              "plain      ms: kernel / alone / plain / cuDNN conv of the activated tensor")
         for h, w, c in dense_layer_shapes(height, width):
             def draw(*shape):
                 return torch.randn(*shape, generator=g, device="cuda")
@@ -285,40 +315,115 @@ def kernel_phase(card: str, batches=(8, 16), height: int = 256,
             ref = dense_conv.fused_dense_conv_reference(*args32)
             err = (got - ref).abs().max().item()
             ratio = err / ref.abs().max().item()
-            if not ratio <= 1e-4:
-                raise AssertionError(f"f32 kernel mismatch at {(batch, h, w, c)}: {ratio}")
+            if c == 48:  # the first layer: both f32 results against f64 sums
+                ref64 = dense_conv.fused_dense_conv_reference(
+                    *(t.double() for t in args32)).float()
+                print(f"  f32 at {(batch, h, w, c)} against the f64 conv of the same "
+                      f"activation: K1 max|d|/max|ref| {_rel(got, ref64):.3e}, cuDNN "
+                      f"{_rel(ref, ref64):.3e}; K1 and cuDNN bitwise equal: "
+                      f"{torch.equal(got, ref)}")
+                del ref64
             args16 = (x.bfloat16(), scale, shift, wk.bfloat16(), bias)
-            got = dense_conv.fused_dense_conv(*args16).float()
-            ref = dense_conv.fused_dense_conv_reference(*args16).float()
-            rel = ((got - ref).abs().mean() / ref.abs().mean()).item()
-            if not rel <= 1e-2:
-                raise AssertionError(f"bf16 kernel mismatch at {(batch, h, w, c)}: {rel}")
-            k_ms = _cuda_ms(lambda: dense_conv.fused_dense_conv(*args16), 20)
-            p_ms = _cuda_ms(lambda: dense_conv.fused_dense_conv_reference(*args16), 20)
+            got = dense_conv.fused_dense_conv(*args16)
+            again = dense_conv.fused_dense_conv(*args16)
+            rel = {}
+            for name, plain in (("twin", dense_conv.fused_dense_conv_twin),
+                                ("plain", dense_conv.fused_dense_conv_reference)):
+                r = plain(*args16).float()
+                rel[name] = ((got.float() - r).abs().mean() / r.abs().mean()).item()
+            tiling = dense_conv.forward_tiling(torch.bfloat16, batch, h, w, c)
+            vw = dense_conv.vector_width(torch.bfloat16, c, 12, args16[0].data_ptr(),
+                                         args16[3].data_ptr(), got.data_ptr())
+            if not (ratio <= 1e-4 and rel["twin"] <= 1e-4 and rel["plain"] <= 1e-2
+                    and torch.equal(got, again)):
+                raise AssertionError(f"K1 mismatch at {(batch, h, w, c)}: f32 {ratio}, "
+                                     f"bf16 {rel}, repeat equal {torch.equal(got, again)}")
             a16 = torch.relu(x * scale + shift).bfloat16().permute(0, 3, 1, 2)
             w16 = wk.bfloat16().permute(3, 2, 0, 1).contiguous()
             b16 = bias.bfloat16()
-            l_ms = _cuda_ms(lambda: F.conv2d(a16, w16, b16, padding=1), 20)
-            print(f"  {h:<4} {w:<4} {c:<4} {ratio:<20.3e} {rel:<23.3e} "
-                  f"{k_ms:<10.4f} {p_ms:<9.4f} {l_ms:.4f}")
-            max_abs, max_f32_ratio = max(max_abs, err), max(max_f32_ratio, ratio)
-            max_bf16_rel = max(max_bf16_rel, rel)
-            ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+            kernel = lambda: dense_conv.fused_dense_conv(*args16)  # noqa: E731
+            library = lambda: F.conv2d(a16, w16, b16, padding=1)  # noqa: E731
+            t = {"ms": _cuda_ms(kernel, 20), "alone_ms": _graph_ms(kernel),
+                 "plain_ms": _cuda_ms(lambda: dense_conv.fused_dense_conv_reference(
+                     *args16), 10),
+                 "library_ms": _cuda_ms(library, 20), "library_alone_ms": _graph_ms(library)}
+            print(f"  {h:<4} {w:<4} {c:<4} {tiling[0]}x{tiling[1]}/{tiling[2]:<2} v{vw} "
+                  f"{ratio:<20.3e} {rel['twin']:<11.3e} {rel['plain']:<10.3e} "
+                  + " / ".join(f"{t[k]:.4f}" for k in ("ms", "alone_ms", "plain_ms",
+                                                       "library_ms")))
+            max_abs = max(max_abs, err)
+            worst = {"f32": max(worst["f32"], ratio), "twin": max(worst["twin"], rel["twin"]),
+                     "plain": max(worst["plain"], rel["plain"])}
+            for k in keys:
+                tot[k] += t[k]
+            for k in by_level:
+                by_level[k][_level(h, height, width)] += t[k]
             pixels = batch * h * w
             n_bytes += 2 * (pixels * (c + 12) + 9 * c * 12) + 4 * (2 * c + 12)
             n_ops += 2 * 9 * 12 * pixels * c
-            del x, args32, args16, got, ref, a16
+            del x, args32, args16, got, again, ref, a16
         bound_ms, bound_by = bound(n_bytes, n_ops, torch.bfloat16)
-        print(f"timing [{card}] 44 dense layers, batch {batch} {height}x{width} "
-              f"bf16: kernel {ms:.4f} ms, plain (cuDNN) {plain_ms:.4f} ms, cuDNN "
-              f"conv of the activated tensor {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"({bound_by}: {n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.1f} GFLOP)")
-        times[batch] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by}
-    print(f"kernel phase ok: 44 shapes at batch {batches}, f32 max|d| {max_abs:.3e} "
-          f"(max|d|/max|ref| {max_f32_ratio:.3e} <= 1e-4), bf16 mean rel "
-          f"{max_bf16_rel:.3e} <= 1e-2")
-    return {"max_abs_err": max_abs, **times[batches[0]]}
+        print(f"timing [{card}] K1 dense_conv_fwd, 44 dense layers, batch {batch} "
+              f"{height}x{width} bf16: kernel {tot['ms']:.4f} ms through the wrapper, "
+              f"{tot['alone_ms']:.4f} alone (CUDA graph replay); plain (cuDNN) "
+              f"{tot['plain_ms']:.4f} ms; cuDNN conv of the activated tensor "
+              f"{tot['library_ms']:.4f} ms, {tot['library_alone_ms']:.4f} alone; bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e9:.3f} GB, "
+              f"{n_ops / 1e9:.1f} GFLOP)")
+        print(f"timing [{card}] K1 dense_conv_fwd bf16 by level, batch {batch} "
+              f"{height}x{width}: " + "; ".join(
+                  f"{k}: " + ", ".join(f"{lv} {v:.4f}" for lv, v in by_level[k].items())
+                  for k in by_level) + " (ms; ms = through the wrapper, alone_ms = CUDA "
+              "graph replay, library_ms = cuDNN through events)")
+        times[(batch, height, width)] = {**tot, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"kernel phase ok: 44 shapes at (batch, height, width) {list(cases)}, f32 max|d| "
+          f"{max_abs:.3e} (max|d|/max|ref| {worst['f32']:.3e} <= 1e-4), bf16 mean rel "
+          f"against the twin {worst['twin']:.3e} <= 1e-4, against the plain version "
+          f"{worst['plain']:.3e} <= 1e-2, repeats bitwise equal")
+    return {"max_abs_err": max_abs, **times[(8, 256, 320)]}
+
+
+def k1_split_phase(card: str, batches=(1, 8), height: int = 256, width: int = 320) -> None:
+    """K1 at every level <= 128x160 with its chunks split across
+    ~FORWARD_BLOCKS blocks against one pass, device ms by CUDA graph replay
+    summed over the level's layers, two alternating rounds, at batch 1 and
+    8; beside the split the wrapper picks (it splits below SPLIT_BELOW
+    tiles)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    tiling = dense_conv.forward_tiling
+    for batch in batches:
+        levels = {}
+        for h, w, c in dense_layer_shapes(height, width):
+            if h > height // 2:
+                continue
+            x = torch.randn(batch, h, w, c, generator=g, device="cuda").bfloat16()
+            scale = torch.rand(c, generator=g, device="cuda") + 0.5
+            shift = torch.randn(c, generator=g, device="cuda") * 0.3
+            wk = (torch.randn(3, 3, c, 12, generator=g, device="cuda") * 0.05).bfloat16()
+            bias = torch.randn(12, generator=g, device="cuda") * 0.1
+            tile = block_engine._mma_tile(h, w)
+            n_tiles = batch * -(-h // tile[0]) * -(-w // tile[1])
+            n_split = min(-(-c // block_engine.CHUNK),
+                          -(-block_engine.FORWARD_BLOCKS // n_tiles))
+            t = levels.setdefault((h, w), {"split": [0.0, 0.0], "one pass": [0.0, 0.0],
+                                           "n_split": [], "wrapper": [], "tiles": n_tiles})
+            t["n_split"].append(n_split)
+            t["wrapper"].append(tiling(torch.bfloat16, batch, h, w, c)[2])
+            for rep in range(2):
+                for key, n in (("split", n_split), ("one pass", 1)):
+                    dense_conv.forward_tiling = lambda *_, n=n: (*tile, n)
+                    try:
+                        t[key][rep] += _graph_ms(
+                            lambda: dense_conv.fused_dense_conv(x, scale, shift, wk, bias))
+                    finally:
+                        dense_conv.forward_tiling = tiling
+        for (h, w), t in levels.items():
+            print(f"timing [{card}] K1 dense_conv_fwd bf16 device ms, batch {batch}, the "
+                  f"{len(t['n_split'])} layers at {h}x{w} ({t['tiles']} tiles; CUDA graph "
+                  f"replay, two alternating rounds): split (n_split {t['n_split']}) "
+                  + " / ".join(f"{v:.4f}" for v in t["split"]) + ", one pass "
+                  + " / ".join(f"{v:.4f}" for v in t["one pass"])
+                  + f"; the wrapper's n_split {t['wrapper']}")
 
 
 def forward_ms(checkpoint, card: str, height: int, width: int, batch: int) -> float:
@@ -355,26 +460,38 @@ def build_phase() -> None:
     tensor_core_sass_check()
 
 
-def tensor_core_sass_check() -> None:
-    """``cuobjdump -sass`` of the block_engine library: the bf16 K4 and K5
-    must run on the tensor cores (HMMA instructions in every instantiation),
-    and no bf16 instantiation of their FFMA kernels may exist."""
-    lib = block_engine._build.library_path("block_engine", block_engine._SOURCES)
-    cuobjdump = Path(block_engine._build.nvcc_path()).parent / "cuobjdump"
-    functions = {}  # mangled name -> its SASS
+def _sass_functions(module, name: str) -> dict:
+    """mangled kernel name -> its SASS, from ``cuobjdump -sass`` of the
+    module's built library."""
+    lib = module._build.library_path(name, module._SOURCES)
+    cuobjdump = Path(module._build.nvcc_path()).parent / "cuobjdump"
+    functions = {}
     for chunk in _run([str(cuobjdump), "-sass", str(lib)]).split("Function : ")[1:]:
-        name, _, body = chunk.partition("\n")
-        functions[name.strip()] = body
-    for kernel, mma, ffma in (("K4", "fwd_mma_kernel", "fwd_kernel"),
-                              ("K5", "dinput_mma_kernel", "dinput_kernel")):
-        hmma = {name: sum("HMMA" in line for line in body.splitlines())
-                for name, body in functions.items() if mma in name}
-        ffma_bf16 = [n for n in functions if ffma in n and "bfloat16" in n]
-        print(f"cuobjdump -sass block_engine: HMMA instructions in the bf16 {kernel} "
-              f"{hmma}; bf16 instantiations of the FFMA {kernel}: {ffma_bf16 or 'none'}")
-        if len(hmma) != 6 or min(hmma.values()) == 0 or ffma_bf16:
-            raise AssertionError(f"the bf16 {kernel} does not run on the tensor cores "
-                                 "only, in its six instantiations")
+        fn, _, body = chunk.partition("\n")
+        functions[fn.strip()] = body
+    return functions
+
+
+def tensor_core_sass_check() -> None:
+    """``cuobjdump -sass`` of the dense_conv and block_engine libraries:
+    the bf16 K1, K4 and K5 must run on the tensor cores (HMMA instructions
+    in every instantiation: K1's 9 = 3 tile widths x 16-byte, 8-byte and
+    scalar halo loads, K4's and K5's 6 = 3 x 16-byte and scalar), and no
+    bf16 instantiation of their FFMA kernels may exist."""
+    checks = ((dense_conv, "dense_conv", (("K1", "fwd_mma_kernel", 9, "dense_conv_fwd_kernel"),)),
+              (block_engine, "block_engine", (("K4", "fwd_mma_kernel", 6, "fwd_kernel"),
+                                              ("K5", "dinput_mma_kernel", 6, "dinput_kernel"))))
+    for module, lib, kernels in checks:
+        functions = _sass_functions(module, lib)
+        for kernel, mma, count, ffma in kernels:
+            hmma = {name: sum("HMMA" in line for line in body.splitlines())
+                    for name, body in functions.items() if mma in name}
+            ffma_bf16 = [n for n in functions if ffma in n and "bfloat16" in n]
+            print(f"cuobjdump -sass {lib}: HMMA instructions in the bf16 {kernel} {hmma}; "
+                  f"bf16 instantiations of the FFMA {kernel}: {ffma_bf16 or 'none'}")
+            if len(hmma) != count or min(hmma.values()) == 0 or ffma_bf16:
+                raise AssertionError(f"the bf16 {kernel} does not run on the tensor cores "
+                                     f"only, in its {count} instantiations")
 
 
 def _value_and_grads(fn, leaves, cot):
@@ -894,12 +1011,36 @@ def train_phase(card: str, config, steps: int = 10, batch: int = 8,
     return {"launches": launches, "ms": steady, "state": state, "data": data}
 
 
+def _profile_tables(prof, n: int, card: str, label: str) -> tuple:
+    """Print a torch.profiler window's device ms per iteration (of ``n``)
+    by op and by kernel function; return (device busy ms, kernel launches)
+    per iteration."""
+    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = [e for e in ops if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / (1e3 * n)
+    launches = sum(e.count for e in kernels) / n
+    print(f"profile [{card}] {label}device ms per iteration by op:")
+    for e in sorted((e for e in ops if e not in kernels),
+                    key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"  {e.self_device_time_total / (1e3 * n):9.3f}  x{e.count // n:<5} {e.key[:80]}")
+    by_function = {}  # kernel function (template arguments dropped) -> [us, count]
+    for e in kernels:
+        name = re.split(r"[<(]", e.key.replace("(anonymous namespace)::", ""))[0]
+        total = by_function.setdefault(name, [0.0, 0])
+        total[0] += e.self_device_time_total
+        total[1] += e.count
+    print(f"profile [{card}] {label}device ms per iteration by kernel function:")
+    for name, (us, count) in sorted(by_function.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {us / (1e3 * n):9.3f}  x{count // n:<5} {name[:100]}")
+    return busy, launches
+
+
 def profile_train_step(state, data, config, card: str, steady_ms: float,
                        label: str = "") -> None:
     """torch.profiler over 3 bf16 train steps after the timed ones: the
-    device time per step by op, and the device's idle share of the window
-    (the profiler's own host cost included) and of ``steady_ms``, the same
-    run's median step without the profiler."""
+    device time per step by op and by kernel, and the device's idle share
+    of the window (the profiler's own host cost included) and of
+    ``steady_ms``, the same run's median step without the profiler."""
     from torch.profiler import ProfilerActivity, profile
     dcl = torch.tensor(0.1, device="cuda")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -910,25 +1051,58 @@ def profile_train_step(state, data, config, card: str, steady_ms: float,
         end.record()
         torch.cuda.synchronize()
     window = start.elapsed_time(end) / 3
-    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    kernels = [e for e in ops if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 3e3
+    busy, _ = _profile_tables(prof, 3, card, f"{label}bf16 train step b8 256x320, ")
     print(f"profile [{card}] {label}bf16 train step b8 256x320, 3 steps: window "
           f"{window:.3f} ms/step, device busy {busy:.3f} ms/step, idle share "
           f"{1 - busy / window:.4f} under the profiler, {1 - busy / steady_ms:.4f} "
-          f"of the unprofiled median step {steady_ms:.4f} ms; device ms/step by op:")
-    for e in sorted((e for e in ops if e not in kernels),
-                    key=lambda e: -e.self_device_time_total)[:20]:
-        print(f"  {e.self_device_time_total / 3e3:9.3f}  x{e.count // 3:<5} {e.key[:80]}")
-    by_function = {}  # kernel function (template arguments dropped) -> [us, count]
-    for e in kernels:
-        name = re.split(r"[<(]", e.key.replace("(anonymous namespace)::", ""))[0]
-        total = by_function.setdefault(name, [0.0, 0])
-        total[0] += e.self_device_time_total
-        total[1] += e.count
-    print(f"profile [{card}] {label}device ms/step by kernel function:")
-    for name, (us, count) in sorted(by_function.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"  {us / 3e3:9.3f}  x{count // 3:<5} {name[:100]}")
+          f"of the unprofiled median step {steady_ms:.4f} ms")
+
+
+def profile_forward(checkpoint, card: str, height: int = 256, width: int = 320,
+                    batch: int = 1, n: int = 5) -> None:
+    """torch.profiler over ``n`` bf16 forwards (``predict_step``) after
+    three warm-ups, on a ``DepthPredictor`` built with its default device
+    (the card): device busy and idle share per forward, kernel launches
+    per forward (K1's among them), the host's enqueue time per forward,
+    and the device time by op and by kernel function."""
+    from torch.profiler import ProfilerActivity, profile
+    predictor = DepthPredictor(checkpoint, synthetic_sequence(height, width),
+                               batch_size=batch, downsampling=1.0)
+    if predictor.device.type != "cuda":
+        raise AssertionError(f"DepthPredictor's default device is {predictor.device}")
+    g = torch.Generator().manual_seed(SEED + 2)
+    colors = (torch.rand(batch, height, width, 3, generator=g) * 2 - 1).cuda()
+    boundary = torch.ones(batch, height, width, 1, device="cuda")
+
+    def forward():
+        return training.predict_step(predictor.model, colors, boundary)
+
+    for _ in range(3):
+        forward()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        forward()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    k1 = dense_conv.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(n):
+            forward()
+        end.record()
+        torch.cuda.synchronize()
+    k1 = (dense_conv.LAUNCHES - k1) / n
+    window = start.elapsed_time(end) / n
+    label = f"bf16 forward b{batch} {height}x{width}, "
+    busy, launches = _profile_tables(prof, n, card, label)
+    print(f"profile [{card}] {label}{n} forwards: window {window:.4f} ms/forward, device "
+          f"busy {busy:.4f} ms, idle share {1 - busy / window:.4f}; {launches:.0f} kernel "
+          f"launches per forward ({k1:.0f} K1); host enqueue {host_ms:.4f} ms per forward "
+          "without the profiler")
+    if k1 != 44:
+        raise AssertionError(f"expected 44 K1 launches per forward, got {k1}")
 
 
 def paired_steps_phase(card: str, config, engine_state, materialized_state, data,
@@ -996,6 +1170,7 @@ def main() -> int:
 
     build_phase()
     kernel = kernel_phase(card)
+    k1_split_phase(card)
     print(f"sampler phase, {card}:")
     sampler = sampler_phase(card)
     engine = engine_kernel_phase(card)
@@ -1036,6 +1211,7 @@ def main() -> int:
                "b1_256x320": forward_ms(checkpoint, card, 256, 320, 1),
                "b1_512x576": forward_ms(checkpoint, card, 512, 576, 1)}
         print(f"forward ms: {json.dumps(fwd)}")
+        profile_forward(checkpoint, card)
         del hi
 
     base = training.TrainConfig(lr_step_size=50)

@@ -41,32 +41,19 @@
 // the shapes, not measured.
 //
 // Designs (K6, and K4 and K5 in f32: direct convolution, simple first):
-//   K4  bf16 (the train path): an implicit GEMM on the tensor cores,
-//       M = 256 pixels of one image (the K5 tile: 8x32, 16x16 or 32x8),
-//       N = 16 (F zero-padded: two n8 tiles cover every growth the gate
-//       takes), K = 9 taps x 16-channel chunks of the prefix, 8 warps of 32
-//       pixels, mma.sync m16n8k16 with f32 accumulators. The A operand is
-//       the chunk's activated halo, bf16(relu(x*scale + shift)) computed in
-//       registers from the raw x as the plain version rounds it, stored
-//       [pos][16] at K5's 48-byte pitch; B is the chunk's weights
-//       [tap][f][c]. The chunk loop runs on two shared-memory stages: after
-//       a warp's 36 MMAs on chunk k it stages chunk k+1 into the other stage
-//       (the raw halo as 16-byte vectors along the channels, the weights as
-//       channel pairs, every load issued before the first store), so one
-//       barrier a chunk; three blocks an SM hide each other's load latency.
-//       (Holding chunk k+1's loads in registers across chunk k's MMAs was
-//       slower: more registers, spills.) Each prefix byte crosses HBM once;
-//       the halo's 1.3x re-reads hit L2.
-//       The epilogue works from the fragments: the bias, y rounded to bf16
-//       and stored as channel pairs at offset C, and the sums of the stored
-//       y over lanes, then warps, in a fixed order (one writer per tile and
-//       channel). Where the image has fewer tiles than the card has SMs
-//       (<= 32x40 at 2B = 16) the chunks split evenly across ~256 blocks
-//       (the wrapper's choice, measured): each writes its f32
-//       partial y, and fwd_finish_kernel sums them in split order, then adds
-//       the bias, stores and sums as above. 47.5 KB of static shared memory
-//       a block; rows not 16-byte aligned, and an odd C or F, take scalar
-//       loads and stores. No atomics: bitwise repeatable.
+//   K4  bf16 (the train path): the implicit GEMM on the tensor cores of
+//       csrc/conv3x3_mma.cuh, shared with K1 (M = 256 pixels, N = 16, K =
+//       9 taps x 16-channel chunks, mma.sync m16n8k16, the activated halo
+//       built in registers into two shared-memory stages), here reading the
+//       prefix at row stride ld, writing y at channel offset C and summing
+//       the stored y (STATS). (Holding chunk k+1's loads in registers across
+//       chunk k's MMAs was slower: more registers, spills.) Each prefix byte
+//       crosses HBM once; the halo's 1.3x re-reads hit L2. Where the image
+//       has fewer tiles than the card has SMs (<= 32x40 at 2B = 16) the
+//       chunks split evenly across ~256 blocks (the wrapper's choice,
+//       measured), summed in split order by the header's finish pass. 47.5
+//       KB of static shared memory a block; rows not 16-byte aligned, and an
+//       odd C or F, take scalar loads and stores. Bitwise repeatable.
 //   K4  f32 (the parity dtype): K1's design (csrc/dense_conv.cu): a 16x32
 //       output tile of one image, 128 threads, 4 rows x all F per thread,
 //       the (18x34) x 16-channel activated halo in shared memory; plus the
@@ -117,6 +104,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "conv3x3_mma.cuh"  // bf16 K4's body, shared with K1; CC, GP, MMA_HALO
+
 namespace {
 
 constexpr int MAX_GROWTH = 16;
@@ -128,7 +117,6 @@ constexpr int TY = 4;                       // threads in y
 constexpr int TH = TY * RPT;                // tile height
 constexpr int NT = TW * TY;                 // threads per block
 constexpr int NWARP = NT / 32;
-constexpr int CC = 16;                      // channels per chunk
 constexpr int HALO = (TH + 2) * (TW + 2);
 constexpr int PS = HALO + 1;                // odd pitch: fewer bank conflicts
 
@@ -144,16 +132,9 @@ constexpr int PS6 = HALO6 + 1;
 constexpr int M5 = 256;                     // pixels per block
 constexpr int N5 = 32;                      // prefix channels per block
 constexpr int NT5 = 256;                    // threads: 8 warps x 32 pixels
-constexpr int HALO5 = 340;                  // max (M5/tw + 2)*(tw + 2), tw 8..32
-constexpr int GP = 24;                      // halo and weight row pitch (bf16)
 constexpr int XP = N5 + 8;                  // x and gradient tile pitch (bf16)
-constexpr int SMEM5 = 2 * (HALO5 * GP + 9 * N5 * GP + 2 * M5 * XP) +
+constexpr int SMEM5 = 2 * (MMA_HALO * GP + 9 * N5 * GP + 2 * M5 * XP) +
                       4 * (2 * (NT5 / 32) * N5 + 2 * N5);  // + f32 sums, scale, shift
-
-// bf16 K4 tile (its halo rows as K5's: HALO5 positions at pitch GP)
-constexpr int M4 = 256;                     // pixels per block
-constexpr int N4 = MAX_GROWTH;              // output channels (F zero-padded)
-constexpr int NT4 = 256;                    // threads: 8 warps x 32 pixels
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -174,14 +155,6 @@ template <typename T> __device__ __forceinline__ float rounded(float v) {
   return to_float(from_float<T>(v));
 }
 
-// relu(x*scale + shift) with the product and the sum rounded separately,
-// as the plain version's two PyTorch ops round them: a fused multiply-add
-// can flip the sign of a value next to 0, and with it K5's ReLU mask,
-// which passes or drops a whole da term
-__device__ __forceinline__ float affine_relu(float x, float scale, float shift) {
-  return fmaxf(__fadd_rn(__fmul_rn(x, scale), shift), 0.f);
-}
-
 // rounded<bf16>(affine_relu(x, scale, shift)) > 0, K5's bf16 ReLU mask,
 // without the rounding: a positive f32 rounds to a bf16 0 exactly when it
 // is at most 2^-134, half of bf16's least subnormal (the tie goes to 0)
@@ -192,12 +165,6 @@ __device__ __forceinline__ bool active_bf16(float x, float scale, float shift) {
 // gy_eff = (g + c1) + c2*y, each step rounded as in the plain version
 __device__ __forceinline__ float gy_eff(float g, float y, float c1, float c2) {
   return __fadd_rn(__fadd_rn(g, c1), __fmul_rn(c2, y));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -478,30 +445,9 @@ __global__ void __launch_bounds__(NT) dinput_kernel(
 // ---------------------------------------------------------------------------
 // K5 in bf16: the same function as an implicit GEMM on the tensor cores
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                "l"(src));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One block: the tile of M5 pixels at (blockIdx.y, image blockIdx.z),
@@ -519,10 +465,10 @@ __global__ void __launch_bounds__(NT5, VEC ? 3 : 2) dinput_mma_kernel(
     float* __restrict__ part_bias, int H, int W, int C, int F, int ld) {
   constexpr int TW5 = 1 << TWL, HP = TW5 + 2;  // tile width, halo row pitch
   constexpr int N_HALO = (M5 / TW5 + 2) * HP;  // halo positions
-  static_assert(N_HALO <= HALO5, "the halo does not fit its shared memory");
+  static_assert(N_HALO <= MMA_HALO, "the halo does not fit its shared memory");
   extern __shared__ __align__(16) unsigned char smem5[];
   __nv_bfloat16* s_g = reinterpret_cast<__nv_bfloat16*>(smem5);  // [pos][f]
-  __nv_bfloat16* s_w = s_g + HALO5 * GP;   // [tap][n][f]
+  __nv_bfloat16* s_w = s_g + MMA_HALO * GP;   // [tap][n][f]
   __nv_bfloat16* s_x = s_w + 9 * N5 * GP;  // [m][n]
   __nv_bfloat16* s_d = s_x + M5 * XP;      // [m][n], the gradient tile
   float* s_red = reinterpret_cast<float*>(s_d + M5 * XP);  // [warp][2][n]
@@ -774,318 +720,6 @@ __global__ void __launch_bounds__(NT5, VEC ? 3 : 2) dinput_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K4 in bf16: the same function as an implicit GEMM on the tensor cores
-
-__device__ __forceinline__ float2 bf2_to_f2(unsigned u) {  // exact
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-
-__device__ __forceinline__ unsigned f2_to_bf2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// One block: the tile of M4 pixels at (blockIdx.y, image blockIdx.z),
-// 1 << TWL wide, over the channel chunks of split blockIdx.x (of gridDim.x
-// splits, in order). VEC: as for the bf16 K5 (16-byte rows, even C and F),
-// so the halo moves as 16-byte vectors and the weights and y as channel
-// pairs; else as scalars. One split: the block adds the bias, stores y and
-// writes its sums. More: it writes its f32 partial y to ypart
-// (split, tile, M4, N4) and fwd_finish_kernel does the rest.
-template <int TWL, bool VEC>
-__global__ void __launch_bounds__(NT4, VEC ? 3 : 2) fwd_mma_kernel(
-    __nv_bfloat16* buf, const float* __restrict__ scale,
-    const float* __restrict__ shift, const __nv_bfloat16* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ part,
-    float* __restrict__ ypart, int H, int W, int C, int F, int ld) {
-  constexpr int TW4 = 1 << TWL, HP = TW4 + 2;  // tile width, halo row pitch
-  constexpr int N_HALO = (M4 / TW4 + 2) * HP;  // halo positions
-  static_assert(N_HALO <= HALO5, "the halo does not fit its shared memory");
-  // two stages of the activated halo [pos][c] and the weights [tap][f][c]
-  __shared__ __align__(16) __nv_bfloat16 s_a[2][HALO5 * GP];
-  __shared__ __align__(16) __nv_bfloat16 s_w[2][9 * N4 * GP];
-  __shared__ float s_red[2 * (NT4 / 32) * N4];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int tiles_w = (W + TW4 - 1) / TW4;
-  const int w0 = (blockIdx.y % tiles_w) * TW4, h0 = (blockIdx.y / tiles_w) * (M4 / TW4);
-  __nv_bfloat16* bb = buf + (size_t)blockIdx.z * H * W * ld;
-  const size_t n_tiles = (size_t)gridDim.z * gridDim.y;
-  const size_t sb = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  // split s of S takes chunks [s*n/S, (s+1)*n/S): none empty for S <= n
-  const int n_chunks = (C + CC - 1) / CC;
-  const int k_begin = blockIdx.x * n_chunks / gridDim.x;
-  const int k_end = (blockIdx.x + 1) * n_chunks / gridDim.x;
-  // pixel m of the tile: (h0 + m / TW4, w0 + m % TW4)
-  auto inside = [&](int m) { return h0 + m / TW4 < H && w0 + m % TW4 < W; };
-  auto row = [&](int m) { return ((size_t)(h0 + m / TW4) * W + w0 + m % TW4) * ld; };
-
-  // Staging a chunk: LP lanes per halo position, CPL channels per lane (a
-  // 16-byte vector or one value), the same channels at every step; LPW
-  // lanes per weight row (tap, c), a channel pair or one value of f each.
-  // Every load of the chunk (raw x, weights, scale, shift) is issued before
-  // the first store; x is activated in registers on its way to shared
-  // memory.
-  constexpr int LP = VEC ? 2 : 16, CPL = 16 / LP;
-  constexpr int A_STEPS = (N_HALO * LP + NT4 - 1) / NT4;
-  constexpr int LPW = VEC ? 8 : 16, FPL = 16 / LPW;
-  constexpr int W_STEPS = (9 * CC * LPW + NT4 - 1) / NT4;
-  using RawA = std::conditional_t<VEC, uint4, __nv_bfloat16>;
-  using RawW = std::conditional_t<VEC, unsigned, __nv_bfloat16>;
-  const int ch0 = (tid % LP) * CPL, f0 = (tid % LPW) * FPL;
-  int off[A_STEPS];  // the halo position's row in the image, or -1
-#pragma unroll
-  for (int k = 0; k < A_STEPS; ++k) {
-    const int pos = tid / LP + k * (NT4 / LP);
-    const int gh = h0 + pos / HP - 1, gw = w0 + pos % HP - 1;
-    off[k] = pos < N_HALO && gh >= 0 && gh < H && gw >= 0 && gw < W
-                 ? (gh * W + gw) * ld : -1;
-  }
-  auto stage_chunk = [&](int k, int stage) {
-    const int c0 = k * CC;
-    RawA ra[A_STEPS];
-    RawW rw[W_STEPS];
-    float sc[CPL], sh[CPL];
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int gc = c0 + ch0 + j;
-      sc[j] = gc < C ? scale[gc] : 0.f;
-      sh[j] = gc < C ? shift[gc] : 0.f;
-    }
-#pragma unroll
-    for (int k2 = 0; k2 < A_STEPS; ++k2) {
-      if constexpr (VEC) {
-        ra[k2] = make_uint4(0, 0, 0, 0);  // c0 + ch0 + 8 <= ld: multiples of 8
-        if (off[k2] >= 0 && c0 + ch0 < C)
-          ra[k2] = *reinterpret_cast<const uint4*>(bb + off[k2] + c0 + ch0);
-      } else {
-        ra[k2] = __float2bfloat16(0.f);
-        if (off[k2] >= 0 && c0 + ch0 < C) ra[k2] = bb[off[k2] + c0 + ch0];
-      }
-    }
-#pragma unroll
-    for (int k2 = 0; k2 < W_STEPS; ++k2) {  // weight row (tap, c) = e
-      const int e = tid / LPW + k2 * (NT4 / LPW), c = e % CC, tap = e / CC;
-      const size_t p = ((size_t)tap * C + c0 + c) * F + f0;
-      const bool ok = e < 9 * CC && c0 + c < C && f0 < F;
-      if constexpr (VEC) rw[k2] = ok ? *reinterpret_cast<const unsigned*>(w + p) : 0u;
-      else rw[k2] = ok ? w[p] : __float2bfloat16(0.f);
-    }
-    const int nv = C - c0 - ch0;  // channels of this lane below C
-#pragma unroll
-    for (int k2 = 0; k2 < A_STEPS; ++k2) {
-      const int pos = tid / LP + k2 * (NT4 / LP);
-      if (pos >= N_HALO) continue;
-      const bool in = off[k2] >= 0;
-      if constexpr (VEC) {
-        const unsigned r[4] = {ra[k2].x, ra[k2].y, ra[k2].z, ra[k2].w};
-        unsigned o[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float2 x = bf2_to_f2(r[q]);
-          const float a0 = in && 2 * q < nv ? affine_relu(x.x, sc[2 * q], sh[2 * q]) : 0.f;
-          const float a1 = in && 2 * q + 1 < nv ? affine_relu(x.y, sc[2 * q + 1], sh[2 * q + 1]) : 0.f;
-          o[q] = f2_to_bf2(a0, a1);
-        }
-        *reinterpret_cast<uint4*>(&s_a[stage][pos * GP + ch0]) = make_uint4(o[0], o[1], o[2], o[3]);
-      } else {
-        const float a = in && nv > 0 ? affine_relu(__bfloat162float(ra[k2]), sc[0], sh[0]) : 0.f;
-        s_a[stage][pos * GP + ch0] = __float2bfloat16(a);
-      }
-    }
-#pragma unroll
-    for (int k2 = 0; k2 < W_STEPS; ++k2) {  // [tap][f][c]: transposed
-      const int e = tid / LPW + k2 * (NT4 / LPW), c = e % CC, tap = e / CC;
-      if (e >= 9 * CC) continue;
-      __nv_bfloat16* d = &s_w[stage][(tap * N4 + f0) * GP + c];
-      if constexpr (VEC) {
-        d[0] = __ushort_as_bfloat16((unsigned short)(rw[k2] & 0xffffu));
-        d[GP] = __ushort_as_bfloat16((unsigned short)(rw[k2] >> 16));
-      } else {
-        d[0] = rw[k2];
-      }
-    }
-  };
-
-  // The GEMM: warp w owns pixels [32w, 32w + 32) as two m16 tiles and the
-  // N4 output channels as two n8 tiles. Output pixel (r, x) of tap (ky, kx)
-  // reads the halo at (r + ky, x + kx); the tap's B is W[ky, kx, c0:c0+16,
-  // 0:16], [n][k] in shared memory as mma's col operand.
-  float acc[2][2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-  unsigned a_base[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {  // ldmatrix row: pixel lane % 16, k half lane / 16
-    const int m = warp * 32 + i * 16 + lane % 16;
-    a_base[i] = smem_addr(&s_a[0][((m / TW4) * HP + m % TW4) * GP + (lane / 16) * 8]);
-  }
-  // B rows: channel (lane / 16) * 8 + lane % 8, k half (lane / 8) % 2
-  const unsigned b_base =
-      smem_addr(&s_w[0][((lane / 16) * 8 + lane % 8) * GP + ((lane / 8) % 2) * 8]);
-  constexpr unsigned A_STAGE = 2 * HALO5 * GP, W_STAGE = 2 * 9 * N4 * GP;  // bytes
-
-  if (k_begin < k_end) stage_chunk(k_begin, 0);
-  __syncthreads();
-  for (int k = k_begin; k < k_end; ++k) {
-    const int stage = (k - k_begin) & 1;
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        unsigned a[2][4], b[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          ldmatrix_x4(a_base[i] + stage * A_STAGE + 2 * GP * (ky * HP + kx), a[i]);
-        ldmatrix_x4(b_base + stage * W_STAGE + 2 * GP * ((ky * 3 + kx) * N4), b);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) mma_bf16(acc[i][nt], a[i], b[2 * nt], b[2 * nt + 1]);
-      }
-    // the next chunk into the other stage, while this block's slower warps
-    // and the SM's other blocks run their MMAs: one barrier a chunk
-    if (k + 1 < k_end) stage_chunk(k + 1, stage ^ 1);
-    __syncthreads();
-  }
-
-  // Epilogue from the fragments: thread (g, t) = (lane / 4, lane % 4) holds
-  // pixels row0 + g (accumulators 0, 1) and row0 + 8 + g (2, 3) of each m16
-  // tile and the channel pair nt*8 + 2t + {0, 1}.
-  const int g = lane / 4, t = lane % 4;
-  if (gridDim.x > 1) {  // f32 partial y of this split, every pixel and channel
-    float* yp = ypart + (blockIdx.x * n_tiles + sb) * M4 * N4;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = warp * 32 + i * 16 + half * 8 + g;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-          *reinterpret_cast<float2*>(yp + m * N4 + nt * 8 + 2 * t) =
-              make_float2(acc[i][nt][2 * half], acc[i][nt][2 * half + 1]);
-      }
-    return;
-  }
-  // add the bias, store the rounded y as channel pairs at offset C, and sum
-  // y and y^2 of the stored values; channels >= F hold 0 and are not stored
-  float2 bv[2], s1[2], s2[2];
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const int f = nt * 8 + 2 * t;
-    bv[nt] = make_float2(f < F ? bias[f] : 0.f, f + 1 < F ? bias[f + 1] : 0.f);
-    s1[nt] = s2[nt] = make_float2(0.f, 0.f);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = warp * 32 + i * 16 + half * 8 + g;
-      if (!inside(m)) continue;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int f = nt * 8 + 2 * t;
-        const __nv_bfloat162 yv = __floats2bfloat162_rn(acc[i][nt][2 * half] + bv[nt].x,
-                                                        acc[i][nt][2 * half + 1] + bv[nt].y);
-        if constexpr (VEC) {
-          if (f < F) *reinterpret_cast<__nv_bfloat162*>(bb + row(m) + C + f) = yv;
-        } else {
-          if (f < F) bb[row(m) + C + f] = yv.x;
-          if (f + 1 < F) bb[row(m) + C + f + 1] = yv.y;
-        }
-        const float2 y = __bfloat1622float2(yv);
-        s1[nt].x += y.x;
-        s1[nt].y += y.y;
-        s2[nt].x = fmaf(y.x, y.x, s2[nt].x);
-        s2[nt].y = fmaf(y.y, y.y, s2[nt].y);
-      }
-    }
-  // over the 8 lanes of one channel, then over the warps in order
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float a = j ? s1[nt].y : s1[nt].x, d = j ? s2[nt].y : s2[nt].x;
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        a += __shfl_xor_sync(0xffffffffu, a, o);
-        d += __shfl_xor_sync(0xffffffffu, d, o);
-      }
-      if (g == 0) {
-        const int f = nt * 8 + 2 * t + j;
-        s_red[(warp * 2) * N4 + f] = a;
-        s_red[(warp * 2 + 1) * N4 + f] = d;
-      }
-    }
-  __syncthreads();
-  if (tid < 2 * F) {
-    const int k = tid / F, f = tid % F;
-    float s = 0.f;
-    for (int i = 0; i < NT4 / 32; ++i) s += s_red[(i * 2 + k) * N4 + f];
-    part[(k * n_tiles + sb) * F + f] = s;
-  }
-}
-
-// K4's second pass when the chunks were split: per tile (blockIdx.x, image
-// blockIdx.y), thread m sums pixel m's partial y over the splits in order,
-// adds the bias, stores the rounded y and the tile's sums as above.
-__global__ void __launch_bounds__(M4) fwd_finish_kernel(
-    __nv_bfloat16* buf, const float* __restrict__ bias,
-    const float* __restrict__ ypart, float* __restrict__ part, int H, int W,
-    int C, int F, int ld, int n_split, int tile_w) {
-  __shared__ float s_red[2 * (M4 / 32) * N4];
-  const int m = threadIdx.x, warp = m / 32, lane = m % 32;
-  const int tiles_w = (W + tile_w - 1) / tile_w;
-  const int gh = (blockIdx.x / tiles_w) * (M4 / tile_w) + m / tile_w;
-  const int gw = (blockIdx.x % tiles_w) * tile_w + m % tile_w;
-  const size_t n_tiles = (size_t)gridDim.y * gridDim.x;
-  const size_t sb = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  float y[N4];
-#pragma unroll
-  for (int f = 0; f < N4; ++f) y[f] = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float4* p = reinterpret_cast<const float4*>(ypart + ((s * n_tiles + sb) * M4 + m) * N4);
-#pragma unroll
-    for (int q = 0; q < N4 / 4; ++q) {
-      const float4 v = p[q];
-      y[4 * q] += v.x;
-      y[4 * q + 1] += v.y;
-      y[4 * q + 2] += v.z;
-      y[4 * q + 3] += v.w;
-    }
-  }
-  const bool in = gh < H && gw < W;
-  __nv_bfloat16* yp = buf + ((size_t)blockIdx.y * H * W + (size_t)gh * W + gw) * ld + C;
-#pragma unroll
-  for (int f = 0; f < N4; ++f) {
-    float a = 0.f, d = 0.f;
-    if (in && f < F) {
-      const __nv_bfloat16 yv = __float2bfloat16(y[f] + bias[f]);
-      yp[f] = yv;
-      a = __bfloat162float(yv);
-      d = a * a;
-    }
-    a = warp_sum(a);
-    d = warp_sum(d);
-    if (lane == 0) {
-      s_red[(warp * 2) * N4 + f] = a;
-      s_red[(warp * 2 + 1) * N4 + f] = d;
-    }
-  }
-  __syncthreads();
-  if (m < 2 * F) {
-    const int k = m / F, f = m % F;
-    float s = 0.f;
-    for (int i = 0; i < M4 / 32; ++i) s += s_red[(i * 2 + k) * N4 + f];
-    part[(k * n_tiles + sb) * F + f] = s;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K6: weight gradients of one layer
 
 template <int FP>
@@ -1233,8 +867,6 @@ cudaError_t launch_fwd_f32(void* buf, const float* scale, const float* shift,
   return cudaGetLastError();
 }
 
-bool mma_tile_width(int tw) { return tw == 32 || tw == 16 || tw == 8; }
-
 // the 16-byte path of the bf16 kernels: rows of buf (and grad) 16-byte
 // aligned, even C and F, the weights' channel pairs 4-byte aligned
 bool vec_path(const void* buf, const void* grad, const void* w, int C, int F,
@@ -1249,23 +881,11 @@ cudaError_t launch_fwd_mma(void* buf, const float* scale, const float* shift,
                            const void* w, const float* bias, float* part,
                            float* ypart, int B, int H, int W, int C, int F,
                            int ld, int n_split, int tile_w, cudaStream_t s) {
-  const int tiles_img = tiles(H, M4 / tile_w) * tiles(W, tile_w);
-  const dim3 grid(n_split, tiles_img, B);
   auto* b = static_cast<__nv_bfloat16*>(buf);
-  auto* wt = static_cast<const __nv_bfloat16*>(w);
-  switch (tile_w + vec_path(buf, buf, w, C, F, ld)) {
-    case 33: fwd_mma_kernel<5, true><<<grid, NT4, 0, s>>>(b, scale, shift, wt, bias, part, ypart, H, W, C, F, ld); break;
-    case 32: fwd_mma_kernel<5, false><<<grid, NT4, 0, s>>>(b, scale, shift, wt, bias, part, ypart, H, W, C, F, ld); break;
-    case 17: fwd_mma_kernel<4, true><<<grid, NT4, 0, s>>>(b, scale, shift, wt, bias, part, ypart, H, W, C, F, ld); break;
-    case 16: fwd_mma_kernel<4, false><<<grid, NT4, 0, s>>>(b, scale, shift, wt, bias, part, ypart, H, W, C, F, ld); break;
-    case 9: fwd_mma_kernel<3, true><<<grid, NT4, 0, s>>>(b, scale, shift, wt, bias, part, ypart, H, W, C, F, ld); break;
-    default: fwd_mma_kernel<3, false><<<grid, NT4, 0, s>>>(b, scale, shift, wt, bias, part, ypart, H, W, C, F, ld); break;
-  }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return err;
-  fwd_finish_kernel<<<dim3(tiles_img, B), M4, 0, s>>>(b, bias, ypart, part, H, W, C, F,
-                                                      ld, n_split, tile_w);
-  return cudaGetLastError();
+  return launch_conv3x3_fwd_mma<true, false>(
+      b, ld, scale, shift, static_cast<const __nv_bfloat16*>(w), bias, b + C, ld,
+      part, ypart, B, H, W, C, F, n_split, tile_w, vec_path(buf, buf, w, C, F, ld) ? 8 : 1,
+      s);
 }
 
 // f32 K5 (FFMA); bf16 goes to launch_dinput_mma
@@ -1382,8 +1002,8 @@ int block_engine_fwd(int dtype, void* buf, const void* scale,
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && (!mma_tile_width(tile_w) || n_split < 1 ||
                      n_split > tiles(C, CC) || n_split > 65535 ||
-                     tiles(H, M4 / tile_w) * tiles(W, tile_w) > 65535 ||
-                     n_part != B * tiles(H, M4 / tile_w) * tiles(W, tile_w) ||
+                     tiles(H, MMA_PIXELS / tile_w) * tiles(W, tile_w) > 65535 ||
+                     n_part != B * tiles(H, MMA_PIXELS / tile_w) * tiles(W, tile_w) ||
                      (long long)H * W * ld > INT_MAX))
     return (int)cudaErrorInvalidValue;
   const float* sc = static_cast<const float*>(scale);

@@ -3,8 +3,10 @@
 Each library is compiled by ``nvcc`` into a plain-C-interface ``.so`` and
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
 output lives in ``<checkout>/build/kernels/``, keyed by a hash of the
-sources and the flags, so a changed source or flag builds anew and an
-unchanged one is loaded from disk. ``ptxas``'s register and spill report
+sources, of every header in ``csrc/`` (``*.cuh``, which a source may
+include and nvcc is not given as a source) and of the flags, so a changed
+source, header or flag builds anew and an unchanged one is loaded from
+disk. ``ptxas``'s register and spill report
 (``-Xptxas -v``) is kept beside the library as ``<name>-<key>.log``.
 """
 from __future__ import annotations
@@ -36,8 +38,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str, sources) -> Path:
     digest = hashlib.sha256()
-    for src in sources:
-        digest.update((CSRC / src).read_bytes())
+    for src in [*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))]:
+        digest.update(src.encode() + b"\0" + (CSRC / src).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

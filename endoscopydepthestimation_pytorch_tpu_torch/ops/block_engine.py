@@ -240,19 +240,19 @@ def _mma_tile(h: int, w: int) -> Tuple[int, int]:
                key=lambda t: _ceil(h, t[0]) * t[0] * _ceil(w, t[1]) * t[1])
 
 
-def forward_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
-                   ) -> Tuple[int, int, int]:
+def forward_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int,
+                   split_below: int = SPLIT_BELOW) -> Tuple[int, int, int]:
     """K4's (tile_h, tile_w, n_split) for a (b, h, w) image with prefix c:
     in bf16, the 256-pixel tile of ``_mma_tile``, and where the tiles are
-    fewer than ``SPLIT_BELOW``, the 16-channel chunks split evenly across
+    fewer than ``split_below``, the 16-channel chunks split evenly across
     about ``FORWARD_BLOCKS`` blocks (measured on an H100: faster at 32x40
     and below with 2B = 16, slower at 64x80's 320 tiles); in f32, 16x32
-    tiles."""
+    tiles. K1 runs the same kernel with its own threshold."""
     if dtype != torch.bfloat16:
         return TILE_H, TILE_W, 1
     tile_h, tile_w = _mma_tile(h, w)
     n_part = _n_part(b, h, w, tile_h, tile_w)
-    if n_part >= SPLIT_BELOW:
+    if n_part >= split_below:
         return tile_h, tile_w, 1
     return tile_h, tile_w, min(_ceil(c, CHUNK), _ceil(FORWARD_BLOCKS, n_part))
 

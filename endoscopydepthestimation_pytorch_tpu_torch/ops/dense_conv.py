@@ -10,7 +10,10 @@ zero-copy ``permute(0, 2, 3, 1)``.
 
 On a CUDA tensor the forward launches the hand-written kernel in
 ``csrc/dense_conv.cu`` (built at first use, see ``ops/_build.py``) or
-raises; on a CPU tensor it runs the plain PyTorch version
+raises: in bf16 the tensor-core implicit GEMM of ``csrc/conv3x3_mma.cuh``
+(shared with the block engine's K4) in the tiles, chunk split and vector
+width that ``forward_tiling`` and ``vector_width`` pick; in f32 a direct
+convolution on FFMAs. On a CPU tensor it runs the plain PyTorch version
 ``fused_dense_conv_reference``. The op is differentiable through
 ``FusedDenseConv``, whose backward mirrors the JAX package's
 ``_fused_bwd`` (dense_conv.py:288-302): it recomputes the activation from
@@ -20,14 +23,16 @@ card), as JAX leaves them to XLA.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, block_engine
 
 LAUNCHES = 0  # kernel launches of fused_dense_conv in this process
 MAX_FEATURES = 16  # the kernel's compiled maximum of output channels
+SPLIT_BELOW = 256  # bf16 K1 splits its channel chunks below this many tiles
 _SOURCES = ("dense_conv.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -35,12 +40,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _library() -> ctypes.CDLL:
     lib = _build.load("dense_conv", _SOURCES)
     if lib.dense_conv_fwd.argtypes is None:
-        lib.dense_conv_fwd.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-            + [ctypes.c_void_p])
-        lib.dense_conv_fwd.restype = ctypes.c_int
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.dense_conv_fwd.argtypes = [i] + [p] * 7 + [i] * 8 + [p]
+        lib.dense_conv_fwd.restype = i
         lib.dense_conv_max_features.argtypes = []
-        lib.dense_conv_max_features.restype = ctypes.c_int
+        lib.dense_conv_max_features.restype = i
         if lib.dense_conv_max_features() != MAX_FEATURES:
             raise RuntimeError("dense_conv library and wrapper disagree on "
                                "the maximum feature count")
@@ -68,6 +72,51 @@ def fused_dense_conv_reference(x: torch.Tensor, scale: torch.Tensor,
     wt = w.permute(3, 2, 0, 1).to(x.dtype)
     b = None if bias is None else bias.to(x.dtype)
     return F.conv2d(a, wt, b, padding=1).permute(0, 2, 3, 1)
+
+
+def fused_dense_conv_twin(x: torch.Tensor, scale: torch.Tensor,
+                          shift: torch.Tensor, w: torch.Tensor,
+                          bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The bf16 kernel's tight twin: the activation in f32 rounded to
+    ``x.dtype`` as in the plain version, then the conv of those rounded
+    operands and of ``w`` summed in f32, plus the f32 bias, rounded to
+    ``x.dtype`` once. (The plain version convolves and adds the bias in
+    ``x.dtype``, another rounding; in f32 the two agree.) Same faces as
+    ``fused_dense_conv_reference``."""
+    xn = x.permute(0, 3, 1, 2)
+    a = torch.relu(xn.float() * scale.float()[:, None, None]
+                   + shift.float()[:, None, None]).to(x.dtype).float()
+    b = None if bias is None else bias.float()
+    y = F.conv2d(a, w.permute(3, 2, 0, 1).float(), b, padding=1)
+    return y.to(x.dtype).permute(0, 2, 3, 1)
+
+
+def forward_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
+                   ) -> Tuple[int, int, int]:
+    """K1's (tile_h, tile_w, n_split) for x (b, h, w, c): the block
+    engine's K4 tiling (the kernel is K4's: 256-pixel tiles in bf16, the
+    16-channel chunks split across ~256 blocks where the tiles are few;
+    16x32 tiles in f32) with K1's own split threshold ``SPLIT_BELOW``.
+    Measured on an H100 at FCDenseNet-57's levels at batch 1 and 8: the
+    split is faster at every level of up to 160 tiles (by 3% at 160, b8
+    64x80, and 2-3x at <= 20 tiles), so K1 splits below 256 tiles where
+    K4, measured at 2B = 16, splits below 132."""
+    return block_engine.forward_tiling(dtype, b, h, w, c, split_below=SPLIT_BELOW)
+
+
+def vector_width(dtype: torch.dtype, c: int, f: int, x_ptr: int, w_ptr: int,
+                 y_ptr: int) -> int:
+    """How many bf16 channels a lane of the bf16 kernel loads at once from
+    x's rows: 8 (16-byte vectors) where c % 8 == 0, 4 (8-byte vectors)
+    where c % 4 == 0, with x aligned to the vector, F even and w and y
+    4-byte aligned (the weights and y move as channel pairs); else 1. A
+    vector then never runs past c into the next pixel. 1 in f32."""
+    if dtype != torch.bfloat16 or f % 2 or w_ptr % 4 or y_ptr % 4:
+        return 1
+    for vw in (8, 4):
+        if c % vw == 0 and x_ptr % (2 * vw) == 0:
+            return vw
+    return 1
 
 
 def _check(x, scale, shift, w, bias) -> None:
@@ -109,15 +158,25 @@ def _forward(x, scale, shift, w, bias) -> torch.Tensor:
     b, h, wd, c = x.shape
     f = w.shape[3]
     y = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
+    tile_h, tile_w, n_split = forward_tiling(x.dtype, b, h, wd, c)
+    vw = vector_width(x.dtype, c, f, x.data_ptr(), w.data_ptr(), y.data_ptr())
+    # split chunks: the blocks' f32 partial y, summed in order by a second pass
+    ypart = (torch.empty((n_split, block_engine._n_part(b, h, wd, tile_h, tile_w),
+                          block_engine.MMA_PIXELS, MAX_FEATURES),
+                         dtype=torch.float32, device=x.device)
+             if n_split > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().dense_conv_fwd(
             _DTYPES[x.dtype], x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             w.data_ptr(), None if bias is None else bias.data_ptr(),
-            y.data_ptr(), b, h, wd, c, f, stream)
+            y.data_ptr(), None if ypart is None else ypart.data_ptr(),
+            b, h, wd, c, f, n_split, tile_w, vw, stream)
     if rc != 0:
         raise RuntimeError(f"dense_conv_fwd launch failed: CUDA error {rc} "
-                           f"for x {tuple(x.shape)} {x.dtype}, F = {f}")
+                           f"for x {tuple(x.shape)} {x.dtype}, F = {f}, "
+                           f"tiling {(tile_h, tile_w, n_split)}, {vw} channels "
+                           f"a lane")
     LAUNCHES += 1
     return y
 
@@ -166,7 +225,12 @@ def fused_dense_conv(x: torch.Tensor, scale: torch.Tensor,
     x (B, H, W, C) contiguous, float32 or bfloat16; scale, shift (C,) and
     bias (F,) float32; w (3, 3, C, F) in x's dtype with F <= MAX_FEATURES.
     Returns y (B, H, W, F) contiguous, in x's dtype. Differentiable in all
-    five inputs (``FusedDenseConv``).
+    five inputs (``FusedDenseConv``); where no gradient is wanted (serving)
+    the forward runs without the autograd node and its host cost.
     """
     _check(x, scale, shift, w, bias)
-    return FusedDenseConv.apply(x, scale, shift, w, bias)
+    inputs = (x, scale, shift, w, bias)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in inputs):
+        return FusedDenseConv.apply(*inputs)
+    return _forward(*inputs)

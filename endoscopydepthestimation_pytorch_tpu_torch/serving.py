@@ -29,12 +29,13 @@ class DepthPredictor:
 
     ``sequence`` supplies the crop box and the boundary mask (a
     ``SequenceData``). Parameters and BN statistics stay float32 on
-    ``device``; activations run in ``dtype``.
+    ``device`` (the CUDA card unless the caller asks for another, such as
+    ``"cpu"``); activations run in ``dtype``.
     """
 
     def __init__(self, checkpoint_path, sequence: preprocess.SequenceData,
                  batch_size: int = 1, downsampling: float = 4.0, *,
-                 device, dtype: torch.dtype = torch.bfloat16):
+                 device="cuda", dtype: torch.dtype = torch.bfloat16):
         self.sequence = sequence
         self.batch_size = batch_size
         self.downsampling = downsampling

@@ -72,6 +72,139 @@ def test_kernel_matches_plain_bf16(device, b, h, w, c, f):
     assert rel <= 1e-2, rel
 
 
+# (B, H, W, Cin, F) -> (tile_w, channels a lane loads, split): every bf16
+# K1 instantiation (tile width 32, 16, 8 x 16-byte, 8-byte and scalar halo
+# loads) with its chunks split and in one pass. C % 8 == 0 takes 16-byte
+# vectors, C = 4 mod 8 8-byte ones, odd C or F scalars
+K1_MMA_SHAPES = {
+    (8, 128, 160, 96, 12): (32, 8, False), (1, 128, 160, 96, 12): (32, 8, True),
+    (8, 128, 160, 108, 12): (32, 4, False), (4, 16, 24, 44, 12): (32, 4, True),
+    (8, 128, 160, 37, 12): (32, 1, False), (1, 16, 20, 96, 5): (32, 1, True),
+    (8, 128, 144, 144, 12): (16, 8, False), (1, 64, 80, 144, 12): (16, 8, True),
+    (8, 128, 144, 156, 12): (16, 4, False), (1, 64, 80, 156, 12): (16, 4, True),
+    (8, 128, 144, 33, 12): (16, 1, False), (2, 64, 80, 37, 12): (16, 1, True),
+    (8, 128, 72, 192, 12): (8, 8, False), (1, 32, 40, 192, 12): (8, 8, True),
+    (8, 128, 72, 60, 12): (8, 4, False), (2, 64, 72, 60, 12): (8, 4, True),
+    (8, 128, 72, 7, 5): (8, 1, False), (2, 64, 72, 37, 12): (8, 1, True),
+}
+
+
+def _bf16_close(got, args, bias=None):
+    """The bf16 K1 against its tight twin (the same bf16 operands, f32
+    sums in another order, one rounding: a stored value moves only where
+    that order crosses a rounding edge) and against the plain version
+    (cuDNN's bf16 conv and bias, another rounding)."""
+    x, scale, shift, wk = args[:4]
+    out = []
+    for plain, limit in ((dense_conv.fused_dense_conv_twin, 1e-4),
+                         (dense_conv.fused_dense_conv_reference, 1e-2)):
+        ref = plain(x, scale, shift, wk, bias).float()
+        rel = ((got.float() - ref).abs().mean() / ref.abs().mean()).item()
+        out.append(rel <= limit)
+    return all(out) and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("b,h,w,c,f", list(K1_MMA_SHAPES))
+def test_bf16_kernel_instantiations_match_twins(device, b, h, w, c, f):
+    x, scale, shift, wk, bias = _inputs(b, h, w, c, f, torch.bfloat16, device)
+    tile_w, vw, split = K1_MMA_SHAPES[(b, h, w, c, f)]
+    tiling = dense_conv.forward_tiling(torch.bfloat16, b, h, w, c)
+    assert (tiling[1], tiling[2] > 1) == (tile_w, split)
+    assert dense_conv.vector_width(torch.bfloat16, c, f, x.data_ptr(), wk.data_ptr(),
+                                   0) == vw
+    before = dense_conv.LAUNCHES
+    got = dense_conv.fused_dense_conv(x, scale, shift, wk, bias)
+    torch.cuda.synchronize()
+    assert dense_conv.LAUNCHES == before + 1
+    assert got.shape == (b, h, w, f) and got.dtype == torch.bfloat16
+    assert _bf16_close(got, (x, scale, shift, wk), bias)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(1, 64, 80, 156), (8, 64, 80, 144), (2, 17, 33, 7)])
+def test_bf16_kernel_without_bias(device, b, h, w, c):
+    x, scale, shift, wk, _ = _inputs(b, h, w, c, 12, torch.bfloat16, device, seed=6)
+    got = dense_conv.fused_dense_conv(x, scale, shift, wk)
+    torch.cuda.synchronize()
+    assert _bf16_close(got, (x, scale, shift, wk))
+
+
+@pytest.mark.parametrize("c", [96, 60, 37])
+def test_bf16_kernel_reads_nothing_past_its_tensors(device, c):
+    """x, w, scale and shift each end an allocation, whose tail in a
+    larger buffer holds NaN: a halo vector running past C into the next
+    pixel is zeroed by the select, but one running past the tensor (or a
+    weight or affine read past C) would bring NaN or fault. Also a base
+    only 2-byte aligned, which must take the scalar path."""
+    b, h, w, f = 2, 24, 40, 12
+    args = _inputs(b, h, w, c, f, torch.bfloat16, device, seed=7)
+
+    def at_head(t):  # t's values at the head of a NaN-tailed buffer
+        buf = torch.full((t.numel() + 64,), float("nan"), dtype=t.dtype, device=device)
+        buf[:t.numel()] = t.flatten()
+        return buf[:t.numel()].view(t.shape)
+
+    x, scale, shift, wk, bias = [at_head(t) for t in args]
+    got = dense_conv.fused_dense_conv(x, scale, shift, wk, bias)
+    exact = dense_conv.fused_dense_conv(*(t.clone() for t in args))
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+    buf[1:] = x.flatten()
+    odd = buf[1:].view(x.shape)  # 2-byte aligned: scalar loads
+    assert dense_conv.vector_width(torch.bfloat16, c, f, odd.data_ptr(), wk.data_ptr(),
+                                   0) == 1
+    got_odd = dense_conv.fused_dense_conv(odd, scale, shift, wk, bias)
+    torch.cuda.synchronize()
+    assert _bf16_close(got, args[:4], args[4])
+    assert torch.equal(got, exact)
+    assert torch.equal(got_odd, got)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 80, 156, 12), (8, 128, 144, 144, 12)],
+                         ids=["split", "one-pass"])
+def test_bf16_kernel_is_deterministic(device, shape):
+    """Two bf16 K1 launches on the same inputs give bitwise-equal y, with
+    its chunks split across blocks and without: the split's partials are
+    summed in a fixed order, no atomics."""
+    args = _inputs(*shape, torch.bfloat16, device, seed=8)
+    runs = [dense_conv.fused_dense_conv(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+
+
+def test_bf16_kernel_under_memcheck(device):
+    """A small bf16 K1 call on each halo path, split and in one pass, with
+    every tensor at its allocation's end, under ``compute-sanitizer --tool
+    memcheck``: no out-of-bounds or misaligned access. Skips where the
+    toolkit lacks the sanitizer or it cannot attach to the card."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from endoscopydepthestimation_pytorch_tpu_torch.ops import _build
+    tool = Path(_build.nvcc_path()).parent / "compute-sanitizer"
+    if not tool.exists():
+        pytest.skip(f"no {tool}")
+    dense_conv._library()  # built here, not under the sanitizer
+    code = (
+        "import torch\n"
+        "from endoscopydepthestimation_pytorch_tpu_torch.ops import dense_conv\n"
+        "for b, h, w, c, f in [(1, 24, 40, 96, 12), (1, 24, 40, 60, 12), (1, 24, 40, 37, 5),\n"
+        "                      (8, 64, 80, 60, 12)]:\n"
+        "    g = torch.Generator().manual_seed(0)\n"
+        "    x = torch.randn(b, h, w, c, generator=g).bfloat16().cuda()\n"
+        "    wk = (torch.randn(3, 3, c, f, generator=g) * 0.1).bfloat16().cuda()\n"
+        "    y = dense_conv.fused_dense_conv(x, torch.ones(c).cuda(), torch.zeros(c).cuda(),\n"
+        "                                    wk, torch.zeros(f).cuda())\n"
+        "    torch.cuda.synchronize()\n"
+        "    assert torch.isfinite(y).all()\n")
+    out = subprocess.run([str(tool), "--tool", "memcheck", sys.executable, "-c", code],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    text = out.stdout + out.stderr
+    if "ERROR SUMMARY" not in text or "Device not supported" in text:
+        pytest.skip(f"compute-sanitizer cannot check this card: {text[:300]}")
+    assert "ERROR SUMMARY: 0 errors" in text and out.returncode == 0, text[-3000:]
+
+
 def test_border_is_zero_after_activation(device):
     """shift > 0 everywhere: a kernel that padded with relu(shift) would
     differ from the plain version on the image border."""
@@ -399,8 +532,10 @@ def test_dinput_check_catches_a_kernel_that_drops_the_old_gradient(
     mutant_src = tmp_path / "block_engine.cu"
     mutant_src.write_text(source.replace(store, "__fmul_rn(d0, sc.x), __fmul_rn(d1, sc.y)"))
     mutant_lib = tmp_path / "block_engine_mutant.so"
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(mutant_lib),
-                    str(mutant_src)], check=True, capture_output=True)
+    # the copy includes the shared header from the package's csrc
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                    "-o", str(mutant_lib), str(mutant_src)], check=True,
+                   capture_output=True)
     mutant = block_engine.bind(ctypes.CDLL(str(mutant_lib)))
 
     b, h, w, c, f, extra = ENGINE_SHAPES[3]

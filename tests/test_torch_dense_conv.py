@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from endoscopydepthestimation_pytorch_tpu.ops import dense_conv as jax_dense_conv
-from endoscopydepthestimation_pytorch_tpu_torch.ops import dense_conv
+from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine, dense_conv
 
 torch.set_num_threads(2)
 torch.backends.cudnn.allow_tf32 = False
@@ -153,6 +153,107 @@ def test_backward_keeps_nhwc_and_masks_dead_units():
     dx, dscale, dshift, _ = torch.autograd.grad(y.sum(), leaves)
     assert dx.is_contiguous() and dx.shape == (2, 6, 9, 5)
     assert (dx[..., 0] == 0).all() and dscale[0] == 0 and dshift[0] == 0
+
+
+# FCDenseNet-57's dense layers by level at 256x320: (h, w) -> (the bf16
+# tile, the first and last layer's C); the bottleneck runs at 8x10
+LEVELS = {(256, 320): ((8, 32), 48, 180), (128, 160): ((8, 32), 96, 228),
+          (64, 80): ((16, 16), 144, 276), (32, 40): ((32, 8), 192, 324),
+          (16, 20): ((8, 32), 240, 372), (8, 10): ((8, 32), 288, 324)}
+# the wrapper's split of each level's first and last layer, by batch
+SPLITS = {1: {(256, 320): (1, 1), (128, 160): (4, 4), (64, 80): (9, 13),
+              (32, 40): (12, 21), (16, 20): (15, 24), (8, 10): (18, 21)},
+          8: {(256, 320): (1, 1), (128, 160): (1, 1), (64, 80): (2, 2),
+              (32, 40): (7, 7), (16, 20): (15, 16), (8, 10): (18, 21)},
+          16: {(256, 320): (1, 1), (128, 160): (1, 1), (64, 80): (1, 1),
+               (32, 40): (4, 4), (16, 20): (8, 8), (8, 10): (16, 16)}}
+
+
+@pytest.mark.parametrize("batch", [1, 8, 16])
+def test_forward_tiling(batch):
+    """The bf16 K1's tile, chunk split and halo vector width at every one of
+    FCDenseNet-57's 44 layer shapes (256x320): the 256-pixel tile of the
+    block engine's kernel; below SPLIT_BELOW tiles the 16-channel chunks
+    split across ~FORWARD_BLOCKS blocks; 16-byte vectors where C % 8 == 0
+    and 8-byte vectors where C = 4 mod 8 (22 of the 44 layers), on aligned
+    tensors. In f32, 16x32 tiles, no split, scalar loads."""
+    import chip_smoke
+    shapes = chip_smoke.dense_layer_shapes(256, 320)
+    widths = []
+    for h, w, c in shapes:
+        tile_h, tile_w, n_split = dense_conv.forward_tiling(torch.bfloat16, batch, h, w, c)
+        tile, c_first, c_last = LEVELS[(h, w)]
+        assert (tile_h, tile_w) == tile
+        n_tiles = batch * -(-h // tile_h) * -(-w // tile_w)
+        assert n_split == (1 if n_tiles >= dense_conv.SPLIT_BELOW else min(
+            -(-c // 16), -(-block_engine.FORWARD_BLOCKS // n_tiles)))
+        if c in (c_first, c_last):
+            assert n_split == SPLITS[batch][(h, w)][c == c_last], (h, w, c)
+        assert 1 <= n_split <= -(-c // 16)
+        widths.append(dense_conv.vector_width(torch.bfloat16, c, 12, 512, 256, 1024))
+        assert widths[-1] == (8 if c % 8 == 0 else 4)
+        assert dense_conv.forward_tiling(torch.float32, batch, h, w, c) == (16, 32, 1)
+        assert dense_conv.vector_width(torch.float32, c, 12, 512, 256, 1024) == 1
+    assert widths.count(4) == 22 and widths.count(8) == 22
+
+
+@pytest.mark.parametrize("case,want", [
+    ("aligned_c8", 8), ("aligned_c4", 4), ("odd_c", 1), ("c_2_mod_4", 1),
+    ("odd_f", 1), ("x_8_byte_aligned_c8", 4), ("x_2_byte_aligned", 1),
+    ("w_misaligned", 1), ("y_misaligned", 1)])
+def test_vector_width(case, want):
+    """The bf16 halo's vector width: a vector of vw channels needs C a
+    multiple of vw (so that it never runs past C into the next pixel) and
+    x aligned to 2*vw bytes; the channel-pair weights and y need F even
+    and 4-byte alignment. Anything else takes scalar loads."""
+    c, f, x, w, y = {"aligned_c8": (96, 12, 0, 0, 0), "aligned_c4": (60, 12, 0, 0, 0),
+                     "odd_c": (37, 12, 0, 0, 0), "c_2_mod_4": (50, 12, 0, 0, 0),
+                     "odd_f": (96, 5, 0, 0, 0), "x_8_byte_aligned_c8": (96, 12, 8, 0, 0),
+                     "x_2_byte_aligned": (96, 12, 2, 0, 0),
+                     "w_misaligned": (96, 12, 0, 2, 0), "y_misaligned": (96, 12, 0, 0, 2)}[case]
+    assert dense_conv.vector_width(torch.bfloat16, c, f, 4096 + x, 8192 + w, 16384 + y) == want
+
+
+@pytest.mark.parametrize("b,h,w,c,f,bias", [
+    (8, 16, 32, 20, 12, True),
+    (8, 32, 40, 60, 12, False),
+    (16, 8, 16, 7, 5, True),
+])
+def test_twin_matches_pallas_kernel(b, h, w, c, f, bias):
+    """The bf16 kernel's tight twin computes the op: in f32 it matches
+    JAX's fused_dense_conv (the Pallas kernel in interpret mode), plus the
+    bias; in bf16 it is that f32 result of the rounded operands, rounded
+    once."""
+    x, scale, shift, wk = _inputs(b, h, w, c, f, seed=12)
+    bv = np.linspace(-1, 1, f).astype(np.float32) if bias else None
+    ref = np.asarray(jax_dense_conv.fused_dense_conv(*map(jnp.asarray, (x, scale, shift, wk))))
+    t = [torch.from_numpy(a) for a in (x, scale, shift, wk)]
+    tb = None if bv is None else torch.from_numpy(bv)
+    got = dense_conv.fused_dense_conv_twin(*t, tb)
+    np.testing.assert_allclose(got.numpy(), ref + (0 if bv is None else bv),
+                               rtol=1e-5, atol=1e-5)
+    x16, w16 = t[0].bfloat16(), t[3].bfloat16()
+    got16 = dense_conv.fused_dense_conv_twin(x16, t[1], t[2], w16, tb)
+    a = torch.relu(x16.float() * t[1] + t[2]).bfloat16().float()
+    want = dense_conv.fused_dense_conv_twin(a, torch.ones(c), torch.zeros(c), w16.float(), tb)
+    assert got16.dtype == torch.bfloat16
+    assert torch.equal(got16, want.bfloat16())
+
+
+def test_forward_without_grad_skips_the_autograd_node():
+    """Serving (no gradient wanted) calls the forward directly; with a
+    gradient wanted the op is the autograd node; the values agree."""
+    x, scale, shift, wk = map(torch.from_numpy, _inputs(2, 6, 7, 20, 12, seed=13))
+    bias = torch.linspace(-1, 1, 12)
+    with torch.inference_mode():
+        served = dense_conv.fused_dense_conv(x, scale, shift, wk, bias)
+    assert served.grad_fn is None
+    leaf = wk.clone().requires_grad_()
+    trained = dense_conv.fused_dense_conv(x, scale, shift, leaf, bias)
+    assert type(trained.grad_fn).__name__ == "FusedDenseConvBackward"
+    assert torch.equal(served, trained.detach())
+    with torch.no_grad():
+        assert dense_conv.fused_dense_conv(x, scale, shift, leaf, bias).grad_fn is None
 
 
 def test_port_imports_no_jax():

@@ -93,6 +93,26 @@ def test_prepare_matches_jax_on_image_files(predictors, tmp_path):
     np.testing.assert_array_equal(got.prepare(path), want.prepare(path))
 
 
+def test_predictor_runs_on_the_card_unless_asked_for_the_cpu(checkpoint):
+    """``device`` defaults to the CUDA card; ``device="cpu"`` is honoured.
+    Without a card the default refuses to build the predictor rather than
+    falling back to the CPU."""
+    import inspect
+    default = inspect.signature(serving.DepthPredictor).parameters["device"].default
+    assert torch.device(default).type == "cuda"
+    sequence = chip_smoke.synthetic_sequence(H, W)
+    cpu = serving.DepthPredictor(checkpoint, sequence, downsampling=1.0, device="cpu",
+                                 dtype=torch.float32)
+    assert cpu.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in cpu.model.parameters())
+    if torch.cuda.is_available():
+        card = serving.DepthPredictor(checkpoint, sequence, downsampling=1.0)
+        assert card.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            serving.DepthPredictor(checkpoint, sequence, downsampling=1.0)
+
+
 def test_chip_smoke_serving_phase_on_cpu(checkpoint):
     before = dense_conv.LAUNCHES
     out = chip_smoke.serving_phase(checkpoint, "cpu", torch.float32, H, W,
