@@ -90,8 +90,8 @@ from endoscopydepthestimation_pytorch_tpu_torch import training
 from endoscopydepthestimation_pytorch_tpu_torch.data import SequenceData
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
     FCDenseNet57, init_weights, save_reference_checkpoint)
-from endoscopydepthestimation_pytorch_tpu_torch.ops import (block_engine, dense_conv,
-                                                          warp_sample)
+from endoscopydepthestimation_pytorch_tpu_torch.ops import (block_engine, conv3x3_mma,
+                                                          dense_conv, warp_sample)
 from endoscopydepthestimation_pytorch_tpu_torch.serving import DepthPredictor
 
 CSRC = "endoscopydepthestimation_pytorch_tpu_torch/csrc/"
@@ -401,10 +401,10 @@ def k1_split_phase(card: str, batches=(1, 8), height: int = 256, width: int = 32
             shift = torch.randn(c, generator=g, device="cuda") * 0.3
             wk = (torch.randn(3, 3, c, 12, generator=g, device="cuda") * 0.05).bfloat16()
             bias = torch.randn(12, generator=g, device="cuda") * 0.1
-            tile = block_engine._mma_tile(h, w)
-            n_tiles = batch * -(-h // tile[0]) * -(-w // tile[1])
-            n_split = min(-(-c // block_engine.CHUNK),
-                          -(-block_engine.FORWARD_BLOCKS // n_tiles))
+            tile = conv3x3_mma.mma_tile(h, w)
+            n_tiles = conv3x3_mma.n_tiles(batch, h, w, *tile)
+            n_split = min(-(-c // conv3x3_mma.CHUNK),
+                          -(-conv3x3_mma.FORWARD_BLOCKS // n_tiles))
             t = levels.setdefault((h, w), {"split": [0.0, 0.0], "one pass": [0.0, 0.0],
                                            "n_split": [], "wrapper": [], "tiles": n_tiles})
             t["n_split"].append(n_split)
@@ -740,10 +740,10 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
             k4, k5 = calls[names[0]][0], calls[names[1]][0]
             if h in split_ablation:
                 tiling = block_engine.forward_tiling
-                tile = block_engine._mma_tile(h, w)
-                n_part = block_engine._n_part(batch, h, w, *tile)
-                n_split = min(-(-c // block_engine.CHUNK),
-                              -(-block_engine.FORWARD_BLOCKS // n_part))
+                tile = conv3x3_mma.mma_tile(h, w)
+                n_part = conv3x3_mma.n_tiles(batch, h, w, *tile)
+                n_split = min(-(-c // conv3x3_mma.CHUNK),
+                              -(-conv3x3_mma.FORWARD_BLOCKS // n_part))
                 split_ablation[h]["n_split"].append(n_split)
                 split_ablation[h]["wrapper"].append(tiling(torch.bfloat16, batch, h, w, c)[2])
                 for rep in range(2):

@@ -59,20 +59,18 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, conv3x3_mma
 
 # kernel launches in this process, by kernel
 LAUNCHES = {"block_engine_fwd": 0, "block_engine_dinput": 0,
             "block_engine_dweight": 0}
 MAX_GROWTH = 16        # the kernels' compiled maximum of F
 EPS = 1e-5             # BatchNorm's, as torch's and the JAX package's
-TILE_H, TILE_W = 16, 32  # K4's and f32 K5's output tile
+TILE_H, TILE_W = 16, 32  # f32 K4's and K5's output tile
 DWEIGHT_TILE_H = 8     # K6's tile is 8 x 32
 CHUNK = 16             # channels per chunk
 TARGET_BLOCKS = 1024   # f32 K5 and K6 split work across blocks up to about this
 SPLIT_BELOW = 132      # bf16 K4 splits its channel chunks below this many tiles
-FORWARD_BLOCKS = 256   # (an H100's SMs) across about this many blocks
-MMA_PIXELS = 256       # bf16 K4's and K5's tile: 256 pixels, 32, 16 or 8 wide
 DINPUT_CHUNK = 32      # bf16 K5's prefix channels per block
 _SOURCES = ("block_engine.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -233,38 +231,23 @@ def _n_part(b: int, h: int, w: int, tile_h: int = TILE_H,
     return b * _ceil(h, tile_h) * _ceil(w, tile_w)
 
 
-def _mma_tile(h: int, w: int) -> Tuple[int, int]:
-    """The bf16 kernels' (tile_h, tile_w): 256 pixels in the width of 32,
-    16 and 8 that pads an (h, w) image least, the widest on a tie."""
-    return min(((MMA_PIXELS // tw, tw) for tw in (32, 16, 8)),
-               key=lambda t: _ceil(h, t[0]) * t[0] * _ceil(w, t[1]) * t[1])
-
-
-def forward_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int,
-                   split_below: int = SPLIT_BELOW) -> Tuple[int, int, int]:
+def forward_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
+                   ) -> Tuple[int, int, int]:
     """K4's (tile_h, tile_w, n_split) for a (b, h, w) image with prefix c:
-    in bf16, the 256-pixel tile of ``_mma_tile``, and where the tiles are
-    fewer than ``split_below``, the 16-channel chunks split evenly across
-    about ``FORWARD_BLOCKS`` blocks (measured on an H100: faster at 32x40
-    and below with 2B = 16, slower at 64x80's 320 tiles); in f32, 16x32
-    tiles. K1 runs the same kernel with its own threshold."""
-    if dtype != torch.bfloat16:
-        return TILE_H, TILE_W, 1
-    tile_h, tile_w = _mma_tile(h, w)
-    n_part = _n_part(b, h, w, tile_h, tile_w)
-    if n_part >= split_below:
-        return tile_h, tile_w, 1
-    return tile_h, tile_w, min(_ceil(c, CHUNK), _ceil(FORWARD_BLOCKS, n_part))
+    ``conv3x3_mma.forward_tiling`` with K4's threshold ``SPLIT_BELOW``
+    (measured on an H100: the split is faster at 32x40 and below with
+    2B = 16, slower at 64x80's 320 tiles)."""
+    return conv3x3_mma.forward_tiling(dtype, b, h, w, c, SPLIT_BELOW)
 
 
 def dinput_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
                   ) -> Tuple[int, int, int]:
     """K5's (tile_h, tile_w, n_split) for a (b, h, w) image with prefix c:
-    in bf16, the 256-pixel tile of ``_mma_tile`` and one block per 32
-    channels; in f32, 16x32 tiles and the 16-channel chunks split across
-    blocks up to about ``TARGET_BLOCKS`` blocks."""
+    in bf16, the 256-pixel tile of ``conv3x3_mma.mma_tile`` and one block
+    per 32 channels; in f32, 16x32 tiles and the 16-channel chunks split
+    across blocks up to about ``TARGET_BLOCKS`` blocks."""
     if dtype == torch.bfloat16:
-        return (*_mma_tile(h, w), _ceil(c, DINPUT_CHUNK))
+        return (*conv3x3_mma.mma_tile(h, w), _ceil(c, DINPUT_CHUNK))
     n_split = max(1, min(_ceil(c, CHUNK),
                          _ceil(TARGET_BLOCKS, _n_part(b, h, w)), 65535 // b))
     return TILE_H, TILE_W, n_split
@@ -298,7 +281,7 @@ def layer_forward(buf, c, scale, shift, w, bias) -> torch.Tensor:
     n_part = _n_part(b, h, wd, tile_h, tile_w)
     part = torch.empty((2, n_part, f), dtype=torch.float32, device=buf.device)
     # split chunks: the blocks' f32 partial y, summed in order by a second pass
-    ypart = (torch.empty((n_split, n_part, MMA_PIXELS, MAX_GROWTH),
+    ypart = (torch.empty((n_split, n_part, conv3x3_mma.MMA_PIXELS, MAX_GROWTH),
                          dtype=torch.float32, device=buf.device)
              if n_split > 1 else part)
     _launch("block_engine_fwd", buf, (buf, scale, shift, w, bias, part, ypart),

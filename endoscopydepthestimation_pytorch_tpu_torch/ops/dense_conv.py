@@ -28,7 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build, block_engine
+from . import _build, conv3x3_mma
 
 LAUNCHES = 0  # kernel launches of fused_dense_conv in this process
 MAX_FEATURES = 16  # the kernel's compiled maximum of output channels
@@ -93,15 +93,14 @@ def fused_dense_conv_twin(x: torch.Tensor, scale: torch.Tensor,
 
 def forward_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
                    ) -> Tuple[int, int, int]:
-    """K1's (tile_h, tile_w, n_split) for x (b, h, w, c): the block
-    engine's K4 tiling (the kernel is K4's: 256-pixel tiles in bf16, the
-    16-channel chunks split across ~256 blocks where the tiles are few;
-    16x32 tiles in f32) with K1's own split threshold ``SPLIT_BELOW``.
-    Measured on an H100 at FCDenseNet-57's levels at batch 1 and 8: the
-    split is faster at every level of up to 160 tiles (by 3% at 160, b8
-    64x80, and 2-3x at <= 20 tiles), so K1 splits below 256 tiles where
-    K4, measured at 2B = 16, splits below 132."""
-    return block_engine.forward_tiling(dtype, b, h, w, c, split_below=SPLIT_BELOW)
+    """K1's (tile_h, tile_w, n_split) for x (b, h, w, c):
+    ``conv3x3_mma.forward_tiling`` (the bf16 kernel is the block engine's
+    K4 body) with K1's own split threshold ``SPLIT_BELOW``. Measured on an
+    H100 at FCDenseNet-57's levels at batch 1 and 8: the split is faster
+    at every level of up to 160 tiles (by 3% at 160, b8 64x80, and 2-3x
+    at <= 20 tiles), so K1 splits below 256 tiles where K4, measured at
+    2B = 16, splits below 132."""
+    return conv3x3_mma.forward_tiling(dtype, b, h, w, c, SPLIT_BELOW)
 
 
 def vector_width(dtype: torch.dtype, c: int, f: int, x_ptr: int, w_ptr: int,
@@ -161,8 +160,8 @@ def _forward(x, scale, shift, w, bias) -> torch.Tensor:
     tile_h, tile_w, n_split = forward_tiling(x.dtype, b, h, wd, c)
     vw = vector_width(x.dtype, c, f, x.data_ptr(), w.data_ptr(), y.data_ptr())
     # split chunks: the blocks' f32 partial y, summed in order by a second pass
-    ypart = (torch.empty((n_split, block_engine._n_part(b, h, wd, tile_h, tile_w),
-                          block_engine.MMA_PIXELS, MAX_FEATURES),
+    ypart = (torch.empty((n_split, conv3x3_mma.n_tiles(b, h, wd, tile_h, tile_w),
+                          conv3x3_mma.MMA_PIXELS, MAX_FEATURES),
                          dtype=torch.float32, device=x.device)
              if n_split > 1 else None)
     with torch.cuda.device(x.device):
@@ -225,12 +224,7 @@ def fused_dense_conv(x: torch.Tensor, scale: torch.Tensor,
     x (B, H, W, C) contiguous, float32 or bfloat16; scale, shift (C,) and
     bias (F,) float32; w (3, 3, C, F) in x's dtype with F <= MAX_FEATURES.
     Returns y (B, H, W, F) contiguous, in x's dtype. Differentiable in all
-    five inputs (``FusedDenseConv``); where no gradient is wanted (serving)
-    the forward runs without the autograd node and its host cost.
+    five inputs (``FusedDenseConv``).
     """
     _check(x, scale, shift, w, bias)
-    inputs = (x, scale, shift, w, bias)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in inputs):
-        return FusedDenseConv.apply(*inputs)
-    return _forward(*inputs)
+    return FusedDenseConv.apply(x, scale, shift, w, bias)

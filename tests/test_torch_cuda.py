@@ -130,11 +130,14 @@ def test_bf16_kernel_without_bias(device, b, h, w, c):
 
 @pytest.mark.parametrize("c", [96, 60, 37])
 def test_bf16_kernel_reads_nothing_past_its_tensors(device, c):
-    """x, w, scale and shift each end an allocation, whose tail in a
-    larger buffer holds NaN: a halo vector running past C into the next
-    pixel is zeroed by the select, but one running past the tensor (or a
-    weight or affine read past C) would bring NaN or fault. Also a base
-    only 2-byte aligned, which must take the scalar path."""
+    """x, w, scale, shift and bias each end an allocation, whose tail in
+    a larger buffer holds NaN: a read of w, scale, shift or bias past its
+    tensor would bring NaN into y. Reads of x past C cannot show here:
+    the kernel zeroes the channels >= C by a select, so NaN read past C
+    (from the next pixel or the tail) comes out as 0. What keeps x's
+    vectors inside C is ``vector_width`` (``test_vector_width``) and the
+    C entry's ``vector_ok`` re-check. Also a base only 2-byte aligned,
+    which must take the scalar path, and give the same y."""
     b, h, w, f = 2, 24, 40, 12
     args = _inputs(b, h, w, c, f, torch.bfloat16, device, seed=7)
 

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from endoscopydepthestimation_pytorch_tpu.ops import dense_conv as jax_dense_conv
-from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine, dense_conv
+from endoscopydepthestimation_pytorch_tpu_torch.ops import (block_engine, conv3x3_mma,
+                                                          dense_conv)
 
 torch.set_num_threads(2)
 torch.backends.cudnn.allow_tf32 = False
@@ -186,7 +187,7 @@ def test_forward_tiling(batch):
         assert (tile_h, tile_w) == tile
         n_tiles = batch * -(-h // tile_h) * -(-w // tile_w)
         assert n_split == (1 if n_tiles >= dense_conv.SPLIT_BELOW else min(
-            -(-c // 16), -(-block_engine.FORWARD_BLOCKS // n_tiles)))
+            -(-c // 16), -(-conv3x3_mma.FORWARD_BLOCKS // n_tiles)))
         if c in (c_first, c_last):
             assert n_split == SPLITS[batch][(h, w)][c == c_last], (h, w, c)
         assert 1 <= n_split <= -(-c // 16)
@@ -195,6 +196,23 @@ def test_forward_tiling(batch):
         assert dense_conv.forward_tiling(torch.float32, batch, h, w, c) == (16, 32, 1)
         assert dense_conv.vector_width(torch.float32, c, 12, 512, 256, 1024) == 1
     assert widths.count(4) == 22 and widths.count(8) == 22
+
+
+@pytest.mark.parametrize("batch", [1, 8, 16])
+def test_k1_and_k4_share_one_tiling_with_their_own_thresholds(batch):
+    """K1 and the block engine's K4 launch one bf16 body, so both take
+    their tiles from ``conv3x3_mma.forward_tiling``, each with the split
+    threshold measured for it: at b8 64x80 (160 tiles) K1 splits and K4
+    does not."""
+    import chip_smoke
+    for h, w, c in chip_smoke.dense_layer_shapes(256, 320):
+        for dtype in (torch.bfloat16, torch.float32):
+            for op in (dense_conv, block_engine):
+                assert op.forward_tiling(dtype, batch, h, w, c) == \
+                    conv3x3_mma.forward_tiling(dtype, batch, h, w, c, op.SPLIT_BELOW)
+    if batch == 8:
+        assert dense_conv.forward_tiling(torch.bfloat16, 8, 64, 80, 144) == (16, 16, 2)
+        assert block_engine.forward_tiling(torch.bfloat16, 8, 64, 80, 144) == (16, 16, 1)
 
 
 @pytest.mark.parametrize("case,want", [
@@ -241,8 +259,9 @@ def test_twin_matches_pallas_kernel(b, h, w, c, f, bias):
 
 
 def test_forward_without_grad_skips_the_autograd_node():
-    """Serving (no gradient wanted) calls the forward directly; with a
-    gradient wanted the op is the autograd node; the values agree."""
+    """Where no gradient is wanted (serving, under inference_mode or
+    no_grad) the op's output carries no autograd node; with a gradient
+    wanted it is FusedDenseConv's; the values agree."""
     x, scale, shift, wk = map(torch.from_numpy, _inputs(2, 6, 7, 20, 12, seed=13))
     bias = torch.linspace(-1, 1, 12)
     with torch.inference_mode():

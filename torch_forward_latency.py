@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Serving forward latency of one checkout of the PyTorch port, on one CUDA GPU.
+"""Serving forward latency of the PyTorch port in this checkout, on one CUDA GPU.
 
-    python3 scripts/torch_forward_latency.py [ROOT] [--label NAME]
+    python3 torch_forward_latency.py [--label NAME]
 
-Imports ``chip_smoke`` and the port package from ROOT (default: this
-checkout), builds FCDenseNet-57 from seed 0 as ``chip_smoke.py`` does, and
-prints one JSON line: the label, the card's name and power limit, and the
-bf16 ``predict_step`` ms (``chip_smoke.forward_ms``: CUDA events over 10
+Imports ``chip_smoke`` and the port package that sit beside this file,
+builds FCDenseNet-57 from seed 0 as ``chip_smoke.py`` does, and prints one
+JSON line: the label, the card's name and power limit, and the bf16
+``predict_step`` ms (``chip_smoke.forward_ms``: CUDA events over 10
 back-to-back forwards after 3 warm-ups) at batch 8 256x320, batch 1 256x320
 and batch 1 512x576. The host's speed differs between machines, so compare
-two checkouts on one card, in turns (A, B, B, A). Exits 2 without a CUDA
+two checkouts on one card, in turns (A, B, B, A): copy this file into the
+other checkout and run each copy from its own tree. Exits 2 without a CUDA
 device.
 """
 import argparse
@@ -24,10 +25,9 @@ from pathlib import Path
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     parser.add_argument("--label", default=None)
     args = parser.parse_args()
-    root = Path(args.root).resolve()
+    root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     import torch
     if not torch.cuda.is_available():
