@@ -12,7 +12,7 @@ to the CPU or to a kernel's plain version):
      and ``csrc/block_engine.cu`` (K4, K5, K6; K1 and K4 share the bf16
      body in ``csrc/conv3x3_mma.cuh``), one nvcc each, started together,
      for sm_90a, with ptxas's register and spill report; then ``cuobjdump
-     -sass``: the bf16 K1, K4 and K5 must hold HMMA (tensor-core)
+     -sass``: the bf16 K1, K4, K5 and K6 must hold HMMA (tensor-core)
      instructions in every instantiation, and no bf16 instantiation of
      their FFMA kernels may exist;
   3. K1: the dense-layer kernel at every one of FCDenseNet-57's 44
@@ -32,10 +32,11 @@ to the CPU or to a kernel's plain version):
   5. K4/K5/K6: the block engine's kernels against their plain versions at
      every layer of FCDenseNet-57's 11 dense blocks at 2B = 16, 256x320,
      in f32 and bf16, with their times beside the plain versions' and the
-     nearest cuDNN call on the activated tensor; K4's and K5's summed by
-     level, through the wrapper and alone (CUDA graph replay); K4 at the
-     levels <= 64x80 with its chunks split and in one pass, K5 at 64x80
-     and 32x40 in its narrow tile and in 8x32;
+     nearest cuDNN call on the activated tensor (through events and alone);
+     each summed by level, through the wrapper and alone (CUDA graph
+     replay); K4 at the levels <= 64x80 with its chunks split and in one
+     pass, K5 at 64x80 and 32x40 in its narrow tile and in 8x32, K6 at
+     256x320 and 8x10 with its n_split, half and twice as many;
   6. K1 backward: ``FusedDenseConv``'s output and five gradients against
      autograd of the plain version at four layer shapes of the train step
      (f32), the route of a train-mode block the engine's gate rejects;
@@ -453,8 +454,16 @@ def build_phase() -> None:
     print(f"built dense_conv.cu, warp_sample.cu and block_engine.cu for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s; ptxas report:")
     for report in reports:
-        print("\n".join(line for line in report.splitlines()
-                        if "registers" in line or "spill" in line))
+        # one line a kernel: its mangled name after the file's anonymous
+        # namespace (kernel and template arguments), registers, stack
+        name, frame = "?", ""
+        for line in report.splitlines():
+            if "Compiling entry function" in line:
+                name = re.sub(r"^.*?_cu_[0-9a-f]{8}\d+", "", line.split("'")[1])
+            elif "stack frame" in line:
+                frame = line.strip()
+            elif "Used" in line and "registers" in line:
+                print(f"  {name[:60]}: {line.split(':', 1)[1].strip()}; {frame}")
         if "sm_90a" not in report:
             raise AssertionError("a kernel was not compiled for sm_90a")
     tensor_core_sass_check()
@@ -474,16 +483,19 @@ def _sass_functions(module, name: str) -> dict:
 
 def tensor_core_sass_check() -> None:
     """``cuobjdump -sass`` of the dense_conv and block_engine libraries:
-    the bf16 K1, K4 and K5 must run on the tensor cores (HMMA instructions
-    in every instantiation: K1's 9 = 3 tile widths x 16-byte, 8-byte and
-    scalar halo loads, K4's and K5's 6 = 3 x 16-byte and scalar), and no
-    bf16 instantiation of their FFMA kernels may exist."""
-    checks = ((dense_conv, "dense_conv", (("K1", "fwd_mma_kernel", 9, "dense_conv_fwd_kernel"),)),
-              (block_engine, "block_engine", (("K4", "fwd_mma_kernel", 6, "fwd_kernel"),
-                                              ("K5", "dinput_mma_kernel", 6, "dinput_kernel"))))
+    the bf16 K1, K4, K5 and K6 must run on the tensor cores (HMMA
+    instructions in every instantiation: K1's 9 = 3 tile widths x 16-byte,
+    8-byte and scalar halo loads, K4's, K5's and K6's 6 = 3 x vector and
+    scalar loads; K1 and K4 36 each, K5 72, as in PR 7), and no bf16
+    instantiation of their FFMA kernels may exist."""
+    checks = ((dense_conv, "dense_conv", (("K1", "fwd_mma_kernel", 9, 36, "dense_conv_fwd_kernel"),)),
+              (block_engine, "block_engine", (("K4", "fwd_mma_kernel", 6, 36, "fwd_kernel"),
+                                              ("K5", "dinput_mma_kernel", 6, 72, "dinput_kernel"),
+                                              ("K6", "dweight_mma_kernel", 6, None,
+                                               "dweight_kernel"))))
     for module, lib, kernels in checks:
         functions = _sass_functions(module, lib)
-        for kernel, mma, count, ffma in kernels:
+        for kernel, mma, count, per, ffma in kernels:
             hmma = {name: sum("HMMA" in line for line in body.splitlines())
                     for name, body in functions.items() if mma in name}
             ffma_bf16 = [n for n in functions if ffma in n and "bfloat16" in n]
@@ -492,6 +504,8 @@ def tensor_core_sass_check() -> None:
             if len(hmma) != count or min(hmma.values()) == 0 or ffma_bf16:
                 raise AssertionError(f"the bf16 {kernel} does not run on the tensor cores "
                                      f"only, in its {count} instantiations")
+            if per is not None and set(hmma.values()) != {per}:
+                raise AssertionError(f"the bf16 {kernel} changed: {per} HMMA expected in each")
 
 
 def _value_and_grads(fn, leaves, cot):
@@ -619,12 +633,12 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
     for the input only; for the weight only), which folds no BN or ReLU."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
     names = ("block_engine_fwd", "block_engine_dinput", "block_engine_dweight")
-    tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
-           for n in names}
+    tot = {n: {"ms": 0.0, "alone_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "library_alone_ms": 0.0, "bytes": 0, "ops": 0} for n in names}
     max_abs, max_f32, max_bf16 = dict.fromkeys(names, 0.0), 0.0, 0.0
     levels = ("full resolution", "middle levels", "<= 32x40")
-    by_level = {n: dict.fromkeys(levels, 0.0) for n in names[:2]}  # through the wrapper
-    alone = {n: dict.fromkeys(levels, 0.0) for n in names[:2]}      # CUDA graph replay
+    by_level = {n: dict.fromkeys(levels, 0.0) for n in names}  # through the wrapper
+    alone = {n: dict.fromkeys(levels, 0.0) for n in names}     # CUDA graph replay
     # K4 at the deep levels, its chunks split across ~FORWARD_BLOCKS blocks
     # against one pass, device ms by CUDA graph replay, two alternating
     # rounds (the wrapper splits below SPLIT_BELOW tiles)
@@ -633,6 +647,12 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
                       for hh in (height // 4, height // 8, height // 16, height // 32)}
     tile_ablation = {hh: {"chosen": [0.0, 0.0], "8x32": [0.0, 0.0]}
                      for hh in (height // 4, height // 8)}
+    # bf16 K6 at a full-resolution and a deep level: the wrapper's n_split
+    # (at most DWEIGHT_BLOCKS blocks) against half and twice as many splits,
+    # device ms by CUDA graph replay, two alternating rounds
+    dweight_ablation = {hh: {"n_split": [], **{k: [0.0, 0.0] for k in ("chosen", "half",
+                                                                       "twice")}}
+                        for hh in (height, height // 32)}
     print(f"engine kernel phase, batch {batch}, {height}x{width}, {card}:")
     print("  H    W    C    f32 max|d|/max|ref| (K4 K5 K6)  bf16 mean rel (K4 K5 K6)"
           "  bf16 ms kernel / plain / cuDNN (K4; K5; K6)")
@@ -728,15 +748,16 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
             for name, (kernel, plain, library) in calls.items():
                 t = (_cuda_ms(kernel, 10), _cuda_ms(plain, 3, warmup=1),
                      _cuda_ms(library, 10))
-                for key, v in zip(("ms", "plain_ms", "library_ms"), t):
+                # the device times alone, no host work between launches
+                kernel_alone, library_alone = _graph_ms(kernel), _graph_ms(library)
+                for key, v in zip(("ms", "plain_ms", "library_ms", "alone_ms",
+                                   "library_alone_ms"), t + (kernel_alone, library_alone)):
                     tot[name][key] += v
                 tot[name]["bytes"] += _engine_bytes(name, batch * h * w, c, f, 2)
                 tot[name]["ops"] += 2 * 9 * c * f * batch * h * w
                 row.append(" / ".join(f"{v:.3f}" for v in t))
-                if name in by_level:
-                    by_level[name][level] += t[0]
-                    # the device time alone, no wrapper host work between launches
-                    alone[name][level] += _graph_ms(kernel)
+                by_level[name][level] += t[0]
+                alone[name][level] += kernel_alone
             k4, k5 = calls[names[0]][0], calls[names[1]][0]
             if h in split_ablation:
                 tiling = block_engine.forward_tiling
@@ -753,6 +774,20 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
                             split_ablation[h][key][rep] += _graph_ms(k4)
                         finally:
                             block_engine.forward_tiling = tiling
+            if h in dweight_ablation:
+                tiling = block_engine.dweight_tiling
+                tile_h, tile_w, n_split = tiling(torch.bfloat16, batch, h, w, c)
+                n_tiles = conv3x3_mma.n_tiles(batch, h, w, tile_h, tile_w)
+                choices = {"chosen": n_split, "half": max(1, n_split // 2),
+                           "twice": min(n_tiles, 2 * n_split)}
+                dweight_ablation[h]["n_split"].append(n_split)
+                for rep in range(2):
+                    for key, n in choices.items():
+                        block_engine.dweight_tiling = lambda *_, n=n: (tile_h, tile_w, n)
+                        try:
+                            dweight_ablation[h][key][rep] += _graph_ms(calls[names[2]][0])
+                        finally:
+                            block_engine.dweight_tiling = tiling
             # where the wrapper picks a narrow K5 tile, beside one 8x32 tile,
             # alternating twice
             if h in tile_ablation:
@@ -779,11 +814,12 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
                         "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
                         "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"timing [{card}] {name}, 44 layers, batch {batch} {height}x{width} bf16: "
-              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, nearest cuDNN "
-              f"call on the activated tensor {t['library_ms']:.4f} ms; bound "
+              f"kernel {t['ms']:.4f} ms, {t['alone_ms']:.4f} alone; plain "
+              f"{t['plain_ms']:.4f} ms; nearest cuDNN call on the activated tensor "
+              f"{t['library_ms']:.4f} ms, {t['library_alone_ms']:.4f} alone; bound "
               f"{bound_ms:.4f} ms ({bound_by}: {t['bytes'] / 1e9:.3f} GB, "
               f"{t['ops'] / 1e9:.1f} GFLOP)")
-    for name in names[:2]:
+    for name in names:
         print(f"timing [{card}] {name} bf16 by level: "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in by_level[name].items())
               + f" (total {sum(by_level[name].values()):.4f}); device alone (CUDA graph "
@@ -796,6 +832,13 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
               + " / ".join(f"{v:.4f}" for v in t["split"]) + ", one pass "
               + " / ".join(f"{v:.4f}" for v in t["one pass"])
               + f"; the wrapper's n_split {t['wrapper']}")
+    for hh, t in dweight_ablation.items():
+        print(f"timing [{card}] block_engine_dweight bf16 device ms, the "
+              f"{len(t['n_split'])} layers at {hh}x{hh * width // height} (CUDA graph "
+              f"replay, two alternating rounds): the wrapper's n_split {t['n_split']}, "
+              "half and twice as many: " + "; ".join(
+                  f"{k} " + " / ".join(f"{v:.4f}" for v in t[k])
+                  for k in ("chosen", "half", "twice")))
     for hh, t in tile_ablation.items():
         tile = block_engine.dinput_tiling(torch.bfloat16, batch, hh, hh * width // height, 48)
         print(f"timing [{card}] block_engine_dinput bf16 device ms, the 8 layers at "

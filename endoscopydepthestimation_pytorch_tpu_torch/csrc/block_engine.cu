@@ -36,11 +36,12 @@
 // below the bf16 tensor-core ridge, so memory-bound with tensor cores, at
 // ~1.2 ms (K4: 3.97 GB / 3.35 TB/s = 1.18 ms; K6) and 11.56 GB / 3.35 TB/s
 // = 3.45 ms (K5; their 392 GFLOP are 0.4 ms at the 989 TFLOP/s bf16 peak).
-// K6, and K4 and K5 in f32, do their MACs as f32 FFMAs on the CUDA cores,
-// which makes them FFMA-bound at ~5.8 ms each (67 TFLOP/s). Derived from
-// the shapes, not measured.
+// In f32 (the parity dtype) all three do their MACs as f32 FFMAs on the
+// CUDA cores, which makes them FFMA-bound at ~5.8 ms each (67 TFLOP/s).
+// Derived from the shapes, not measured.
 //
-// Designs (K6, and K4 and K5 in f32: direct convolution, simple first):
+// Designs (bf16: implicit GEMMs on the tensor cores; f32: direct
+// convolution, simple first):
 //   K4  bf16 (the train path): the implicit GEMM on the tensor cores of
 //       csrc/conv3x3_mma.cuh, shared with K1 (M = 256 pixels, N = 16, K =
 //       9 taps x 16-channel chunks, mma.sync m16n8k16, the activated halo
@@ -88,13 +89,30 @@
 //       epilogue reads x, applies the mask and updates the gradient in
 //       place. At the deep levels a grid axis splits the chunks so the card
 //       has enough blocks.
-//   K6  an 8x32 tile set per (16-channel chunk, split) block, 192 threads =
-//       16 channels x 3 row taps x 4 row groups; each thread slides a
-//       3-wide window of the activated row over the tile and accumulates
-//       3 x F outputs against gy_eff read as float4 broadcasts. The blocks
-//       loop over the tiles t = split, split + S, ... (the TPU's sequential
-//       grid axis), the 4 row groups are reduced in shared memory, and a
-//       second kernel sums the S partials.
+//   K6  bf16 (the train path): K4's GEMM with the operands' roles turned
+//       around, per tap dW_tap (16 channels x 16 f) += a_tap^T (16 x 256
+//       pixels) * gy_eff (256 x 16), mma.sync m16n8k16 with f32
+//       accumulators. One block per (16-channel chunk, split) loops over
+//       the 256-pixel tiles t = split, split + S, ... (the TPU's sequential
+//       grid axis) on two shared-memory stages: the chunk's activated halo
+//       [pos][16] and the tile's gy_eff [pix][16] (rounded as the plain
+//       version rounds it, zero outside the image and for f >= F, so the
+//       padding adds nothing), both built in registers from every load of
+//       the tile issued before the first store. Both operands lie
+//       pixel-major, so both come through ldmatrix .trans; a tap is a fixed
+//       offset from each lane's halo row. 8 warps of 32 pixels each hold all
+//       9 x 16 x 16 sums (72 registers a thread) across the tiles, reduce
+//       in shared memory in warp order, and the block writes its partial;
+//       a second kernel sums the S partials in order. Memory-bound like
+//       K4; every chunk block of a tile re-reads its g and y (24 channels),
+//       mostly from L2, since the chunk blocks of one split run together.
+//   K6  f32 (the parity dtype): an 8x32 tile set per (16-channel chunk,
+//       split) block, 192 threads = 16 channels x 3 row taps x 4 row
+//       groups; each thread slides a 3-wide window of the activated row
+//       over the tile and accumulates 3 x F outputs against gy_eff read as
+//       float4 broadcasts, over the same strided tiles; the 4 row groups
+//       are reduced in shared memory, and the same second kernel sums the
+//       S partials.
 
 #include <atomic>
 #include <climits>
@@ -833,6 +851,249 @@ __global__ void __launch_bounds__(NT6) dweight_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6 in bf16: the same function as an implicit GEMM on the tensor cores
+
+constexpr int DW_THREADS = 256;  // 8 warps x 32 pixels of a 256-pixel tile
+constexpr int DW_CHUNKS = 1;     // 16-channel chunks a block
+// two stages of the chunks' activated halos [chunk][pos][c] and the tile's
+// gy_eff [pix][f], bf16 at the GP pitch, then the chunks' scale, shift and
+// the layer's c1, c2 (f32); the f32 sums [chunk][tap][c][f] reuse the
+// stages at the end
+constexpr int DW_STAGES = 2 * 2 * (DW_CHUNKS * MMA_HALO + MMA_PIXELS) * GP;  // bytes
+constexpr int DW_SMEM = DW_STAGES + 4 * 2 * CC * (DW_CHUNKS + 1);
+static_assert(DW_STAGES >= 4 * DW_CHUNKS * 9 * CC * MMA_N, "the sums do not fit the stages");
+
+// One block: the DW_CHUNKS 16-channel chunks from blockIdx.x * 16 *
+// DW_CHUNKS over the tiles t = split, split + S, ... (split = blockIdx.y of
+// S = gridDim.y) of 256 pixels, 1 << TWL wide. VW = 8: buf and grad rows
+// 16-byte aligned (ld % 8 == 0, aligned bases) and C, F multiples of 4, so
+// the prefix moves as 16-byte vectors and g, y as 8-byte ones (a vector
+// that starts below C + F ends at or before it); VW = 1: scalars.
+template <int TWL, int VW>
+__global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel(
+    const __nv_bfloat16* grad, const __nv_bfloat16* buf,
+    const float* __restrict__ scale, const float* __restrict__ shift,
+    const float* __restrict__ c1, const float* __restrict__ c2,
+    float* __restrict__ part, int B, int H, int W, int C, int F, int ld) {
+  static_assert(VW == 8 || VW == 1, "a lane loads 8 prefix channels or 1");
+  constexpr int NCH = DW_CHUNKS, NC = NCH * CC;  // chunks, channels a block
+  constexpr int GROUPS = DW_THREADS / 32 / NCH;  // pixel groups: warps a chunk
+  constexpr int STEPS = MMA_PIXELS / GROUPS / 16;  // k16 steps a warp, a tile
+  constexpr int TW = 1 << TWL, TH = MMA_PIXELS / TW, HP = TW + 2;
+  constexpr int N_HALO = (TH + 2) * HP;  // halo positions
+  static_assert(N_HALO <= MMA_HALO, "the halo does not fit its shared memory");
+  constexpr int VG = VW > 1 ? 4 : 1;           // g and y channels a lane loads
+  constexpr int LP = CC / VW, LG = MMA_N / VG;  // lanes a halo position, a pixel
+  constexpr int A_STEPS = (N_HALO * LP + DW_THREADS - 1) / DW_THREADS;
+  constexpr int G_STEPS = MMA_PIXELS * LG / DW_THREADS;
+  static_assert(A_STEPS <= 32 && G_STEPS <= 32, "the in-image masks are 32 bits");
+  using RawA = HaloRaw<VW>;
+  using RawG = HaloRaw<VG>;
+  extern __shared__ __align__(16) unsigned char smem6[];
+  __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(smem6);  // [stage][chunk][pos][c]
+  __nv_bfloat16* s_g = s_a + 2 * NCH * MMA_HALO * GP;            // [stage][pix][f]
+  float* s_par = reinterpret_cast<float*>(smem6 + DW_STAGES);    // scale, shift, c1, c2
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c0 = blockIdx.x * NC, split = blockIdx.y, n_split = gridDim.y;
+  const int tiles_w = (W + TW - 1) / TW, tiles_img = ((H + TH - 1) / TH) * tiles_w;
+  const int n_tiles = B * tiles_img;
+  for (int i = tid; i < 2 * NC; i += DW_THREADS)  // zero for channels >= C
+    s_par[i] = c0 + i % NC < C ? (i < NC ? scale : shift)[c0 + i % NC] : 0.f;
+  if (tid < 2 * CC)  // zero for f >= F
+    s_par[2 * NC + tid] = tid % CC < F ? (tid < CC ? c1 : c2)[tid % CC] : 0.f;
+  __syncthreads();
+  const float* s_sc = s_par;
+  const float* s_sh = s_par + NC;
+  const float* s_c1 = s_par + 2 * NC;
+  const float* s_c2 = s_c1 + CC;
+
+  // Staging a tile: the loads of chunk 0's raw prefix halo and of g and y
+  // are issued before the first store, then each further chunk's halo
+  // likewise. The halo is activated in registers as the plain version
+  // rounds it, zero outside the image and for channels >= C (for VW = 8 a
+  // vector may reach into [C, C+F), this layer's own y); gy_eff is zero for
+  // pixels outside the image and f >= F, so the padding of the pixel (K) and
+  // f (N) dimensions adds nothing.
+  const int ch0 = (tid % LP) * VW, f0 = (tid % LG) * VG;  // the same at every step
+  auto stage_tile = [&](int t, int stage) {
+    const int ti = t % tiles_img;
+    const int h0 = (ti / tiles_w) * TH, w0 = (ti % tiles_w) * TW;
+    const size_t img = (size_t)(t / tiles_img) * H * W * ld;
+    const __nv_bfloat16* bb = buf + img;
+    const __nv_bfloat16* gb = grad + img;
+    RawG rg[G_STEPS], ry[G_STEPS];
+    unsigned g_in = 0;  // bit k: step k's pixel is in the image
+#pragma unroll
+    for (int kc = 0; kc < NCH; ++kc) {
+      const int cc = kc * CC + ch0;  // the lane's first channel in the block
+      const int nv = C - c0 - cc;    // its channels below C
+      RawA ra[A_STEPS];
+      unsigned a_in = 0;  // bit k: step k's position is in the image
+#pragma unroll
+      for (int k = 0; k < A_STEPS; ++k) {
+        const int pos = tid / LP + k * (DW_THREADS / LP);
+        const int gh = h0 + pos / HP - 1, gw = w0 + pos % HP - 1;
+        const bool in = pos < N_HALO && gh >= 0 && gh < H && gw >= 0 && gw < W;
+        a_in |= (unsigned)in << k;
+        if constexpr (VW == 8) ra[k] = make_uint4(0, 0, 0, 0);
+        else ra[k] = __float2bfloat16(0.f);
+        if (in && nv > 0)
+          ra[k] = *reinterpret_cast<const RawA*>(bb + (gh * W + gw) * ld + c0 + cc);
+      }
+      if (kc == 0) {
+#pragma unroll
+        for (int k = 0; k < G_STEPS; ++k) {
+          const int m = tid / LG + k * (DW_THREADS / LG);
+          const int gh = h0 + m / TW, gw = w0 + m % TW;
+          const bool in = gh < H && gw < W;
+          g_in |= (unsigned)in << k;
+          if constexpr (VG == 4) rg[k] = ry[k] = make_uint2(0, 0);
+          else rg[k] = ry[k] = __float2bfloat16(0.f);
+          if (in && f0 < F) {
+            const int p = (gh * W + gw) * ld + C + f0;
+            rg[k] = *reinterpret_cast<const RawG*>(gb + p);
+            ry[k] = *reinterpret_cast<const RawG*>(bb + p);
+          }
+        }
+      }
+      __nv_bfloat16* sa = s_a + (stage * NCH + kc) * MMA_HALO * GP;
+#pragma unroll
+      for (int k = 0; k < A_STEPS; ++k) {
+        const int pos = tid / LP + k * (DW_THREADS / LP);
+        if (pos >= N_HALO) continue;
+        const bool in = (a_in >> k) & 1u;
+        if constexpr (VW == 8) {
+          const unsigned r[4] = {ra[k].x, ra[k].y, ra[k].z, ra[k].w};
+          unsigned o[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float2 v = bf2_to_f2(r[q]);
+            const int j = cc + 2 * q;
+            const float a0 = in && 2 * q < nv ? affine_relu(v.x, s_sc[j], s_sh[j]) : 0.f;
+            const float a1 = in && 2 * q + 1 < nv ? affine_relu(v.y, s_sc[j + 1], s_sh[j + 1]) : 0.f;
+            o[q] = f2_to_bf2(a0, a1);
+          }
+          *reinterpret_cast<uint4*>(sa + pos * GP + ch0) = make_uint4(o[0], o[1], o[2], o[3]);
+        } else {
+          const float a = in && nv > 0
+              ? affine_relu(__bfloat162float(ra[k]), s_sc[cc], s_sh[cc]) : 0.f;
+          sa[pos * GP + ch0] = __float2bfloat16(a);
+        }
+      }
+    }
+    __nv_bfloat16* sg = s_g + stage * MMA_PIXELS * GP;
+#pragma unroll
+    for (int k = 0; k < G_STEPS; ++k) {
+      const int m = tid / LG + k * (DW_THREADS / LG);
+      const bool in = (g_in >> k) & 1u;
+      if constexpr (VG == 4) {
+        const float2 ga = bf2_to_f2(rg[k].x), gc = bf2_to_f2(rg[k].y);
+        const float2 ya = bf2_to_f2(ry[k].x), yc = bf2_to_f2(ry[k].y);
+        const float gs[4] = {ga.x, ga.y, gc.x, gc.y}, ys[4] = {ya.x, ya.y, yc.x, yc.y};
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = in && f0 + j < F ? gy_eff(gs[j], ys[j], s_c1[f0 + j], s_c2[f0 + j]) : 0.f;
+        *reinterpret_cast<uint2*>(sg + m * GP + f0) =
+            make_uint2(f2_to_bf2(v[0], v[1]), f2_to_bf2(v[2], v[3]));
+      } else {
+        const float v = in && f0 < F ? gy_eff(__bfloat162float(rg[k]), __bfloat162float(ry[k]),
+                                              s_c1[f0], s_c2[f0]) : 0.f;
+        sg[m * GP + f0] = __float2bfloat16(v);
+      }
+    }
+  };
+
+  // The GEMM, per tap: dW_tap (16 channels x 16 f) += a_tap^T (16 x 256
+  // pixels) * gy_eff (256 x 16). Warp w takes chunk w % NCH and pixels
+  // [w / NCH * 16 * STEPS, +16 * STEPS) of each tile as STEPS k16 steps,
+  // and holds all 9 x 16 x 16 sums of its chunk (72 registers a thread).
+  // Both operands lie pixel-major in shared memory, so both come through
+  // ldmatrix .trans. A: lane l addresses pixel (l / 16) * 8 + l % 8 of the
+  // step and channels ((l / 8) % 2) * 8; tap (ky, kx) reads halo position
+  // (m / TW + ky) * HP + m % TW + kx, a fixed offset from the lane's row. B:
+  // lane l addresses pixel ((l / 8) % 2) * 8 + l % 8 and f (l / 16) * 8,
+  // giving b0, b1 of the first n8 tile, then of the second.
+  const int kc = warp % NCH, m0 = (warp / NCH) * 16 * STEPS;
+  unsigned a_base[STEPS], g_base[STEPS];
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+    const int ma = m0 + s * 16 + (lane / 16) * 8 + lane % 8;
+    a_base[s] = smem_addr(s_a + (kc * MMA_HALO + (ma / TW) * HP + ma % TW) * GP +
+                          ((lane / 8) % 2) * 8);
+    const int mg = m0 + s * 16 + ((lane / 8) % 2) * 8 + lane % 8;
+    g_base[s] = smem_addr(s_g + mg * GP + (lane / 16) * 8);
+  }
+  constexpr unsigned A_STAGE = 2 * NCH * MMA_HALO * GP, G_STAGE = 2 * MMA_PIXELS * GP;  // bytes
+  float acc[9][2][4];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[tap][nt][k] = 0.f;
+
+  stage_tile(split, 0);  // split < n_tiles: the C entry checks n_split
+  __syncthreads();
+  int stage = 0;
+  for (int t = split; t < n_tiles; t += n_split) {
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+      unsigned b[4];
+      ldmatrix_x4_trans(g_base[s] + stage * G_STAGE, b);
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          unsigned a[4];
+          ldmatrix_x4_trans(a_base[s] + stage * A_STAGE + 2 * GP * (ky * HP + kx), a);
+          mma_bf16(acc[ky * 3 + kx][0], a, b[0], b[1]);
+          mma_bf16(acc[ky * 3 + kx][1], a, b[2], b[3]);
+        }
+    }
+    // the next tile into the other stage while slower warps and the SM's
+    // other block run their MMAs: one barrier a tile
+    if (t + n_split < n_tiles) stage_tile(t + n_split, stage ^ 1);
+    __syncthreads();
+    stage ^= 1;
+  }
+
+  // The warps' sums into s_red [chunk][tap][c][f] in warp order (thread
+  // (g, q) = (lane / 4, lane % 4) holds channels g, g + 8 and f nt*8 + 2q +
+  // {0, 1}), then the block's partial for c < C, f < F. No atomics:
+  // bitwise repeatable.
+  float* s_red = reinterpret_cast<float*>(smem6);
+  const int g = lane / 4, q = lane % 4;
+  for (int w = 0; w < DW_THREADS / 32; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float2* p = reinterpret_cast<float2*>(
+                s_red + ((kc * 9 + tap) * CC + half * 8 + g) * MMA_N + nt * 8 + 2 * q);
+            float2 v = make_float2(acc[tap][nt][2 * half], acc[tap][nt][2 * half + 1]);
+            if (w >= NCH) {
+              const float2 o = *p;
+              v = make_float2(o.x + v.x, o.y + v.y);
+            }
+            *p = v;
+          }
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < NCH * 9 * CC * MMA_N; e += DW_THREADS) {
+    const int f = e % MMA_N, c = (e / MMA_N) % CC, tap = (e / (CC * MMA_N)) % 9;
+    const int gc = c0 + (e / (9 * CC * MMA_N)) * CC + c;
+    if (f < F && gc < C)
+      part[(((size_t)split * 9 + tap) * C + gc) * F + f] = s_red[e];
+  }
+}
+
 // out[i] = sum over s of part[s][i], in order
 __global__ void sum_partials_kernel(const float* __restrict__ part,
                                     float* __restrict__ out, int S, int N) {
@@ -909,24 +1170,31 @@ cudaError_t launch_dinput_f32(void* grad, const void* buf, const float* scale,
   return cudaGetLastError();
 }
 
+// kernel's dynamic shared-memory opt-in to `bytes`, once per device (bit d
+// of `ready`, one `ready` per kernel instantiation)
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(ready.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    ready.fetch_or(bit, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
 template <int TWL, bool VEC>
 cudaError_t launch_mma(dim3 grid, cudaStream_t s, __nv_bfloat16* grad,
                        const __nv_bfloat16* buf, const float* scale,
                        const float* shift, const __nv_bfloat16* w,
                        const float* c1, const float* c2, float* part,
                        float* part_bias, int H, int W, int C, int F, int ld) {
-  // the shared-memory opt-in, once per device (bit d of `ready`)
   static std::atomic<unsigned long long> ready{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = opt_in_smem(dinput_mma_kernel<TWL, VEC>, SMEM5, ready);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(ready.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(dinput_mma_kernel<TWL, VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM5);
-    if (err != cudaSuccess) return err;
-    ready.fetch_or(bit, std::memory_order_release);
-  }
   dinput_mma_kernel<TWL, VEC><<<grid, NT5, SMEM5, s>>>(
       grad, buf, scale, shift, w, c1, c2, part, part_bias, H, W, C, F, ld);
   return cudaGetLastError();
@@ -951,12 +1219,13 @@ cudaError_t launch_dinput_mma(void* grad, const void* buf, const float* scale,
   }
 }
 
-template <typename T>
-cudaError_t launch_dweight(const void* grad, const void* buf,
-                           const float* scale, const float* shift,
-                           const float* c1, const float* c2, float* part,
-                           float* dw, int B, int H, int W, int C, int F,
-                           int ld, int n_split, cudaStream_t s) {
+// f32 K6 (FFMA); bf16 goes to launch_dweight_mma
+cudaError_t launch_dweight_f32(const void* grad, const void* buf,
+                               const float* scale, const float* shift,
+                               const float* c1, const float* c2, float* part,
+                               int B, int H, int W, int C, int F, int ld,
+                               int n_split, cudaStream_t s) {
+  using T = float;
   const dim3 grid(tiles(C, CC), n_split);
   const T* g = static_cast<const T*>(grad);
   const T* b = static_cast<const T*>(buf);
@@ -966,11 +1235,49 @@ cudaError_t launch_dweight(const void* grad, const void* buf,
     case 3: dweight_kernel<T, 12><<<grid, NT6, 0, s>>>(g, b, scale, shift, c1, c2, part, B, H, W, C, F, ld); break;
     default: dweight_kernel<T, 16><<<grid, NT6, 0, s>>>(g, b, scale, shift, c1, c2, part, B, H, W, C, F, ld); break;
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n = 9 * C * F;
-  sum_partials_kernel<<<tiles(n, 256), 256, 0, s>>>(part, dw, n_split, n);
   return cudaGetLastError();
+}
+
+// bf16 K6's 16/8-byte path (VW = 8): see dweight_mma_kernel
+bool dweight_vec_ok(const void* buf, const void* grad, int C, int F, int ld) {
+  return ld % 8 == 0 && C % 4 == 0 && F % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(buf) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(grad) % 16 == 0;
+}
+
+template <int TWL, int VW>
+cudaError_t launch_dweight_mma_t(dim3 grid, cudaStream_t s, const __nv_bfloat16* grad,
+                                 const __nv_bfloat16* buf, const float* scale,
+                                 const float* shift, const float* c1, const float* c2,
+                                 float* part, int B, int H, int W, int C, int F, int ld) {
+  static std::atomic<unsigned long long> ready{0};
+  const cudaError_t err = opt_in_smem(dweight_mma_kernel<TWL, VW>, DW_SMEM, ready);
+  if (err != cudaSuccess) return err;
+  dweight_mma_kernel<TWL, VW><<<grid, DW_THREADS, DW_SMEM, s>>>(
+      grad, buf, scale, shift, c1, c2, part, B, H, W, C, F, ld);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dweight_mma(const void* grad, const void* buf,
+                               const float* scale, const float* shift,
+                               const float* c1, const float* c2, float* part,
+                               int B, int H, int W, int C, int F, int ld,
+                               int n_split, int tile_w, int vw, cudaStream_t s) {
+  const dim3 grid(tiles(C, CC * DW_CHUNKS), n_split);
+  auto* g = static_cast<const __nv_bfloat16*>(grad);
+  auto* b = static_cast<const __nv_bfloat16*>(buf);
+#define DWEIGHT_LAUNCH(TWL, VW) \
+  launch_dweight_mma_t<TWL, VW>(grid, s, g, b, scale, shift, c1, c2, part, B, H, W, C, F, ld)
+  switch (tile_w * 16 + vw) {
+    case 32 * 16 + 8: return DWEIGHT_LAUNCH(5, 8);
+    case 32 * 16 + 1: return DWEIGHT_LAUNCH(5, 1);
+    case 16 * 16 + 8: return DWEIGHT_LAUNCH(4, 8);
+    case 16 * 16 + 1: return DWEIGHT_LAUNCH(4, 1);
+    case 8 * 16 + 8: return DWEIGHT_LAUNCH(3, 8);
+    case 8 * 16 + 1: return DWEIGHT_LAUNCH(3, 1);
+    default: return cudaErrorInvalidValue;
+  }
+#undef DWEIGHT_LAUNCH
 }
 
 }  // namespace
@@ -1055,30 +1362,45 @@ int block_engine_dinput(int dtype, void* grad, const void* buf,
 }
 
 // K6. part: (n_split, 9, C, F) scratch; dw: (3, 3, C, F), the sum of the
-// partials. n_split: how many blocks share one channel chunk's tiles
-// (1 .. B * ceil(H/8) * ceil(W/32)).
+// partials in split order. n_split: how many blocks share one channel
+// chunk's tiles (1 .. the tile count). float32: tile_w = 32 (8x32 tiles),
+// vw = 1. bfloat16: tile_w = 32, 16 or 8 (tiles of 256 pixels, 256/tile_w
+// rows); vw = 8 (the prefix in 16-byte vectors, g and y in 8-byte ones:
+// ld % 8 == 0, C and F multiples of 4, buf and grad 16-byte aligned) or 1
+// (scalars).
 int block_engine_dweight(int dtype, const void* grad, const void* buf,
                          const void* scale, const void* shift, const void* c1,
                          const void* c2, void* part, void* dw, int B, int H,
-                         int W, int C, int F, int ld, int n_split,
-                         void* stream) {
-  if (bad_dims(B, H, W, C, F, ld) || n_split < 1 || n_split > 65535 ||
-      n_split > B * tiles(H, TH6) * tiles(W, TW6))
+                         int W, int C, int F, int ld, int n_split, int tile_w,
+                         int vw, void* stream) {
+  if (bad_dims(B, H, W, C, F, ld) || n_split < 1 || n_split > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && (tile_w != TW6 || vw != 1 ||
+                     n_split > (long long)B * tiles(H, TH6) * tiles(W, TW6)))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (!mma_tile_width(tile_w) ||
+                     n_split > (long long)B * tiles(H, MMA_PIXELS / tile_w) * tiles(W, tile_w) ||
+                     !(vw == 1 || (vw == 8 && dweight_vec_ok(buf, grad, C, F, ld))) ||
+                     (long long)H * W * ld > INT_MAX))
     return (int)cudaErrorInvalidValue;
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   const float* a = static_cast<const float*>(c1);
   const float* b = static_cast<const float*>(c2);
   float* p = static_cast<float*>(part);
-  float* d = static_cast<float*>(dw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0)
-    return (int)launch_dweight<float>(grad, buf, sc, sh, a, b, p, d, B, H, W,
-                                      C, F, ld, n_split, s);
-  if (dtype == 1)
-    return (int)launch_dweight<__nv_bfloat16>(grad, buf, sc, sh, a, b, p, d,
-                                              B, H, W, C, F, ld, n_split, s);
-  return (int)cudaErrorInvalidValue;
+    err = launch_dweight_f32(grad, buf, sc, sh, a, b, p, B, H, W, C, F, ld, n_split, s);
+  else if (dtype == 1)
+    err = launch_dweight_mma(grad, buf, sc, sh, a, b, p, B, H, W, C, F, ld, n_split,
+                             tile_w, vw, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  const int n = 9 * C * F;
+  sum_partials_kernel<<<tiles(n, 256), 256, 0, s>>>(p, static_cast<float*>(dw), n_split, n);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -82,6 +82,16 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
       : "r"(addr));
 }
 
+// the same four 8x8 matrices, each transposed on its way into the registers:
+// lane i gets column i / 4, rows 2 (i % 4) and 2 (i % 4) + 1 of the stored
+// matrix, so a [pixel][channel] tile becomes mma's channel-major operand
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {

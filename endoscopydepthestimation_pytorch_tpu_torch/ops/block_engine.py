@@ -30,7 +30,9 @@ Per layer the work is three kernels, in ``csrc/block_engine.cu``:
   into the gradient buffer's prefix, and the per-channel (sum dpre*x,
   sum dpre) and sum gy_eff; in bf16 an implicit GEMM on the tensor cores,
   in f32 (the parity dtype) a direct convolution on FFMAs;
-- K6 ``layer_dweight``: the layer's weight gradient, f32.
+- K6 ``layer_dweight``: the layer's weight gradient, f32; in bf16 an
+  implicit GEMM on the tensor cores, in f32 (the parity dtype) a direct
+  reduction on FFMAs, both as per-block partials summed in order.
 
 Between the launches plain PyTorch does only per-channel vector math, as
 XLA does in JAX: the BN folds, the (C1, C2) updates, summing K4's and K5's
@@ -67,9 +69,10 @@ LAUNCHES = {"block_engine_fwd": 0, "block_engine_dinput": 0,
 MAX_GROWTH = 16        # the kernels' compiled maximum of F
 EPS = 1e-5             # BatchNorm's, as torch's and the JAX package's
 TILE_H, TILE_W = 16, 32  # f32 K4's and K5's output tile
-DWEIGHT_TILE_H = 8     # K6's tile is 8 x 32
+DWEIGHT_TILE_H = 8     # f32 K6's tile is 8 x 32
 CHUNK = 16             # channels per chunk
 TARGET_BLOCKS = 1024   # f32 K5 and K6 split work across blocks up to about this
+DWEIGHT_BLOCKS = 264   # bf16 K6: at most this many blocks, one wave at 2 an SM
 SPLIT_BELOW = 132      # bf16 K4 splits its channel chunks below this many tiles
 DINPUT_CHUNK = 32      # bf16 K5's prefix channels per block
 _SOURCES = ("block_engine.cu",)
@@ -91,7 +94,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.block_engine_fwd.argtypes = [i] + [p] * 7 + [i] * 9 + [p]
         lib.block_engine_dinput.argtypes = [i] + [p] * 9 + [i] * 9 + [p]
-        lib.block_engine_dweight.argtypes = [i] + [p] * 8 + [i] * 7 + [p]
+        lib.block_engine_dweight.argtypes = [i] + [p] * 8 + [i] * 9 + [p]
         for fn in (lib.block_engine_fwd, lib.block_engine_dinput,
                    lib.block_engine_dweight):
             fn.restype = i
@@ -253,6 +256,40 @@ def dinput_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
     return TILE_H, TILE_W, n_split
 
 
+def dweight_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
+                   ) -> Tuple[int, int, int]:
+    """K6's (tile_h, tile_w, n_split) for a (b, h, w) image with prefix c:
+    how many blocks share one 16-channel chunk's tiles, each taking the
+    tiles split, split + n_split, ... In bf16 the 256-pixel tile of
+    ``conv3x3_mma.mma_tile`` and at most ``DWEIGHT_BLOCKS`` blocks in all
+    (one wave at two blocks an SM); in f32 8x32 tiles, up to about
+    ``TARGET_BLOCKS`` blocks. Never more splits than tiles."""
+    chunks = _ceil(c, CHUNK)
+    if dtype == torch.bfloat16:
+        tile_h, tile_w = conv3x3_mma.mma_tile(h, w)
+        n_split = DWEIGHT_BLOCKS // chunks
+    else:
+        tile_h, tile_w = DWEIGHT_TILE_H, TILE_W
+        n_split = _ceil(TARGET_BLOCKS, chunks)
+    tiles = conv3x3_mma.n_tiles(b, h, w, tile_h, tile_w)
+    return tile_h, tile_w, max(1, min(tiles, n_split, 65535))
+
+
+def dweight_vector_width(dtype: torch.dtype, c: int, f: int, ld: int,
+                         buf_ptr: int, grad_ptr: int) -> Tuple[int, int]:
+    """How many bf16 channels a lane of the bf16 K6 loads at once: (8, 4),
+    the prefix as 16-byte vectors and g and y as 8-byte ones, where ld % 8
+    == 0, c and f are multiples of 4 and buf and grad are 16-byte aligned;
+    else (1, 1). A prefix vector then starts at a multiple of 8 below c and
+    ends inside the row (ld); a g or y vector starts at c + 4k below c + f
+    and ends at or before c + f. The C entry checks the same. (1, 1) in
+    f32."""
+    if (dtype == torch.bfloat16 and ld % 8 == 0 and c % 4 == 0 and f % 4 == 0
+            and buf_ptr % 16 == 0 and grad_ptr % 16 == 0):
+        return 8, 4
+    return 1, 1
+
+
 def _launch(name: str, buf, tensors, ints) -> None:
     """Launch ``name`` on buf's device and its current stream with buf's
     dtype code, the tensors' pointers and the ints."""
@@ -319,14 +356,16 @@ def layer_dweight(grad, buf, c, f, scale, shift, c1, c2) -> torch.Tensor:
     if buf.device.type == "cpu":
         return layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2)
     b, h, wd, ld = buf.shape
-    n_tiles = b * _ceil(h, DWEIGHT_TILE_H) * _ceil(wd, TILE_W)
-    n_split = max(1, min(n_tiles, _ceil(TARGET_BLOCKS, _ceil(c, CHUNK))))
+    _, tile_w, n_split = dweight_tiling(buf.dtype, b, h, wd, c)
+    vw, _ = dweight_vector_width(buf.dtype, c, f, ld, buf.data_ptr(),
+                                 grad.data_ptr())
+    # the blocks' f32 partials, summed in split order by a second pass
     part = torch.empty((n_split, 9, c, f), dtype=torch.float32,
                        device=buf.device)
     dw = torch.empty((3, 3, c, f), dtype=torch.float32, device=buf.device)
     _launch("block_engine_dweight", buf,
             (grad, buf, scale, shift, c1, c2, part, dw),
-            (b, h, wd, c, f, ld, n_split))
+            (b, h, wd, c, f, ld, n_split, tile_w, vw))
     return dw
 
 

@@ -24,7 +24,7 @@ import torch
 from endoscopydepthestimation_pytorch_tpu.ops import block_engine as jax_engine
 from endoscopydepthestimation_pytorch_tpu_torch.models.fcdensenet import (
     BatchMoments, DenseBlock)
-from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine, dense_conv
+from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine, conv3x3_mma, dense_conv
 
 import torch_port_cases  # noqa: F401  (TF32 off, two threads)
 
@@ -253,3 +253,111 @@ def test_cpu_engine_launches_no_kernel():
                                                        for i in range(4)))
     torch.autograd.grad(out, leaves, [torch.from_numpy(c) for c in cots])
     assert block_engine.LAUNCHES == before
+
+
+def _engine_layers(height=256, width=320):
+    """(H, W, C, ld) of FCDenseNet-57's 44 engine layers: 11 blocks of four
+    growth-12 layers, each block's buffer ld = C0 + 48."""
+    import chip_smoke
+    return [(h, w, c0 + 12 * j, c0 + 48)
+            for h, w, c0 in chip_smoke.dense_block_shapes(height, width) for j in range(4)]
+
+
+@pytest.mark.parametrize("batch", [1, 8, 16])
+def test_dweight_tiling(batch):
+    """K6's tiles at the 44 layers: in bf16 the 256-pixel tile of
+    ``conv3x3_mma.mma_tile``; every split gets at least one tile; the grid
+    (chunks, n_split) fits CUDA's limits and at most DWEIGHT_BLOCKS blocks;
+    the scratch (n_split, 9, C, F) f32 stays within 1 MB a 16-channel chunk.
+    In f32, 8x32 tiles up to ~TARGET_BLOCKS blocks."""
+    for h, w, c, _ in _engine_layers():
+        chunks = -(-c // block_engine.CHUNK)
+        tile_h, tile_w, n_split = block_engine.dweight_tiling(torch.bfloat16, batch, h, w, c)
+        assert (tile_h, tile_w) == conv3x3_mma.mma_tile(h, w)
+        n_tiles = conv3x3_mma.n_tiles(batch, h, w, tile_h, tile_w)
+        assert 1 <= n_split <= min(n_tiles, 65535), (h, w, c)
+        assert chunks * n_split <= block_engine.DWEIGHT_BLOCKS
+        assert n_split == min(n_tiles, block_engine.DWEIGHT_BLOCKS // chunks)
+        assert n_split * 9 * c * 12 * 4 <= chunks * 2 ** 20
+        tile_h, tile_w, n_split = block_engine.dweight_tiling(torch.float32, batch, h, w, c)
+        assert (tile_h, tile_w) == (block_engine.DWEIGHT_TILE_H, block_engine.TILE_W)
+        assert 1 <= n_split <= conv3x3_mma.n_tiles(batch, h, w, tile_h, tile_w)
+    # one tile: one split; a single chunk at 320 tiles: the most blocks
+    assert block_engine.dweight_tiling(torch.bfloat16, 1, 8, 10, 48)[2] == 1
+    assert block_engine.dweight_tiling(torch.bfloat16, 16, 64, 80, 16) == (
+        16, 16, block_engine.DWEIGHT_BLOCKS)
+
+
+def test_dweight_vector_width():
+    """bf16 K6's loads at the 44 layers on 16-byte aligned buffers: every
+    layer takes 16-byte prefix vectors (ld % 8 == 0) and 8-byte g and y
+    vectors (C % 4 == 0); C % 8 == 4 in 22 layers, where a 16-byte g or y
+    vector would be misaligned. No prefix vector that starts below C ends
+    past ld; no g or y vector ends past C + F; each starts on a multiple of
+    its own size in bytes. Anything else takes scalars."""
+    f, c4 = 12, 0
+    for _, _, c, ld in _engine_layers():
+        assert block_engine.dweight_vector_width(torch.bfloat16, c, f, ld, 4096, 8192) == (8, 4)
+        pixel = 7 * ld  # any pixel's row start, in elements
+        for start in range(0, c, 8):
+            assert start + 8 <= ld and 2 * (pixel + start) % 16 == 0
+        for start in range(c, c + f, 4):
+            assert start + 4 <= c + f and 2 * (pixel + start) % 8 == 0
+        c4 += c % 8 == 4
+        assert (2 * (pixel + c) % 16 == 0) == (c % 8 == 0)
+        assert block_engine.dweight_vector_width(torch.float32, c, f, ld, 4096, 8192) == (1, 1)
+    assert c4 == 22
+    for c, f, ld, buf, grad in ((37, 12, 56, 0, 0), (36, 5, 48, 0, 0), (36, 12, 52, 0, 0),
+                                (36, 12, 48, 8, 0), (36, 12, 48, 0, 2), (50, 12, 64, 0, 0)):
+        assert block_engine.dweight_vector_width(torch.bfloat16, c, f, ld, 4096 + buf,
+                                                 8192 + grad) == (1, 1)
+
+
+def _dweight_by_tiles(grad, buf, c, f, scale, shift, c1, c2):
+    """K6's coverage on the CPU: per tile of ``dweight_tiling``, the
+    product of the tile's halo of a (zero outside the image) and its gy_eff
+    (zero outside the image), summed per split over the tiles t = split,
+    split + S, ... in the kernel's order (t -> image t // tiles_img, row
+    (t % tiles_img) // tiles_w, column t % tiles_w), then over the splits
+    in order."""
+    b, h, w, _ = buf.shape
+    tile_h, tile_w, n_split = block_engine.dweight_tiling(torch.bfloat16, b, h, w, c)
+    rows, cols = -(-h // tile_h), -(-w // tile_w)
+    hp, wp = rows * tile_h, cols * tile_w
+    a = torch.zeros(b, hp + 2, wp + 2, c)
+    a[:, 1:h + 1, 1:w + 1] = block_engine._activation(buf, c, scale, shift)
+    gy = torch.zeros(b, hp, wp, f)
+    gy[:, :h, :w] = block_engine._gy_eff(grad, buf, c, f, c1, c2)
+    parts = []
+    for split in range(n_split):
+        part = torch.zeros(3, 3, c, f)
+        for t in range(split, b * rows * cols, n_split):
+            img, ti = divmod(t, rows * cols)
+            h0, w0 = (ti // cols) * tile_h, (ti % cols) * tile_w
+            g_t = gy[img, h0:h0 + tile_h, w0:w0 + tile_w].reshape(-1, f)
+            for ky in range(3):
+                for kx in range(3):
+                    a_t = a[img, h0 + ky:h0 + ky + tile_h, w0 + kx:w0 + kx + tile_w]
+                    part[ky, kx] += a_t.reshape(-1, c).T @ g_t
+        parts.append(part)
+    return torch.stack(parts).sum(0), n_split
+
+
+@pytest.mark.parametrize("b,h,w,c,f,extra", [(2, 17, 33, 7, 5, 3), (3, 9, 21, 20, 12, 0),
+                                             (1, 8, 10, 36, 16, 4), (2, 40, 24, 5, 1, 2)])
+def test_dweight_tiles_cover_each_pixel_once(b, h, w, c, f, extra):
+    """The bf16 K6's (tile, split) assignment, emulated in f32, gives the
+    plain version's dW: every pixel of every image is counted exactly once,
+    in ragged tiles too."""
+    rng = np.random.RandomState(5)
+    ld = c + f + extra
+    buf = torch.from_numpy(rng.randn(b, h, w, ld).astype(np.float32))
+    grad = torch.from_numpy(rng.randn(b, h, w, ld).astype(np.float32))
+    scale = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5)
+    shift = torch.from_numpy(rng.randn(c).astype(np.float32) * 0.3)
+    c1 = torch.from_numpy(rng.randn(f).astype(np.float32) * 0.1)
+    c2 = torch.from_numpy(rng.randn(f).astype(np.float32) * 0.1)
+    got, n_split = _dweight_by_tiles(grad, buf, c, f, scale, shift, c1, c2)
+    assert n_split > 1 or b * h * w <= 256
+    ref = block_engine.layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max())

@@ -588,3 +588,56 @@ def test_block_engine_apply_matches_cpu(device):
     ref = run("cpu")
     for i, (a, r) in enumerate(zip(got, ref)):
         assert _rel(a, r) <= 1e-4, i
+
+
+# (B, H, W, C, F, extra) -> (tile_w, prefix vector width): every bf16 K6
+# instantiation (tile width 32, 16, 8 x 16/8-byte and scalar loads), with
+# ragged tiles, F in {1, 5, 12, 16}, odd C (scalars), C % 8 == 4 (8-byte g
+# and y beside 16-byte prefix vectors), extra = 0 (the last layer of a
+# block: C + F = ld), one tile (n_split = 1) and the wrapper's most splits
+# (DWEIGHT_BLOCKS, one chunk over 320 tiles)
+K6_MMA_SHAPES = {
+    (2, 20, 44, 36, 12, 0): (32, 8), (4, 8, 10, 320, 16, 8): (32, 8),
+    (1, 8, 10, 48, 12, 4): (32, 8), (2, 16, 20, 7, 1, 0): (32, 1),
+    (3, 40, 24, 33, 5, 2): (32, 1), (16, 64, 80, 16, 12, 4): (16, 8),
+    (2, 64, 80, 36, 12, 4): (16, 1), (2, 64, 80, 7, 5, 3): (16, 1),
+    (2, 32, 40, 44, 12, 0): (8, 8), (2, 32, 40, 20, 16, 4): (8, 8),
+    (2, 17, 33, 7, 5, 3): (8, 1),
+}
+
+
+@pytest.mark.parametrize("b,h,w,c,f,extra", list(K6_MMA_SHAPES))
+def test_bf16_dweight_instantiations_match_plain(device, b, h, w, c, f, extra):
+    """Each bf16 K6 instantiation against ``layer_dweight_reference``: the
+    same bf16 operands, f32 sums in another order (mean rel <= 1e-4)."""
+    buf, grad, scale, shift, _, _, c1, c2 = _engine_layer(
+        b, h, w, c, f, extra, torch.bfloat16, device, seed=9)
+    tile_w, vw = K6_MMA_SHAPES[(b, h, w, c, f, extra)]
+    _, got_tile_w, n_split = block_engine.dweight_tiling(torch.bfloat16, b, h, w, c)
+    assert got_tile_w == tile_w
+    assert block_engine.dweight_vector_width(torch.bfloat16, c, f, c + f + extra,
+                                             buf.data_ptr(), grad.data_ptr())[0] == vw
+    if (b, h, w) == (1, 8, 10):
+        assert n_split == 1
+    if (b, c) == (16, 16):
+        assert n_split == block_engine.DWEIGHT_BLOCKS
+    before = block_engine.LAUNCHES["block_engine_dweight"]
+    got = block_engine.layer_dweight(grad, buf, c, f, scale, shift, c1, c2)
+    ref = block_engine.layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2)
+    torch.cuda.synchronize()
+    assert block_engine.LAUNCHES["block_engine_dweight"] == before + 1
+    assert got.shape == (3, 3, c, f) and bool(torch.isfinite(got).all())
+    assert _close(got, ref, torch.bfloat16)
+
+
+def test_engine_dweight_is_deterministic(device):
+    """Two bf16 K6 launches on the same inputs give bitwise-equal dW: the
+    warps' and the splits' partials are summed in a fixed order, no
+    atomics."""
+    b, h, w, c, f, extra = ENGINE_SHAPES[0]
+    buf, grad, scale, shift, _, _, c1, c2 = _engine_layer(
+        b, h, w, c, f, extra, torch.bfloat16, device, seed=10)
+    runs = [block_engine.layer_dweight(grad, buf, c, f, scale, shift, c1, c2)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
