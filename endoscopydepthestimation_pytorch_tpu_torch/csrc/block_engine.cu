@@ -94,18 +94,22 @@
 //       pixels) * gy_eff (256 x 16), mma.sync m16n8k16 with f32
 //       accumulators. One block per (16-channel chunk, split) loops over
 //       the 256-pixel tiles t = split, split + S, ... (the TPU's sequential
-//       grid axis) on two shared-memory stages: the chunk's activated halo
-//       [pos][16] and the tile's gy_eff [pix][16] (rounded as the plain
-//       version rounds it, zero outside the image and for f >= F, so the
-//       padding adds nothing), both built in registers from every load of
-//       the tile issued before the first store. Both operands lie
-//       pixel-major, so both come through ldmatrix .trans; a tap is a fixed
-//       offset from each lane's halo row. 8 warps of 32 pixels each hold all
-//       9 x 16 x 16 sums (72 registers a thread) across the tiles, reduce
-//       in shared memory in warp order, and the block writes its partial;
-//       a second kernel sums the S partials in order. Memory-bound like
-//       K4; every chunk block of a tile re-reads its g and y (24 channels),
-//       mostly from L2, since the chunk blocks of one split run together.
+//       grid axis). A tile's MMAs are short (36 a warp), so what bounds the
+//       loop is the latency of its loads: the raw prefix halo [pos][16], g
+//       and y of each tile go by cp.async into a ring of DW_DEPTH stages,
+//       DW_DEPTH - 1 tiles ahead, and land while the block works on the
+//       tiles before; an in-place pass then activates the halo and turns g
+//       into gy_eff, as the plain version rounds them, zero outside the
+//       image, for channels >= C and for f >= F (so the padding adds
+//       nothing). Both operands lie pixel-major, so both come through
+//       ldmatrix .trans; a tap is a fixed offset from each lane's halo row.
+//       8 warps of 32 pixels each hold all 9 x 16 x 16 sums (72 registers
+//       a thread) across the tiles, reduce in shared memory in warp order,
+//       and the block writes its partial; a second kernel sums the S
+//       partials in order. Every chunk block of a tile re-reads its g and y
+//       (24 channels), mostly from L2: the chunk blocks of one split run
+//       together. (Two and four chunks a block, which stage g and y once
+//       for them, were no faster with register staging; PERF.md §6.)
 //   K6  f32 (the parity dtype): an 8x32 tile set per (16-channel chunk,
 //       split) block, 192 threads = 16 channels x 3 row taps x 4 row
 //       groups; each thread slides a 3-wide window of the activated row
@@ -855,178 +859,242 @@ __global__ void __launch_bounds__(NT6) dweight_kernel(
 // K6 in bf16: the same function as an implicit GEMM on the tensor cores
 
 constexpr int DW_THREADS = 256;  // 8 warps x 32 pixels of a 256-pixel tile
+constexpr int DW_DEPTH = 2;      // the ring's stages: tiles whose copies are in flight
 constexpr int DW_CHUNKS = 1;     // 16-channel chunks a block
-// two stages of the chunks' activated halos [chunk][pos][c] and the tile's
-// gy_eff [pix][f], bf16 at the GP pitch, then the chunks' scale, shift and
-// the layer's c1, c2 (f32); the f32 sums [chunk][tap][c][f] reuse the
-// stages at the end
-constexpr int DW_STAGES = 2 * 2 * (DW_CHUNKS * MMA_HALO + MMA_PIXELS) * GP;  // bytes
-constexpr int DW_SMEM = DW_STAGES + 4 * 2 * CC * (DW_CHUNKS + 1);
-static_assert(DW_STAGES >= 4 * DW_CHUNKS * 9 * CC * MMA_N, "the sums do not fit the stages");
+constexpr int DW_YP = MMA_N;     // y's row pitch (bf16): read by no ldmatrix
+// a stage: the chunks' raw halos [chunk][pos][c] (activated in place), the
+// tile's g [pix][f] (gy_eff in place), both at the GP pitch, and its y
+// [pix][f]
+constexpr int DW_STAGE = 2 * (DW_CHUNKS * MMA_HALO * GP + MMA_PIXELS * (GP + DW_YP));  // bytes
+// the ring, then scale, shift (the chunks') and c1, c2 (f32); the f32 sums
+// [chunk][tap][c][f] reuse the ring at the end
+constexpr int DW_SMEM = DW_DEPTH * DW_STAGE + 4 * 2 * CC * (DW_CHUNKS + 1);
+static_assert(DW_STAGE % 16 == 0 && DW_DEPTH >= 2, "stages hold 16-byte copies");
+static_assert(DW_DEPTH * DW_STAGE >= 4 * DW_CHUNKS * 9 * CC * MMA_N, "the sums do not fit the ring");
+
+__device__ __forceinline__ void cp_async8(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // One block: the DW_CHUNKS 16-channel chunks from blockIdx.x * 16 *
-// DW_CHUNKS over the tiles t = split, split + S, ... (split = blockIdx.y of
-// S = gridDim.y) of 256 pixels, 1 << TWL wide. VW = 8: buf and grad rows
-// 16-byte aligned (ld % 8 == 0, aligned bases) and C, F multiples of 4, so
-// the prefix moves as 16-byte vectors and g, y as 8-byte ones (a vector
-// that starts below C + F ends at or before it); VW = 1: scalars.
+// DW_CHUNKS over the tiles
+// t = split, split + S, ... (split = blockIdx.y of S = gridDim.y) of 256
+// pixels, 1 << TWL wide. VW = 8: buf and grad rows 16-byte aligned (ld % 8
+// == 0, aligned bases) and C, F multiples of 4, so the prefix moves as
+// 16-byte cp.async copies and g, y as 8-byte ones (a vector that starts
+// below C + F ends at or before it); VW = 1: scalar loads and stores.
 template <int TWL, int VW>
 __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel(
     const __nv_bfloat16* grad, const __nv_bfloat16* buf,
     const float* __restrict__ scale, const float* __restrict__ shift,
     const float* __restrict__ c1, const float* __restrict__ c2,
     float* __restrict__ part, int B, int H, int W, int C, int F, int ld) {
-  static_assert(VW == 8 || VW == 1, "a lane loads 8 prefix channels or 1");
+  static_assert(VW == 8 || VW == 1, "a lane moves 8 prefix channels or 1");
   constexpr int NCH = DW_CHUNKS, NC = NCH * CC;  // chunks, channels a block
-  constexpr int GROUPS = DW_THREADS / 32 / NCH;  // pixel groups: warps a chunk
-  constexpr int STEPS = MMA_PIXELS / GROUPS / 16;  // k16 steps a warp, a tile
+  constexpr int STEPS = 2 * NCH;  // k16 steps a warp and tile: 8 / NCH warps a chunk
   constexpr int TW = 1 << TWL, TH = MMA_PIXELS / TW, HP = TW + 2;
   constexpr int N_HALO = (TH + 2) * HP;  // halo positions
   static_assert(N_HALO <= MMA_HALO, "the halo does not fit its shared memory");
-  constexpr int VG = VW > 1 ? 4 : 1;           // g and y channels a lane loads
+  constexpr int VG = VW > 1 ? 4 : 1;           // g and y channels a lane moves
   constexpr int LP = CC / VW, LG = MMA_N / VG;  // lanes a halo position, a pixel
   constexpr int A_STEPS = (N_HALO * LP + DW_THREADS - 1) / DW_THREADS;
   constexpr int G_STEPS = MMA_PIXELS * LG / DW_THREADS;
-  static_assert(A_STEPS <= 32 && G_STEPS <= 32, "the in-image masks are 32 bits");
-  using RawA = HaloRaw<VW>;
-  using RawG = HaloRaw<VG>;
   extern __shared__ __align__(16) unsigned char smem6[];
-  __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(smem6);  // [stage][chunk][pos][c]
-  __nv_bfloat16* s_g = s_a + 2 * NCH * MMA_HALO * GP;            // [stage][pix][f]
-  float* s_par = reinterpret_cast<float*>(smem6 + DW_STAGES);    // scale, shift, c1, c2
+  auto s_a = [&](int st, int kc) {
+    return reinterpret_cast<__nv_bfloat16*>(smem6 + st * DW_STAGE) + kc * MMA_HALO * GP;
+  };
+  auto s_g = [&](int st) { return s_a(st, NCH); };
+  auto s_y = [&](int st) { return s_g(st) + MMA_PIXELS * GP; };
+  float* s_par = reinterpret_cast<float*>(smem6 + DW_DEPTH * DW_STAGE);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c0 = blockIdx.x * NC, split = blockIdx.y, n_split = gridDim.y;
   const int tiles_w = (W + TW - 1) / TW, tiles_img = ((H + TH - 1) / TH) * tiles_w;
   const int n_tiles = B * tiles_img;
-  for (int i = tid; i < 2 * NC; i += DW_THREADS)  // zero for channels >= C
+  // scale, shift (zero for channels >= C), c1, c2 (zero for f >= F); first
+  // read after the loop's first barrier
+  for (int i = tid; i < 2 * NC; i += DW_THREADS)
     s_par[i] = c0 + i % NC < C ? (i < NC ? scale : shift)[c0 + i % NC] : 0.f;
-  if (tid < 2 * CC)  // zero for f >= F
+  if (tid < 2 * CC)
     s_par[2 * NC + tid] = tid % CC < F ? (tid < CC ? c1 : c2)[tid % CC] : 0.f;
-  __syncthreads();
+
+  // Lane roles, the same for every tile: halo position tid / LP + k *
+  // (DW_THREADS / LP) and channels ch0 .. ch0 + VW; pixel tid / LG + k *
+  // (DW_THREADS / LG) and f f0 .. f0 + VG. A lane transforms what it copied.
+  const int ch0 = (tid % LP) * VW, f0 = (tid % LG) * VG;
+  // the lane's prefix channels below C in chunk kc
+  auto below_c = [&](int kc) { return C - c0 - kc * CC - ch0; };
+  struct Tile { int h0, w0; size_t img; };
+  auto tile = [&](int t) {
+    const int ti = t % tiles_img;
+    return Tile{(ti / tiles_w) * TH, (ti % tiles_w) * TW, (size_t)(t / tiles_img) * H * W * ld};
+  };
+  auto halo_in = [&](const Tile& o, int pos) {
+    const int gh = o.h0 + pos / HP - 1, gw = o.w0 + pos % HP - 1;
+    return pos < N_HALO && gh >= 0 && gh < H && gw >= 0 && gw < W;
+  };
+  auto pixel_in = [&](const Tile& o, int m) { return o.h0 + m / TW < H && o.w0 + m % TW < W; };
+  auto halo_row = [&](const Tile& o, int pos) {
+    return (int)((o.h0 + pos / HP - 1) * W + o.w0 + pos % HP - 1) * ld;
+  };
+  auto pixel_row = [&](const Tile& o, int m) {
+    return (int)((o.h0 + m / TW) * W + o.w0 + m % TW) * ld;
+  };
+
+  // 1. tile t's raw prefix halo, g and y into stage st, as copies in flight
+  //    (VW = 8) or loads then stores (VW = 1). What lies outside the image,
+  //    in channels >= C or in f >= F is not copied: step 2 zeroes it by a
+  //    select (for VW = 8 a halo vector may reach into [C, C+F), this
+  //    layer's own y, which step 2 zeroes too).
+  auto copy_tile = [&](int t, int st) {
+    const Tile o = tile(t);
+    const __nv_bfloat16* bb = buf + o.img;
+    const __nv_bfloat16* gb = grad + o.img;
+    if constexpr (VW == 8) {
+#pragma unroll
+      for (int kc = 0; kc < NCH; ++kc)
+#pragma unroll
+        for (int k = 0; k < A_STEPS; ++k) {
+          const int pos = tid / LP + k * (DW_THREADS / LP);
+          if (halo_in(o, pos) && below_c(kc) > 0)
+            cp_async16(smem_addr(s_a(st, kc) + pos * GP + ch0),
+                       bb + halo_row(o, pos) + c0 + kc * CC + ch0);
+        }
+#pragma unroll
+      for (int k = 0; k < G_STEPS; ++k) {
+        const int m = tid / LG + k * (DW_THREADS / LG);
+        if (pixel_in(o, m) && f0 < F) {
+          const int p = pixel_row(o, m) + C + f0;
+          cp_async8(smem_addr(s_g(st) + m * GP + f0), gb + p);
+          cp_async8(smem_addr(s_y(st) + m * DW_YP + f0), bb + p);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kc = 0; kc < NCH; ++kc) {
+        __nv_bfloat16 ra[A_STEPS];
+        const bool any = below_c(kc) > 0;
+#pragma unroll
+        for (int k = 0; k < A_STEPS; ++k) {
+          const int pos = tid / LP + k * (DW_THREADS / LP);
+          if (halo_in(o, pos) && any) ra[k] = bb[halo_row(o, pos) + c0 + kc * CC + ch0];
+        }
+#pragma unroll
+        for (int k = 0; k < A_STEPS; ++k) {
+          const int pos = tid / LP + k * (DW_THREADS / LP);
+          if (halo_in(o, pos) && any) s_a(st, kc)[pos * GP + ch0] = ra[k];
+        }
+      }
+      __nv_bfloat16 rg[G_STEPS], ry[G_STEPS];
+#pragma unroll
+      for (int k = 0; k < G_STEPS; ++k) {
+        const int m = tid / LG + k * (DW_THREADS / LG);
+        if (pixel_in(o, m) && f0 < F) {
+          rg[k] = gb[pixel_row(o, m) + C + f0];
+          ry[k] = bb[pixel_row(o, m) + C + f0];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < G_STEPS; ++k) {
+        const int m = tid / LG + k * (DW_THREADS / LG);
+        if (pixel_in(o, m) && f0 < F) {
+          s_g(st)[m * GP + f0] = rg[k];
+          s_y(st)[m * DW_YP + f0] = ry[k];
+        }
+      }
+    }
+  };
+
+  // 2. in place: the halo activated as the plain version rounds it, zero
+  //    outside the image and for channels >= C; gy_eff (rounded likewise)
+  //    over g, zero outside the image and for f >= F, so the padding of the
+  //    pixel (K) and f (N) dimensions adds nothing.
   const float* s_sc = s_par;
   const float* s_sh = s_par + NC;
   const float* s_c1 = s_par + 2 * NC;
   const float* s_c2 = s_c1 + CC;
-
-  // Staging a tile: the loads of chunk 0's raw prefix halo and of g and y
-  // are issued before the first store, then each further chunk's halo
-  // likewise. The halo is activated in registers as the plain version
-  // rounds it, zero outside the image and for channels >= C (for VW = 8 a
-  // vector may reach into [C, C+F), this layer's own y); gy_eff is zero for
-  // pixels outside the image and f >= F, so the padding of the pixel (K) and
-  // f (N) dimensions adds nothing.
-  const int ch0 = (tid % LP) * VW, f0 = (tid % LG) * VG;  // the same at every step
-  auto stage_tile = [&](int t, int stage) {
-    const int ti = t % tiles_img;
-    const int h0 = (ti / tiles_w) * TH, w0 = (ti % tiles_w) * TW;
-    const size_t img = (size_t)(t / tiles_img) * H * W * ld;
-    const __nv_bfloat16* bb = buf + img;
-    const __nv_bfloat16* gb = grad + img;
-    RawG rg[G_STEPS], ry[G_STEPS];
-    unsigned g_in = 0;  // bit k: step k's pixel is in the image
+  auto transform = [&](int t, int st) {
+    const Tile o = tile(t);
 #pragma unroll
-    for (int kc = 0; kc < NCH; ++kc) {
-      const int cc = kc * CC + ch0;  // the lane's first channel in the block
-      const int nv = C - c0 - cc;    // its channels below C
-      RawA ra[A_STEPS];
-      unsigned a_in = 0;  // bit k: step k's position is in the image
+    for (int kc = 0; kc < NCH; ++kc)
 #pragma unroll
-      for (int k = 0; k < A_STEPS; ++k) {
-        const int pos = tid / LP + k * (DW_THREADS / LP);
-        const int gh = h0 + pos / HP - 1, gw = w0 + pos % HP - 1;
-        const bool in = pos < N_HALO && gh >= 0 && gh < H && gw >= 0 && gw < W;
-        a_in |= (unsigned)in << k;
-        if constexpr (VW == 8) ra[k] = make_uint4(0, 0, 0, 0);
-        else ra[k] = __float2bfloat16(0.f);
-        if (in && nv > 0)
-          ra[k] = *reinterpret_cast<const RawA*>(bb + (gh * W + gw) * ld + c0 + cc);
-      }
-      if (kc == 0) {
+    for (int k = 0; k < A_STEPS; ++k) {
+      const int pos = tid / LP + k * (DW_THREADS / LP);
+      if (pos >= N_HALO) continue;
+      const bool in = halo_in(o, pos);
+      const int nv = below_c(kc), cc = kc * CC + ch0;
+      __nv_bfloat16* pa = s_a(st, kc) + pos * GP + ch0;
+      if constexpr (VW == 8) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(pa);
+        const unsigned r[4] = {raw.x, raw.y, raw.z, raw.w};
+        unsigned out[4];
 #pragma unroll
-        for (int k = 0; k < G_STEPS; ++k) {
-          const int m = tid / LG + k * (DW_THREADS / LG);
-          const int gh = h0 + m / TW, gw = w0 + m % TW;
-          const bool in = gh < H && gw < W;
-          g_in |= (unsigned)in << k;
-          if constexpr (VG == 4) rg[k] = ry[k] = make_uint2(0, 0);
-          else rg[k] = ry[k] = __float2bfloat16(0.f);
-          if (in && f0 < F) {
-            const int p = (gh * W + gw) * ld + C + f0;
-            rg[k] = *reinterpret_cast<const RawG*>(gb + p);
-            ry[k] = *reinterpret_cast<const RawG*>(bb + p);
-          }
+        for (int q = 0; q < 4; ++q) {
+          const float2 v = bf2_to_f2(r[q]);
+          const int j = cc + 2 * q;
+          const float a0 = in && 2 * q < nv ? affine_relu(v.x, s_sc[j], s_sh[j]) : 0.f;
+          const float a1 = in && 2 * q + 1 < nv ? affine_relu(v.y, s_sc[j + 1], s_sh[j + 1]) : 0.f;
+          out[q] = f2_to_bf2(a0, a1);
         }
-      }
-      __nv_bfloat16* sa = s_a + (stage * NCH + kc) * MMA_HALO * GP;
-#pragma unroll
-      for (int k = 0; k < A_STEPS; ++k) {
-        const int pos = tid / LP + k * (DW_THREADS / LP);
-        if (pos >= N_HALO) continue;
-        const bool in = (a_in >> k) & 1u;
-        if constexpr (VW == 8) {
-          const unsigned r[4] = {ra[k].x, ra[k].y, ra[k].z, ra[k].w};
-          unsigned o[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float2 v = bf2_to_f2(r[q]);
-            const int j = cc + 2 * q;
-            const float a0 = in && 2 * q < nv ? affine_relu(v.x, s_sc[j], s_sh[j]) : 0.f;
-            const float a1 = in && 2 * q + 1 < nv ? affine_relu(v.y, s_sc[j + 1], s_sh[j + 1]) : 0.f;
-            o[q] = f2_to_bf2(a0, a1);
-          }
-          *reinterpret_cast<uint4*>(sa + pos * GP + ch0) = make_uint4(o[0], o[1], o[2], o[3]);
-        } else {
-          const float a = in && nv > 0
-              ? affine_relu(__bfloat162float(ra[k]), s_sc[cc], s_sh[cc]) : 0.f;
-          sa[pos * GP + ch0] = __float2bfloat16(a);
-        }
+        *reinterpret_cast<uint4*>(pa) = make_uint4(out[0], out[1], out[2], out[3]);
+      } else {
+        const float a = in && nv > 0 ? affine_relu(__bfloat162float(*pa), s_sc[cc], s_sh[cc]) : 0.f;
+        *pa = __float2bfloat16(a);
       }
     }
-    __nv_bfloat16* sg = s_g + stage * MMA_PIXELS * GP;
 #pragma unroll
     for (int k = 0; k < G_STEPS; ++k) {
       const int m = tid / LG + k * (DW_THREADS / LG);
-      const bool in = (g_in >> k) & 1u;
+      const bool in = pixel_in(o, m);
+      __nv_bfloat16* pg = s_g(st) + m * GP + f0;
+      const __nv_bfloat16* py = s_y(st) + m * DW_YP + f0;
       if constexpr (VG == 4) {
-        const float2 ga = bf2_to_f2(rg[k].x), gc = bf2_to_f2(rg[k].y);
-        const float2 ya = bf2_to_f2(ry[k].x), yc = bf2_to_f2(ry[k].y);
+        const uint2 gr = *reinterpret_cast<const uint2*>(pg);
+        const uint2 yr = *reinterpret_cast<const uint2*>(py);
+        const float2 ga = bf2_to_f2(gr.x), gc = bf2_to_f2(gr.y);
+        const float2 ya = bf2_to_f2(yr.x), yc = bf2_to_f2(yr.y);
         const float gs[4] = {ga.x, ga.y, gc.x, gc.y}, ys[4] = {ya.x, ya.y, yc.x, yc.y};
         float v[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           v[j] = in && f0 + j < F ? gy_eff(gs[j], ys[j], s_c1[f0 + j], s_c2[f0 + j]) : 0.f;
-        *reinterpret_cast<uint2*>(sg + m * GP + f0) =
-            make_uint2(f2_to_bf2(v[0], v[1]), f2_to_bf2(v[2], v[3]));
+        *reinterpret_cast<uint2*>(pg) = make_uint2(f2_to_bf2(v[0], v[1]), f2_to_bf2(v[2], v[3]));
       } else {
-        const float v = in && f0 < F ? gy_eff(__bfloat162float(rg[k]), __bfloat162float(ry[k]),
+        const float v = in && f0 < F ? gy_eff(__bfloat162float(*pg), __bfloat162float(*py),
                                               s_c1[f0], s_c2[f0]) : 0.f;
-        sg[m * GP + f0] = __float2bfloat16(v);
+        *pg = __float2bfloat16(v);
       }
     }
   };
 
-  // The GEMM, per tap: dW_tap (16 channels x 16 f) += a_tap^T (16 x 256
-  // pixels) * gy_eff (256 x 16). Warp w takes chunk w % NCH and pixels
-  // [w / NCH * 16 * STEPS, +16 * STEPS) of each tile as STEPS k16 steps,
-  // and holds all 9 x 16 x 16 sums of its chunk (72 registers a thread).
-  // Both operands lie pixel-major in shared memory, so both come through
-  // ldmatrix .trans. A: lane l addresses pixel (l / 16) * 8 + l % 8 of the
-  // step and channels ((l / 8) % 2) * 8; tap (ky, kx) reads halo position
-  // (m / TW + ky) * HP + m % TW + kx, a fixed offset from the lane's row. B:
-  // lane l addresses pixel ((l / 8) % 2) * 8 + l % 8 and f (l / 16) * 8,
-  // giving b0, b1 of the first n8 tile, then of the second.
+  // 3. The GEMM, per tap: dW_tap (16 channels x 16 f) += a_tap^T (16 x 256
+  //    pixels) * gy_eff (256 x 16). Warp w takes pixels [32w, 32w + 32) of
+  //    each tile as two k16 steps and holds all 9 x 16 x 16 sums (72
+  //    registers a thread). Both operands lie pixel-major in shared memory,
+  //    so both come through ldmatrix .trans. A: lane l addresses pixel
+  //    (l / 16) * 8 + l % 8 of the step and channels ((l / 8) % 2) * 8; tap
+  //    (ky, kx) reads halo position (m / TW + ky) * HP + m % TW + kx, a fixed
+  //    offset from the lane's row. B: lane l addresses pixel ((l / 8) % 2) *
+  //    8 + l % 8 and f (l / 16) * 8, giving b0, b1 of the first n8 tile,
+  //    then of the second.
   const int kc = warp % NCH, m0 = (warp / NCH) * 16 * STEPS;
   unsigned a_base[STEPS], g_base[STEPS];
 #pragma unroll
   for (int s = 0; s < STEPS; ++s) {
     const int ma = m0 + s * 16 + (lane / 16) * 8 + lane % 8;
-    a_base[s] = smem_addr(s_a + (kc * MMA_HALO + (ma / TW) * HP + ma % TW) * GP +
-                          ((lane / 8) % 2) * 8);
+    a_base[s] = smem_addr(s_a(0, kc) + ((ma / TW) * HP + ma % TW) * GP + ((lane / 8) % 2) * 8);
     const int mg = m0 + s * 16 + ((lane / 8) % 2) * 8 + lane % 8;
-    g_base[s] = smem_addr(s_g + mg * GP + (lane / 16) * 8);
+    g_base[s] = smem_addr(s_g(0) + mg * GP + (lane / 16) * 8);
   }
-  constexpr unsigned A_STAGE = 2 * NCH * MMA_HALO * GP, G_STAGE = 2 * MMA_PIXELS * GP;  // bytes
   float acc[9][2][4];
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap)
@@ -1035,35 +1103,48 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[tap][nt][k] = 0.f;
 
-  stage_tile(split, 0);  // split < n_tiles: the C entry checks n_split
-  __syncthreads();
-  int stage = 0;
+  // The ring: tiles split + j * S for j < DW_DEPTH - 1 first, then at each
+  // tile the one DW_DEPTH - 1 tiles ahead, into the stage the previous tile
+  // used. One copy group a tile (empty past the last), so the wait count
+  // is the same at every tile. Two barriers a tile.
+#pragma unroll
+  for (int j = 0; j < DW_DEPTH - 1; ++j) {
+    if (split + j * n_split < n_tiles) copy_tile(split + j * n_split, j);
+    cp_async_commit();
+  }
+  int st = 0;
   for (int t = split; t < n_tiles; t += n_split) {
+    cp_async_wait<DW_DEPTH - 2>();  // this lane's copies of tile t landed
+    __syncthreads();  // ... and every lane's; the previous tile's MMAs are done
+    const int ahead = t + (DW_DEPTH - 1) * n_split;
+    if (ahead < n_tiles) copy_tile(ahead, st == 0 ? DW_DEPTH - 1 : st - 1);
+    cp_async_commit();
+    transform(t, st);
+    __syncthreads();
+    const unsigned off = st * DW_STAGE;
 #pragma unroll
     for (int s = 0; s < STEPS; ++s) {
       unsigned b[4];
-      ldmatrix_x4_trans(g_base[s] + stage * G_STAGE, b);
+      ldmatrix_x4_trans(g_base[s] + off, b);
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky)
 #pragma unroll
         for (int kx = 0; kx < 3; ++kx) {
           unsigned a[4];
-          ldmatrix_x4_trans(a_base[s] + stage * A_STAGE + 2 * GP * (ky * HP + kx), a);
+          ldmatrix_x4_trans(a_base[s] + off + 2 * GP * (ky * HP + kx), a);
           mma_bf16(acc[ky * 3 + kx][0], a, b[0], b[1]);
           mma_bf16(acc[ky * 3 + kx][1], a, b[2], b[3]);
         }
     }
-    // the next tile into the other stage while slower warps and the SM's
-    // other block run their MMAs: one barrier a tile
-    if (t + n_split < n_tiles) stage_tile(t + n_split, stage ^ 1);
-    __syncthreads();
-    stage ^= 1;
+    st = st == DW_DEPTH - 1 ? 0 : st + 1;
   }
+  cp_async_wait<0>();  // only empty groups are left
+  __syncthreads();
 
-  // The warps' sums into s_red [chunk][tap][c][f] in warp order (thread
-  // (g, q) = (lane / 4, lane % 4) holds channels g, g + 8 and f nt*8 + 2q +
-  // {0, 1}), then the block's partial for c < C, f < F. No atomics:
-  // bitwise repeatable.
+  // 4. The warps' sums into s_red [tap][c][f] in warp order (thread (g, q)
+  //    = (lane / 4, lane % 4) holds channels g, g + 8 and f nt*8 + 2q +
+  //    {0, 1}), then the block's partial for c < C, f < F. No atomics:
+  //    bitwise repeatable.
   float* s_red = reinterpret_cast<float*>(smem6);
   const int g = lane / 4, q = lane % 4;
   for (int w = 0; w < DW_THREADS / 32; ++w) {
@@ -1078,8 +1159,8 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
                 s_red + ((kc * 9 + tap) * CC + half * 8 + g) * MMA_N + nt * 8 + 2 * q);
             float2 v = make_float2(acc[tap][nt][2 * half], acc[tap][nt][2 * half + 1]);
             if (w >= NCH) {
-              const float2 o = *p;
-              v = make_float2(o.x + v.x, o.y + v.y);
+              const float2 old = *p;
+              v = make_float2(old.x + v.x, old.y + v.y);
             }
             *p = v;
           }
