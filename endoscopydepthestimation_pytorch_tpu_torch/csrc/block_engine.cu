@@ -108,8 +108,8 @@
 //       and the block writes its partial; a second kernel sums the S
 //       partials in order. Every chunk block of a tile re-reads its g and y
 //       (24 channels), mostly from L2: the chunk blocks of one split run
-//       together. (Two and four chunks a block, which stage g and y once
-//       for them, were no faster with register staging; PERF.md §6.)
+//       together. (Blocks of two and four chunks, which stage g and y once
+//       for them, were slower, and so were 3 and 4 stages; PERF.md §6.)
 //   K6  f32 (the parity dtype): an 8x32 tile set per (16-channel chunk,
 //       split) block, 192 threads = 16 channels x 3 row taps x 4 row
 //       groups; each thread slides a 3-wide window of the activated row
@@ -860,17 +860,15 @@ __global__ void __launch_bounds__(NT6) dweight_kernel(
 
 constexpr int DW_THREADS = 256;  // 8 warps x 32 pixels of a 256-pixel tile
 constexpr int DW_DEPTH = 2;      // the ring's stages: tiles whose copies are in flight
-constexpr int DW_CHUNKS = 1;     // 16-channel chunks a block
 constexpr int DW_YP = MMA_N;     // y's row pitch (bf16): read by no ldmatrix
-// a stage: the chunks' raw halos [chunk][pos][c] (activated in place), the
-// tile's g [pix][f] (gy_eff in place), both at the GP pitch, and its y
-// [pix][f]
-constexpr int DW_STAGE = 2 * (DW_CHUNKS * MMA_HALO * GP + MMA_PIXELS * (GP + DW_YP));  // bytes
-// the ring, then scale, shift (the chunks') and c1, c2 (f32); the f32 sums
-// [chunk][tap][c][f] reuse the ring at the end
-constexpr int DW_SMEM = DW_DEPTH * DW_STAGE + 4 * 2 * CC * (DW_CHUNKS + 1);
+// a stage: the chunk's raw halo [pos][c] (activated in place), the tile's g
+// [pix][f] (gy_eff in place), both at the GP pitch, and its y [pix][f]
+constexpr int DW_STAGE = 2 * (MMA_HALO * GP + MMA_PIXELS * (GP + DW_YP));  // bytes
+// the ring, then scale, shift (the chunk's) and c1, c2 (f32); the f32 sums
+// [tap][c][f] reuse the ring at the end
+constexpr int DW_SMEM = DW_DEPTH * DW_STAGE + 4 * 4 * CC;
 static_assert(DW_STAGE % 16 == 0 && DW_DEPTH >= 2, "stages hold 16-byte copies");
-static_assert(DW_DEPTH * DW_STAGE >= 4 * DW_CHUNKS * 9 * CC * MMA_N, "the sums do not fit the ring");
+static_assert(DW_DEPTH * DW_STAGE >= 4 * 9 * CC * MMA_N, "the sums do not fit the ring");
 
 __device__ __forceinline__ void cp_async8(unsigned dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(src));
@@ -885,8 +883,7 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One block: the DW_CHUNKS 16-channel chunks from blockIdx.x * 16 *
-// DW_CHUNKS over the tiles
+// One block: the 16 prefix channels from blockIdx.x * 16 over the tiles
 // t = split, split + S, ... (split = blockIdx.y of S = gridDim.y) of 256
 // pixels, 1 << TWL wide. VW = 8: buf and grad rows 16-byte aligned (ld % 8
 // == 0, aligned bases) and C, F multiples of 4, so the prefix moves as
@@ -899,8 +896,6 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
     const float* __restrict__ c1, const float* __restrict__ c2,
     float* __restrict__ part, int B, int H, int W, int C, int F, int ld) {
   static_assert(VW == 8 || VW == 1, "a lane moves 8 prefix channels or 1");
-  constexpr int NCH = DW_CHUNKS, NC = NCH * CC;  // chunks, channels a block
-  constexpr int STEPS = 2 * NCH;  // k16 steps a warp and tile: 8 / NCH warps a chunk
   constexpr int TW = 1 << TWL, TH = MMA_PIXELS / TW, HP = TW + 2;
   constexpr int N_HALO = (TH + 2) * HP;  // halo positions
   static_assert(N_HALO <= MMA_HALO, "the halo does not fit its shared memory");
@@ -909,30 +904,29 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
   constexpr int A_STEPS = (N_HALO * LP + DW_THREADS - 1) / DW_THREADS;
   constexpr int G_STEPS = MMA_PIXELS * LG / DW_THREADS;
   extern __shared__ __align__(16) unsigned char smem6[];
-  auto s_a = [&](int st, int kc) {
-    return reinterpret_cast<__nv_bfloat16*>(smem6 + st * DW_STAGE) + kc * MMA_HALO * GP;
-  };
-  auto s_g = [&](int st) { return s_a(st, NCH); };
+  auto s_a = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(smem6 + st * DW_STAGE); };
+  auto s_g = [&](int st) { return s_a(st) + MMA_HALO * GP; };
   auto s_y = [&](int st) { return s_g(st) + MMA_PIXELS * GP; };
   float* s_par = reinterpret_cast<float*>(smem6 + DW_DEPTH * DW_STAGE);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int c0 = blockIdx.x * NC, split = blockIdx.y, n_split = gridDim.y;
+  const int c0 = blockIdx.x * CC, split = blockIdx.y, n_split = gridDim.y;
   const int tiles_w = (W + TW - 1) / TW, tiles_img = ((H + TH - 1) / TH) * tiles_w;
   const int n_tiles = B * tiles_img;
   // scale, shift (zero for channels >= C), c1, c2 (zero for f >= F); first
   // read after the loop's first barrier
-  for (int i = tid; i < 2 * NC; i += DW_THREADS)
-    s_par[i] = c0 + i % NC < C ? (i < NC ? scale : shift)[c0 + i % NC] : 0.f;
-  if (tid < 2 * CC)
-    s_par[2 * NC + tid] = tid % CC < F ? (tid < CC ? c1 : c2)[tid % CC] : 0.f;
+  if (tid < 2 * CC) {
+    const int i = tid % CC;
+    const bool lo = tid < CC;
+    s_par[tid] = c0 + i < C ? (lo ? scale : shift)[c0 + i] : 0.f;
+    s_par[2 * CC + tid] = i < F ? (lo ? c1 : c2)[i] : 0.f;
+  }
 
   // Lane roles, the same for every tile: halo position tid / LP + k *
   // (DW_THREADS / LP) and channels ch0 .. ch0 + VW; pixel tid / LG + k *
   // (DW_THREADS / LG) and f f0 .. f0 + VG. A lane transforms what it copied.
   const int ch0 = (tid % LP) * VW, f0 = (tid % LG) * VG;
-  // the lane's prefix channels below C in chunk kc
-  auto below_c = [&](int kc) { return C - c0 - kc * CC - ch0; };
+  const int nv = C - c0 - ch0;  // the lane's prefix channels below C
   struct Tile { int h0, w0; size_t img; };
   auto tile = [&](int t) {
     const int ti = t % tiles_img;
@@ -961,14 +955,11 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
     const __nv_bfloat16* gb = grad + o.img;
     if constexpr (VW == 8) {
 #pragma unroll
-      for (int kc = 0; kc < NCH; ++kc)
-#pragma unroll
-        for (int k = 0; k < A_STEPS; ++k) {
-          const int pos = tid / LP + k * (DW_THREADS / LP);
-          if (halo_in(o, pos) && below_c(kc) > 0)
-            cp_async16(smem_addr(s_a(st, kc) + pos * GP + ch0),
-                       bb + halo_row(o, pos) + c0 + kc * CC + ch0);
-        }
+      for (int k = 0; k < A_STEPS; ++k) {
+        const int pos = tid / LP + k * (DW_THREADS / LP);
+        if (halo_in(o, pos) && nv > 0)
+          cp_async16(smem_addr(s_a(st) + pos * GP + ch0), bb + halo_row(o, pos) + c0 + ch0);
+      }
 #pragma unroll
       for (int k = 0; k < G_STEPS; ++k) {
         const int m = tid / LG + k * (DW_THREADS / LG);
@@ -979,22 +970,12 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
         }
       }
     } else {
+      __nv_bfloat16 ra[A_STEPS], rg[G_STEPS], ry[G_STEPS];
 #pragma unroll
-      for (int kc = 0; kc < NCH; ++kc) {
-        __nv_bfloat16 ra[A_STEPS];
-        const bool any = below_c(kc) > 0;
-#pragma unroll
-        for (int k = 0; k < A_STEPS; ++k) {
-          const int pos = tid / LP + k * (DW_THREADS / LP);
-          if (halo_in(o, pos) && any) ra[k] = bb[halo_row(o, pos) + c0 + kc * CC + ch0];
-        }
-#pragma unroll
-        for (int k = 0; k < A_STEPS; ++k) {
-          const int pos = tid / LP + k * (DW_THREADS / LP);
-          if (halo_in(o, pos) && any) s_a(st, kc)[pos * GP + ch0] = ra[k];
-        }
+      for (int k = 0; k < A_STEPS; ++k) {
+        const int pos = tid / LP + k * (DW_THREADS / LP);
+        if (halo_in(o, pos) && nv > 0) ra[k] = bb[halo_row(o, pos) + c0 + ch0];
       }
-      __nv_bfloat16 rg[G_STEPS], ry[G_STEPS];
 #pragma unroll
       for (int k = 0; k < G_STEPS; ++k) {
         const int m = tid / LG + k * (DW_THREADS / LG);
@@ -1002,6 +983,11 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
           rg[k] = gb[pixel_row(o, m) + C + f0];
           ry[k] = bb[pixel_row(o, m) + C + f0];
         }
+      }
+#pragma unroll
+      for (int k = 0; k < A_STEPS; ++k) {
+        const int pos = tid / LP + k * (DW_THREADS / LP);
+        if (halo_in(o, pos) && nv > 0) s_a(st)[pos * GP + ch0] = ra[k];
       }
 #pragma unroll
       for (int k = 0; k < G_STEPS; ++k) {
@@ -1019,20 +1005,17 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
   //    over g, zero outside the image and for f >= F, so the padding of the
   //    pixel (K) and f (N) dimensions adds nothing.
   const float* s_sc = s_par;
-  const float* s_sh = s_par + NC;
-  const float* s_c1 = s_par + 2 * NC;
-  const float* s_c2 = s_c1 + CC;
+  const float* s_sh = s_par + CC;
+  const float* s_c1 = s_par + 2 * CC;
+  const float* s_c2 = s_par + 3 * CC;
   auto transform = [&](int t, int st) {
     const Tile o = tile(t);
-#pragma unroll
-    for (int kc = 0; kc < NCH; ++kc)
 #pragma unroll
     for (int k = 0; k < A_STEPS; ++k) {
       const int pos = tid / LP + k * (DW_THREADS / LP);
       if (pos >= N_HALO) continue;
       const bool in = halo_in(o, pos);
-      const int nv = below_c(kc), cc = kc * CC + ch0;
-      __nv_bfloat16* pa = s_a(st, kc) + pos * GP + ch0;
+      __nv_bfloat16* pa = s_a(st) + pos * GP + ch0;
       if constexpr (VW == 8) {
         const uint4 raw = *reinterpret_cast<const uint4*>(pa);
         const unsigned r[4] = {raw.x, raw.y, raw.z, raw.w};
@@ -1040,14 +1023,14 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float2 v = bf2_to_f2(r[q]);
-          const int j = cc + 2 * q;
+          const int j = ch0 + 2 * q;
           const float a0 = in && 2 * q < nv ? affine_relu(v.x, s_sc[j], s_sh[j]) : 0.f;
           const float a1 = in && 2 * q + 1 < nv ? affine_relu(v.y, s_sc[j + 1], s_sh[j + 1]) : 0.f;
           out[q] = f2_to_bf2(a0, a1);
         }
         *reinterpret_cast<uint4*>(pa) = make_uint4(out[0], out[1], out[2], out[3]);
       } else {
-        const float a = in && nv > 0 ? affine_relu(__bfloat162float(*pa), s_sc[cc], s_sh[cc]) : 0.f;
+        const float a = in && nv > 0 ? affine_relu(__bfloat162float(*pa), s_sc[ch0], s_sh[ch0]) : 0.f;
         *pa = __float2bfloat16(a);
       }
     }
@@ -1086,13 +1069,12 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
   //    offset from the lane's row. B: lane l addresses pixel ((l / 8) % 2) *
   //    8 + l % 8 and f (l / 16) * 8, giving b0, b1 of the first n8 tile,
   //    then of the second.
-  const int kc = warp % NCH, m0 = (warp / NCH) * 16 * STEPS;
-  unsigned a_base[STEPS], g_base[STEPS];
+  unsigned a_base[2], g_base[2];
 #pragma unroll
-  for (int s = 0; s < STEPS; ++s) {
-    const int ma = m0 + s * 16 + (lane / 16) * 8 + lane % 8;
-    a_base[s] = smem_addr(s_a(0, kc) + ((ma / TW) * HP + ma % TW) * GP + ((lane / 8) % 2) * 8);
-    const int mg = m0 + s * 16 + ((lane / 8) % 2) * 8 + lane % 8;
+  for (int s = 0; s < 2; ++s) {
+    const int ma = warp * 32 + s * 16 + (lane / 16) * 8 + lane % 8;
+    a_base[s] = smem_addr(s_a(0) + ((ma / TW) * HP + ma % TW) * GP + ((lane / 8) % 2) * 8);
+    const int mg = warp * 32 + s * 16 + ((lane / 8) % 2) * 8 + lane % 8;
     g_base[s] = smem_addr(s_g(0) + mg * GP + (lane / 16) * 8);
   }
   float acc[9][2][4];
@@ -1123,7 +1105,7 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
     __syncthreads();
     const unsigned off = st * DW_STAGE;
 #pragma unroll
-    for (int s = 0; s < STEPS; ++s) {
+    for (int s = 0; s < 2; ++s) {
       unsigned b[4];
       ldmatrix_x4_trans(g_base[s] + off, b);
 #pragma unroll
@@ -1156,9 +1138,9 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             float2* p = reinterpret_cast<float2*>(
-                s_red + ((kc * 9 + tap) * CC + half * 8 + g) * MMA_N + nt * 8 + 2 * q);
+                s_red + (tap * CC + half * 8 + g) * MMA_N + nt * 8 + 2 * q);
             float2 v = make_float2(acc[tap][nt][2 * half], acc[tap][nt][2 * half + 1]);
-            if (w >= NCH) {
+            if (w > 0) {
               const float2 old = *p;
               v = make_float2(old.x + v.x, old.y + v.y);
             }
@@ -1167,11 +1149,10 @@ __global__ void __launch_bounds__(DW_THREADS, VW > 1 ? 2 : 1) dweight_mma_kernel
     }
     __syncthreads();
   }
-  for (int e = tid; e < NCH * 9 * CC * MMA_N; e += DW_THREADS) {
-    const int f = e % MMA_N, c = (e / MMA_N) % CC, tap = (e / (CC * MMA_N)) % 9;
-    const int gc = c0 + (e / (9 * CC * MMA_N)) * CC + c;
-    if (f < F && gc < C)
-      part[(((size_t)split * 9 + tap) * C + gc) * F + f] = s_red[e];
+  for (int e = tid; e < 9 * CC * MMA_N; e += DW_THREADS) {
+    const int f = e % MMA_N, c = (e / MMA_N) % CC, tap = e / (CC * MMA_N);
+    if (f < F && c0 + c < C)
+      part[(((size_t)split * 9 + tap) * C + c0 + c) * F + f] = s_red[e];
   }
 }
 
@@ -1344,7 +1325,7 @@ cudaError_t launch_dweight_mma(const void* grad, const void* buf,
                                const float* c1, const float* c2, float* part,
                                int B, int H, int W, int C, int F, int ld,
                                int n_split, int tile_w, int vw, cudaStream_t s) {
-  const dim3 grid(tiles(C, CC * DW_CHUNKS), n_split);
+  const dim3 grid(tiles(C, CC), n_split);
   auto* g = static_cast<const __nv_bfloat16*>(grad);
   auto* b = static_cast<const __nv_bfloat16*>(buf);
 #define DWEIGHT_LAUNCH(TWL, VW) \

@@ -276,18 +276,18 @@ def dweight_tiling(dtype: torch.dtype, b: int, h: int, w: int, c: int
 
 
 def dweight_vector_width(dtype: torch.dtype, c: int, f: int, ld: int,
-                         buf_ptr: int, grad_ptr: int) -> Tuple[int, int]:
-    """How many bf16 channels a lane of the bf16 K6 loads at once: (8, 4),
-    the prefix as 16-byte vectors and g and y as 8-byte ones, where ld % 8
-    == 0, c and f are multiples of 4 and buf and grad are 16-byte aligned;
-    else (1, 1). A prefix vector then starts at a multiple of 8 below c and
-    ends inside the row (ld); a g or y vector starts at c + 4k below c + f
-    and ends at or before c + f. The C entry checks the same. (1, 1) in
-    f32."""
+                         buf_ptr: int, grad_ptr: int) -> int:
+    """How many bf16 prefix channels a lane of the bf16 K6 copies at once:
+    8 (16-byte vectors, and 8-byte ones of 4 channels for g and y) where ld
+    % 8 == 0, c and f are multiples of 4 and buf and grad are 16-byte
+    aligned; else 1 (scalars). A prefix vector then starts at a multiple of
+    8 below c and ends inside the row (ld); a g or y vector starts at c + 4k
+    below c + f and ends at or before c + f. The C entry checks the same.
+    1 in f32."""
     if (dtype == torch.bfloat16 and ld % 8 == 0 and c % 4 == 0 and f % 4 == 0
             and buf_ptr % 16 == 0 and grad_ptr % 16 == 0):
-        return 8, 4
-    return 1, 1
+        return 8
+    return 1
 
 
 def _launch(name: str, buf, tensors, ints) -> None:
@@ -357,8 +357,7 @@ def layer_dweight(grad, buf, c, f, scale, shift, c1, c2) -> torch.Tensor:
         return layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2)
     b, h, wd, ld = buf.shape
     _, tile_w, n_split = dweight_tiling(buf.dtype, b, h, wd, c)
-    vw, _ = dweight_vector_width(buf.dtype, c, f, ld, buf.data_ptr(),
-                                 grad.data_ptr())
+    vw = dweight_vector_width(buf.dtype, c, f, ld, buf.data_ptr(), grad.data_ptr())
     # the blocks' f32 partials, summed in split order by a second pass
     part = torch.empty((n_split, 9, c, f), dtype=torch.float32,
                        device=buf.device)

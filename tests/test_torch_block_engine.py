@@ -297,7 +297,7 @@ def test_dweight_vector_width():
     its own size in bytes. Anything else takes scalars."""
     f, c4 = 12, 0
     for _, _, c, ld in _engine_layers():
-        assert block_engine.dweight_vector_width(torch.bfloat16, c, f, ld, 4096, 8192) == (8, 4)
+        assert block_engine.dweight_vector_width(torch.bfloat16, c, f, ld, 4096, 8192) == 8
         pixel = 7 * ld  # any pixel's row start, in elements
         for start in range(0, c, 8):
             assert start + 8 <= ld and 2 * (pixel + start) % 16 == 0
@@ -305,12 +305,12 @@ def test_dweight_vector_width():
             assert start + 4 <= c + f and 2 * (pixel + start) % 8 == 0
         c4 += c % 8 == 4
         assert (2 * (pixel + c) % 16 == 0) == (c % 8 == 0)
-        assert block_engine.dweight_vector_width(torch.float32, c, f, ld, 4096, 8192) == (1, 1)
+        assert block_engine.dweight_vector_width(torch.float32, c, f, ld, 4096, 8192) == 1
     assert c4 == 22
     for c, f, ld, buf, grad in ((37, 12, 56, 0, 0), (36, 5, 48, 0, 0), (36, 12, 52, 0, 0),
                                 (36, 12, 48, 8, 0), (36, 12, 48, 0, 2), (50, 12, 64, 0, 0)):
         assert block_engine.dweight_vector_width(torch.bfloat16, c, f, ld, 4096 + buf,
-                                                 8192 + grad) == (1, 1)
+                                                 8192 + grad) == 1
 
 
 def _dweight_by_tiles(grad, buf, c, f, scale, shift, c1, c2):

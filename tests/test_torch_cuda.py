@@ -616,7 +616,7 @@ def test_bf16_dweight_instantiations_match_plain(device, b, h, w, c, f, extra):
     _, got_tile_w, n_split = block_engine.dweight_tiling(torch.bfloat16, b, h, w, c)
     assert got_tile_w == tile_w
     assert block_engine.dweight_vector_width(torch.bfloat16, c, f, c + f + extra,
-                                             buf.data_ptr(), grad.data_ptr())[0] == vw
+                                             buf.data_ptr(), grad.data_ptr()) == vw
     if (b, h, w) == (1, 8, 10):
         assert n_split == 1
     if (b, c) == (16, 16):

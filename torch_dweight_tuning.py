@@ -1,21 +1,19 @@
 #!/usr/bin/env python3
 """Time the bf16 K6 (``block_engine_dweight``) at several ring depths
-(``DW_DEPTH``: tiles whose copies are in flight) and channel chunks a block
-(``DW_CHUNKS``), on one CUDA GPU.
+(``DW_DEPTH``: the stages, tiles whose copies are in flight), on one CUDA
+GPU.
 
-    python3 torch_dweight_tuning.py [--variants 2x1 2x2 3x1 3x2]
+    python3 torch_dweight_tuning.py [--depths 2 3]
 
-Each variant DxC builds one copy of ``csrc/block_engine.cu`` with
-``DW_DEPTH = D`` and ``DW_CHUNKS = C`` (text-substituted, nvcc started
-together, into the git-ignored ``build/tuning/``) and prints ptxas's
-registers and spills for its bf16 K6. Then, at each of FCDenseNet-57's 44
-layers at 2B = 16, 256x320, it launches every variant through
-``ops.block_engine.layer_dweight`` with its own library and n_split (at most
-``DWEIGHT_BLOCKS`` blocks: ``DWEIGHT_BLOCKS // ceil(chunks / C)`` splits),
-checks it against the plain version (mean rel <= 1e-4) and times it alone
-(CUDA graph replay) in two rounds, the variants in turns, the order
-reversed in the second. Prints the device ms by level and in total for
-each variant and round.
+Each depth builds one copy of ``csrc/block_engine.cu`` with that
+``DW_DEPTH`` (text-substituted, nvcc started together, into the
+git-ignored ``build/tuning/``) and prints ptxas's registers and spills for
+its bf16 K6. Then, at each of FCDenseNet-57's 44 layers at 2B = 16,
+256x320, it launches every depth through ``ops.block_engine.layer_dweight``
+with its own library and the wrapper's n_split, checks it against the
+plain version (mean rel <= 1e-4) and times it alone (CUDA graph replay) in
+two rounds, the depths in turns, the order reversed in the second. Prints
+the device ms by level and in total for each depth and round.
 """
 from __future__ import annotations
 
@@ -29,28 +27,25 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 import chip_smoke
-from endoscopydepthestimation_pytorch_tpu_torch.ops import _build, block_engine, conv3x3_mma
-
-CONSTANTS = ("DW_DEPTH", "DW_CHUNKS")
+from endoscopydepthestimation_pytorch_tpu_torch.ops import _build, block_engine
 
 
-def build_variant(variant: str):
-    """The library of variant DxC, and ptxas's report lines of its bf16 K6."""
+def build_variant(depth: int):
+    """The library with DW_DEPTH = depth, and ptxas's report lines of its
+    bf16 K6."""
     source = (_build.CSRC / "block_engine.cu").read_text()
-    for name, value in zip(CONSTANTS, variant.split("x")):
-        line = re.search(rf"constexpr int {name} = \d+;", source)
-        if line is None:
-            raise RuntimeError(f"no {name} in block_engine.cu")
-        source = source.replace(line.group(0), f"constexpr int {name} = {int(value)};")
+    line = re.search(r"constexpr int DW_DEPTH = \d+;", source)
+    if line is None:
+        raise RuntimeError("no DW_DEPTH in block_engine.cu")
     out = _build.BUILD_DIR.parent / "tuning"
     out.mkdir(parents=True, exist_ok=True)
-    src = out / f"block_engine_{variant}.cu"
-    src.write_text(source)
-    lib = out / f"block_engine_{variant}.so"
+    src = out / f"block_engine_depth{depth}.cu"
+    src.write_text(source.replace(line.group(0), f"constexpr int DW_DEPTH = {depth};"))
+    lib = out / f"block_engine_depth{depth}.so"
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                            "-o", str(lib), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {variant}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for DW_DEPTH = {depth}:\n{proc.stderr}")
     report, name = [], None
     for line in (proc.stdout + proc.stderr).splitlines():
         if "Compiling entry function" in line:
@@ -62,7 +57,7 @@ def build_variant(variant: str):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--variants", nargs="+", default=["2x1", "2x2", "3x1", "3x2"])
+    parser.add_argument("--depths", type=int, nargs="+", default=[2, 3])
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_dweight_tuning: needs a CUDA GPU", file=sys.stderr)
@@ -72,17 +67,17 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
-    with ThreadPoolExecutor(len(args.variants)) as pool:
-        built = dict(zip(args.variants, pool.map(build_variant, args.variants)))
-    for variant, (_, report) in built.items():
-        print(f"DW_DEPTH x DW_CHUNKS = {variant}:\n" + "\n".join(report))
+    with ThreadPoolExecutor(len(args.depths)) as pool:
+        built = dict(zip(args.depths, pool.map(build_variant, args.depths)))
+    for depth, (_, report) in built.items():
+        print(f"DW_DEPTH = {depth}:\n" + "\n".join(report))
 
     batch, height, width = 16, 256, 320
     levels = chip_smoke._levels(height, width)
-    ms = {(n, r): dict.fromkeys(levels, 0.0) for n in args.variants for r in range(2)}
-    worst = dict.fromkeys(args.variants, 0.0)
+    ms = {(n, r): dict.fromkeys(levels, 0.0) for n in args.depths for r in range(2)}
+    worst = dict.fromkeys(args.depths, 0.0)
     g = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 14)
-    library, tiling = block_engine._library, block_engine.dweight_tiling
+    library = block_engine._library
     for h, w, c0 in chip_smoke.dense_block_shapes(height, width):
         buf = torch.randn(batch, h, w, c0 + 48, generator=g, device="cuda").bfloat16()
         grad = torch.randn(batch, h, w, c0 + 48, generator=g, device="cuda").bfloat16()
@@ -93,35 +88,28 @@ def main() -> int:
             c1 = torch.randn(f, generator=g, device="cuda") * 0.1
             c2 = torch.randn(f, generator=g, device="cuda") * 0.1
             ref = block_engine.layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2)
-            tile_h, tile_w, _ = tiling(torch.bfloat16, batch, h, w, c)
-            n_tiles = conv3x3_mma.n_tiles(batch, h, w, tile_h, tile_w)
-            chunks = -(-c // conv3x3_mma.CHUNK)
 
             def call():
                 return block_engine.layer_dweight(grad, buf, c, f, scale, shift, c1, c2)
 
             for r in range(2):
-                for variant in (args.variants if r == 0 else args.variants[::-1]):
-                    per_block = int(variant.split("x")[1])
-                    n = max(1, min(n_tiles, block_engine.DWEIGHT_BLOCKS
-                                   // -(-chunks // per_block)))
-                    block_engine._library = lambda lib=built[variant][0]: lib
-                    block_engine.dweight_tiling = lambda *_, n=n: (tile_h, tile_w, n)
+                for depth in (args.depths if r == 0 else args.depths[::-1]):
+                    block_engine._library = lambda lib=built[depth][0]: lib
                     try:
                         got = call()
                         rel = ((got - ref).abs().mean() / ref.abs().mean()).item()
-                        worst[variant] = max(worst[variant], rel)
-                        ms[(variant, r)][chip_smoke._level(h, height, width)] += \
+                        worst[depth] = max(worst[depth], rel)
+                        ms[(depth, r)][chip_smoke._level(h, height, width)] += \
                             chip_smoke._graph_ms(call)
                     finally:
-                        block_engine._library, block_engine.dweight_tiling = library, tiling
+                        block_engine._library = library
         del buf, grad
-    for (variant, r), t in ms.items():
-        print(f"timing [{card}] bf16 K6 DW_DEPTH x DW_CHUNKS = {variant}, round {r + 1}, 44 layers b16 "
+    for (depth, r), t in ms.items():
+        print(f"timing [{card}] bf16 K6 DW_DEPTH = {depth}, round {r + 1}, 44 layers b16 "
               f"256x320, device ms alone: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
               + f" (total {sum(t.values()):.4f})")
     print("mean rel against the plain version: "
-          + ", ".join(f"{n}: {v:.3e}" for n, v in worst.items()))
+          + ", ".join(f"DW_DEPTH = {n}: {v:.3e}" for n, v in worst.items()))
     if max(worst.values()) > 1e-4:
         raise AssertionError("a variant disagrees with the plain version")
     return 0
