@@ -486,7 +486,7 @@ def tensor_core_sass_check() -> None:
     the bf16 K1, K4, K5 and K6 must run on the tensor cores (HMMA
     instructions in every instantiation: K1's 9 = 3 tile widths x 16-byte,
     8-byte and scalar halo loads, K4's, K5's and K6's 6 = 3 x vector and
-    scalar loads; K1 and K4 36 each, K5 72, as in PR 7), and no bf16
+    scalar loads; K1 and K4 36 each, K5 72), and no bf16
     instantiation of their FFMA kernels may exist."""
     checks = ((dense_conv, "dense_conv", (("K1", "fwd_mma_kernel", 9, 36, "dense_conv_fwd_kernel"),)),
               (block_engine, "block_engine", (("K4", "fwd_mma_kernel", 6, 36, "fwd_kernel"),
