@@ -62,8 +62,18 @@ to the CPU or to a kernel's plain version):
  11. for comparison, the same with the engine's gate closed, so every
      block takes the materialized route (44 K1 launches per step and no
      K4-K6), then ten pairs of one step on each route, alternating which
-     runs first. Only the main path's launches (7, 9) enter the
-     ``kernels`` line.
+     runs first;
+ 12. the trainer (``train.main``, the CLI's entry point) on a
+     synthetic SfM data root written by ``tests/torch_sfm_sequence.py``:
+     two sequences of 15 raw 1024x1280 frames (a 256x320 crop). The
+     precompute in spawned workers, the native host rasterizer bit for
+     bit against its numpy version, the loader alone, then the trainer at
+     b8 bf16 for epochs 0 and 1 (6 steps each, validation, a checkpoint
+     each) and a resume from the epoch-0 checkpoint for epoch 1 under
+     ``--profile_dir``: each run's launches (K2-K6, no K1), finite losses,
+     every checkpoint loaded back, the median step against (9)'s, and the
+     device's idle share of the profiled epoch.
+Only the main paths' launches (7, 9, 12) enter the ``kernels`` line.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -87,13 +97,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from endoscopydepthestimation_pytorch_tpu_torch import train as trainer
 from endoscopydepthestimation_pytorch_tpu_torch import training
-from endoscopydepthestimation_pytorch_tpu_torch.data import SequenceData
+from endoscopydepthestimation_pytorch_tpu_torch.data import (SequenceData, augment, dataset,
+                                                           native, preprocess, rasterizer,
+                                                           readers)
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
     FCDenseNet57, init_weights, save_reference_checkpoint)
 from endoscopydepthestimation_pytorch_tpu_torch.ops import (block_engine, conv3x3_mma,
                                                           dense_conv, warp_sample)
 from endoscopydepthestimation_pytorch_tpu_torch.serving import DepthPredictor
+from endoscopydepthestimation_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from torch_sfm_sequence import write_sequence  # noqa: E402  (the tests' SfM writer)
 
 CSRC = "endoscopydepthestimation_pytorch_tpu_torch/csrc/"
 JAX_OPS = "endoscopydepthestimation_pytorch_tpu/ops/"
@@ -446,13 +463,16 @@ def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def build_phase() -> None:
-    """Build the three kernel libraries, one nvcc each, started together."""
+    """Build the three kernel libraries (one nvcc each) and the host
+    rasterizer (g++), all started together."""
     t0 = time.perf_counter()
     modules = (dense_conv, warp_sample, block_engine)
-    with ThreadPoolExecutor(len(modules)) as pool:
+    with ThreadPoolExecutor(len(modules) + 1) as pool:
+        host = pool.submit(native.build)
         reports = list(pool.map(lambda m: m.build_report(), modules))
-    print(f"built dense_conv.cu, warp_sample.cu and block_engine.cu for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s; ptxas report:")
+        host.result()
+    print(f"built dense_conv.cu, warp_sample.cu and block_engine.cu for sm_90a and the "
+          f"host rasterizer (g++) in {time.perf_counter() - t0:.1f} s; ptxas report:")
     for report in reports:
         # one line a kernel: its mangled name after the file's anonymous
         # namespace (kernel and template arguments), registers, stack
@@ -1185,6 +1205,214 @@ def paired_steps_phase(card: str, config, engine_state, materialized_state, data
           f"{[round(t, 3) for t in ms[False]]}")
 
 
+TRAINER_FRAMES, TRAINER_RAW = 15, (1024, 1280)  # per sequence; two sequences
+
+
+def _trainer_argv(data: Path, out: Path, *extra) -> list:
+    """The trainer at b8 bf16 on the card: 48 samples an epoch (6 steps),
+    epochs 0 and 1, a board every 2 steps, every step's metrics read
+    back, the precompute's pickle loaded."""
+    return ["--adjacent_range", "2", "6", "--id_range", "1", "2",
+            "--input_size", "256", "320", "--batch_size", "8", "--num_iter", "48",
+            "--number_epoch", "1", "--display_interval", "2", "--log_interval", "1",
+            "--validation_interval", "1", "--num_workers", "8",
+            "--training_patient_id", "1", "--testing_patient_id", "1",
+            "--validation_patient_id", "1", "--load_intermediate_data",
+            "--training_data_root", str(data), "--training_result_root", str(out),
+            "--device", "cuda", *extra]
+
+
+def _trainer_expected(train_steps: int, evals: int) -> dict:
+    """The kernel launches of a trainer run: each train step K2, K3 and
+    44 of K4, K5 and K6; each validation batch (the train-mode forward
+    with the batch statistics) K2 and 44 of K4; no K1."""
+    return {"dense_conv_fwd": 0, "warp_sample_fwd": train_steps + evals,
+            "warp_sample_bwd": train_steps, "block_engine_fwd": 44 * (train_steps + evals),
+            "block_engine_dinput": 44 * train_steps,
+            "block_engine_dweight": 44 * train_steps}
+
+
+def _check_checkpoint(path: Path) -> dict:
+    """Load ``path`` back into a fresh bf16 FCDenseNet-57 on the card; the
+    model, the momentum, ``count`` and ``step`` must equal the file's."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    state = training.create_train_state(FCDenseNet57(dtype=torch.bfloat16).cuda())
+    state, epoch, _ = ckpt.load_checkpoint(path, state)
+    same = (int(state.step) == raw["step"]
+            and int(state.count) == raw["optimizer"]["param_groups"][0]["count"]
+            and all(torch.equal(b.cpu(), raw["optimizer"]["state"][i]["momentum_buffer"])
+                    for i, b in enumerate(state.momentum))
+            and all(torch.equal(v.cpu(), raw["model"][f"module.{k}"])
+                    for k, v in state.model.state_dict().items()))
+    if not same:
+        raise AssertionError(f"{path.name} does not load back")
+    return {"epoch": epoch, "step": raw["step"],
+            "count": raw["optimizer"]["param_groups"][0]["count"]}
+
+
+def _board_ms(state, host_batch: dict, out: Path) -> dict:
+    """The host cost of one training board at the trainer's batch: its
+    readback and drawing (``train._board``) and its PNG write
+    (``MetricWriter.add_image``), each the median of 3, on the metrics of
+    one ``eval_step`` with images."""
+    from endoscopydepthestimation_pytorch_tpu_torch.parallel import to_device
+    from endoscopydepthestimation_pytorch_tpu_torch.utils.visualization import MetricWriter
+    device = state.step.device
+    batch = to_device(host_batch, device)
+    config = training.TrainConfig(compute_dtype=state.model.dtype)
+    metrics = training.eval_step(state, batch, torch.tensor(0.1, device=device), config,
+                                 with_images=True, use_batch_stats=True)
+    torch.cuda.synchronize()
+    writer = MetricWriter(out)
+    times = {"board": [], "png": []}
+    for i in range(3):
+        t0 = time.perf_counter()
+        board = trainer._board(batch, metrics, False)
+        t1 = time.perf_counter()
+        writer.add_image("Training/Images/Results", board, i)
+        times["board"].append((t1 - t0) * 1e3)
+        times["png"].append((time.perf_counter() - t1) * 1e3)
+    writer.close()
+    return {"board": float(np.median(times["board"])),
+            "png": float(np.median(times["png"])), "shape": "x".join(map(str, board.shape))}
+
+
+def trainer_phase(card: str, synthetic_step_ms: float) -> dict:
+    """(12) The trainer, ``train.main``, on a synthetic SfM data root
+    of two sequences of TRAINER_FRAMES raw 1024x1280 frames (3000 points
+    each; a 256x320 crop at ``--input_downsampling 4``): the precompute
+    (two spawned workers), the native rasterizer against its numpy version
+    at that size, the loader alone, then the trainer at b8 bf16 for epochs
+    0 and 1 (6 steps each, validation, a checkpoint each) and a resume from
+    the epoch-0 checkpoint for epoch 1 under ``--profile_dir``. Each run's
+    launches are counted from 0 and must be the trainer's; every loss is
+    finite and every checkpoint loads back with its momentum, count and
+    step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data, tmp = Path(tmp) / "data", Path(tmp)
+        t0 = time.perf_counter()
+        for segment in (1, 2):
+            write_sequence(data, seed=SEED + 20 + segment, n_frames=TRAINER_FRAMES,
+                           height=TRAINER_RAW[0], width=TRAINER_RAW[1], n_points=3000,
+                           segment=segment, first_frame=100 * segment)
+        written = time.perf_counter() - t0
+        folders = readers.get_parent_folder_names(data, [1, 2])
+        t0 = time.perf_counter()
+        sequences = preprocess.load_or_run_precompute(
+            data, folders, 4.0, 64, False, 0.99, 30, "train", use_store_data=False,
+            num_workers=8)
+        precompute_s = time.perf_counter() - t0
+        print(f"trainer phase [{card}]: wrote 2 sequences of {TRAINER_FRAMES} frames "
+              f"{TRAINER_RAW[0]}x{TRAINER_RAW[1]} in {written:.1f} s; precompute "
+              f"{precompute_s:.2f} s (2 spawned workers)")
+        for seq in sequences.values():
+            clean = float(seq.clean_point_list.mean())
+            if seq.mask_boundary.shape != (TRAINER_RAW[0] // 4, TRAINER_RAW[1] // 4) or clean < 0.9:
+                raise AssertionError(f"crop {seq.mask_boundary.shape}, clean {clean}")
+
+        seq = next(iter(sequences.values()))
+        pair = dict(pair_extrinsics=[seq.extrinsics[0], seq.extrinsics[5]],
+                    pair_projections=[seq.projections[0], seq.projections[5]],
+                    pair_indexes=[seq.visible_view_indexes[0], seq.visible_view_indexes[5]],
+                    point_cloud=seq.point_cloud, mask_boundary=seq.mask_boundary,
+                    view_indexes_per_point=seq.view_indexes_per_point,
+                    clean_point_list=seq.clean_point_list,
+                    visible_view_indexes=seq.visible_view_indexes)
+        times, outs = {}, {}
+        for name, fn in (("numpy", rasterizer.rasterize_pair),
+                         ("native", native.rasterize_pair_native)):
+            fn(**pair)  # warm-up (and the build, where build_phase has not run)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                outs[name] = fn(**pair)
+            times[name] = (time.perf_counter() - t0) * 1e3 / 20
+        if not all(np.array_equal(a, b) for a, b in zip(outs["numpy"], outs["native"])):
+            raise AssertionError("the native rasterizer disagrees with rasterize_pair")
+        print(f"  host rasterizer at 256x320, 3000 points, bit for bit equal: native "
+              f"{times['native']:.3f} ms, numpy {times['numpy']:.3f} ms a pair [host CPU]")
+
+        files, _, _ = readers.get_color_file_names_by_bag(data, 1, 1, 1)
+        train_set = dataset.SfMDataset(
+            image_file_names=files, folder_list=folders, adjacent_range=[2, 6],
+            transform=augment.TrainingAugmentation(seed=trainer.SEED),
+            use_store_data=True, store_data_root=data, phase="train", num_iter=48)
+        loader = dataset.BatchLoader(train_set, 8, shuffle=True, num_workers=8)
+        t0 = time.perf_counter()
+        batches = list(loader)
+        loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        print(f"  loader alone: {len(batches)} batches of 8 at 256x320 in "
+              f"{loader_ms:.2f} ms a batch, 8 threads [host CPU of the {card} machine]")
+
+        runs = {}
+        for label, extra, steps in (
+                ("first", (), 12),
+                ("resumed", ("--load_trained_model", "--profile_dir", str(tmp / "profile"),
+                             "--trained_model_path"), 6)):
+            if label == "resumed":
+                extra = extra + (str(runs["first"]["run"].checkpoints[0]),)
+            evals = 3 * (2 if label == "first" else 1)  # 30 frames: 3 batches of 8
+            _reset_launch_counts()
+            rasterized = native.LAUNCHES
+            run = trainer.main(_trainer_argv(data, tmp / label, *extra))
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            rasterized = native.LAUNCHES - rasterized
+            expected = _trainer_expected(steps, evals)
+            print(f"  {label} run [{card}]: launches {launches} (expected {expected}); "
+                  f"native rasterizer {rasterized}")
+            if launches != expected:
+                raise AssertionError(f"unexpected launch counts {launches}")
+            if len(run.losses) != steps or not np.isfinite(run.losses).all():
+                raise AssertionError(f"losses {run.losses}")
+            if rasterized < 8 * steps:
+                raise AssertionError(f"{rasterized} native rasterizations")
+            loaded = [_check_checkpoint(p) for p in run.checkpoints]
+            print(f"  {label} run: losses {[round(v, 5) for v in run.losses]}; "
+                  f"checkpoints load back {loaded}")
+            runs[label] = {"run": run, "launches": launches, "loaded": loaded}
+
+        first, resumed = runs["first"]["run"], runs["resumed"]["run"]
+        if (runs["resumed"]["loaded"][-1]["step"], runs["resumed"]["loaded"][-1]["count"]) != (
+                runs["first"]["loaded"][-1]["step"], runs["first"]["loaded"][-1]["count"]) \
+                or int(resumed.state.step) != 12:
+            raise AssertionError("the resume did not carry step and count over")
+        want = torch.load(first.checkpoints[1], map_location="cpu", weights_only=True)
+        got = torch.load(resumed.checkpoints[0], map_location="cpu", weights_only=True)
+        drift = max(_rel(got["model"][k].float(), v.float()) for k, v in want["model"].items()
+                    if v.is_floating_point() and v.abs().max() > 0)
+        print(f"  resumed epoch 1 against the first run's epoch 1: step "
+              f"{got['step']} / {want['step']}, count "
+              f"{got['optimizer']['param_groups'][0]['count']} / "
+              f"{want['optimizer']['param_groups'][0]['count']}, weights max|d|/max|ref| "
+              f"{drift:.3e}")
+
+        board_ms = _board_ms(resumed.state, batches[0], tmp / "board")
+        median = float(np.median(first.step_ms))
+        profile = resumed.profile
+        print(f"timing [{card}] trainer step bf16 b8 256x320: median {median:.4f} ms "
+              f"({8000 / median:.2f} samples/s) of {len(first.step_ms)} steps after 2 "
+              f"warm-up steps (board every 2 steps); steps ms "
+              f"{[round(t, 3) for t in first.step_ms]}")
+        print(f"timing [{card}] trainer step against the synthetic-batch train step "
+              f"{synthetic_step_ms:.4f} ms: {median - synthetic_step_ms:+.4f} ms "
+              f"({median / synthetic_step_ms:.3f}x)")
+        # the timer's interval ending at an even step holds that step's board
+        boarded, plain = first.step_ms[0::2], first.step_ms[1::2]
+        print(f"timing [{card}] trainer steps with a board: median "
+              f"{np.median(boarded):.4f} ms; without: median {np.median(plain):.4f} ms "
+              f"({8000 / np.median(plain):.2f} samples/s); one b8 board alone (median of "
+              f"3): {board_ms['board']:.3f} ms to read back and draw, "
+              f"{board_ms['png']:.3f} ms to write its {board_ms['shape']} PNG [host CPU]")
+        print(f"profile [{card}] trainer epoch 1 after the resume, 6 steps: window "
+              f"{profile['window_ms'] / 6:.3f} ms/step, device busy "
+              f"{profile['device_busy_ms'] / 6:.3f} ms/step, idle share "
+              f"{profile['idle_share']:.4f}")
+        launches = {k: runs["first"]["launches"][k] + runs["resumed"]["launches"][k]
+                    for k in runs["first"]["launches"]}
+    return {"launches": launches, "median_ms": median, "loader_ms": loader_ms,
+            "precompute_s": precompute_s, "idle_share": profile["idle_share"]}
+
+
 def _run(cmd) -> str:
     out = subprocess.run(cmd, capture_output=True, text=True, check=True)
     return out.stdout.strip()
@@ -1274,7 +1502,12 @@ def main() -> int:
                            materialized["ms"], "materialized-route ")
     paired_steps_phase(card, config, train["state"], materialized["state"],
                        train["data"])
+    synthetic_ms = train["ms"]
     del train, materialized
+    print(f"trainer phase, {card}:")
+    trained = trainer_phase(card, synthetic_ms)
+    for name, n in trained["launches"].items():
+        launches[name] += n
 
     measured = {
         "dense_conv_fwd": dict(kernel),

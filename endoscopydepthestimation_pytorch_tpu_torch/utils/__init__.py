@@ -1,1 +1,1 @@
-from .checkpoint import load_any_checkpoint  # noqa: F401
+from .checkpoint import load_any_checkpoint, load_checkpoint, save_checkpoint  # noqa: F401

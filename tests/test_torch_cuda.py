@@ -641,3 +641,27 @@ def test_engine_dweight_is_deterministic(device):
             for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(*runs)
+
+
+def test_device_prefetch_copies_every_batch_to_the_card(device):
+    """``device_prefetch`` on the card: each batch's arrays arrive equal,
+    in order, as tensors on the current device; list fields stay on the
+    host; a step's stream may read a batch as soon as it is yielded (the
+    stream waits on the copy's event), even while the next copies run."""
+    import numpy as np
+
+    from endoscopydepthestimation_pytorch_tpu_torch.parallel import device_prefetch
+    rng = np.random.RandomState(0)
+    batches = [{"color_1": rng.rand(8, 256, 320, 3).astype(np.float32),
+                "boundary": rng.rand(8, 256, 320, 1).astype(np.float32),
+                "names": [str(i)] * 8} for i in range(5)]
+    seen = []
+    for host, moved in zip(batches, device_prefetch(iter(batches), "cuda", depth=2)):
+        assert sorted(moved) == ["boundary", "color_1"]
+        assert moved["color_1"].device.index == torch.cuda.current_device()
+        total = moved["color_1"].sum() + moved["boundary"].sum()  # read on the step's stream
+        seen.append((total, host))
+    for total, host in seen:
+        want = host["color_1"].astype(np.float64).sum() + host["boundary"].astype(np.float64).sum()
+        assert abs(total.item() - want) <= 1e-4 * want
+    assert len(seen) == 5

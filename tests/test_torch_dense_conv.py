@@ -285,7 +285,20 @@ def test_port_imports_no_jax():
             "import endoscopydepthestimation_pytorch_tpu_torch.ops.gridsample\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.ops.warp_sample\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.ops.block_engine\n"
-            "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'triton')\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.train\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.data.readers\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.data.preprocess\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.data.rasterizer\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.data.native\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.data.augment\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.data.dataset\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.parallel.prefetch\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.utils.checkpoint\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.utils.plyio\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.utils.profiling\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.utils.visualization\n"
+            "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'triton',\n"
+            "                   'endoscopydepthestimation_pytorch_tpu')\n"
             "       if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

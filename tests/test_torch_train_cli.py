@@ -1,0 +1,169 @@
+"""The port's trainer (``python -m
+endoscopydepthestimation_pytorch_tpu_torch.train``) on the CPU: FCDenseNet-57
+at 64x64, b2, 2 steps an epoch, epochs 0 and 1, on a seeded synthetic SfM
+sequence (tests/torch_sfm_sequence.py), then a resume from the epoch-0
+checkpoint. The resumed epoch 1 must end where the first run's epoch 1
+ended, bit for bit: the checkpoint restores the model, the momentum,
+``count`` and ``step`` exactly, and each epoch's batches depend only on the
+seed and the epoch. The JAX package's ``load_any_checkpoint`` reads the
+port's ``.pt``; each flag the port does not carry raises.
+"""
+import io
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from endoscopydepthestimation_pytorch_tpu import training as jtraining
+from endoscopydepthestimation_pytorch_tpu.models import FCDenseNet57 as JaxFCDenseNet57
+from endoscopydepthestimation_pytorch_tpu.utils import checkpoint as jckpt
+from endoscopydepthestimation_pytorch_tpu.utils import visualization as jviz
+from endoscopydepthestimation_pytorch_tpu_torch import train, training
+from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet57, from_jax_variables
+from endoscopydepthestimation_pytorch_tpu_torch.utils import checkpoint as ckpt
+from endoscopydepthestimation_pytorch_tpu_torch.utils import visualization as viz
+
+from torch_sfm_sequence import write_sequence
+
+
+def _argv(data_root, result_root, *extra):
+    return ["--adjacent_range", "1", "3", "--id_range", "1", "2",
+            "--input_size", "64", "64", "--batch_size", "2", "--num_iter", "4",
+            "--number_epoch", "1", "--display_interval", "1", "--log_interval", "1",
+            "--num_workers", "2", "--num_pre_workers", "1",
+            "--training_patient_id", "1", "--testing_patient_id", "1",
+            "--validation_patient_id", "1", "--compute_dtype", "float32",
+            "--training_data_root", str(data_root),
+            "--training_result_root", str(result_root), "--device", "cpu", *extra]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The first run (epochs 0 and 1) and the resume from its epoch-0
+    checkpoint (epoch 1)."""
+    root = tmp_path_factory.mktemp("cli")
+    write_sequence(root / "data", seed=7)
+    first = train.main(_argv(root / "data", root / "first"))
+    resumed = train.main(_argv(root / "data", root / "resumed", "--load_trained_model",
+                               "--trained_model_path", str(first.checkpoints[0])))
+    return first, resumed
+
+
+def test_cli_writes_checkpoints_scalars_and_boards(runs):
+    first, _ = runs
+    root = first.log_root
+    assert root.name.startswith("depth_estimation_train_run_") and root.name.endswith("_test_id_1")
+    assert [p.name.split("_validation_")[0] for p in first.checkpoints] == [
+        "checkpoint_model_epoch_0", "checkpoint_model_epoch_1"]
+    assert all(p.exists() and p.suffix == ".pt" for p in first.checkpoints)
+    records = [json.loads(line) for line in (root / "scalars.jsonl").read_text().splitlines()]
+    tags = [r["tag"] for r in records]
+    assert tags.count("Training") == 2 and tags.count("Validation") == 2  # 1 of 2 steps late
+    for epoch in (0, 1):
+        exported = json.loads((root / f"all_scalars_{epoch}.json").read_text())
+        assert set(exported) == {"Training", "Validation"}
+    assert len(list(root.glob("Training_Images_Results_*.png"))) == 4  # every step
+    assert list(root.glob("Validation_Images_Results_*.png"))
+    assert len(first.losses) == 4 and np.isfinite(first.losses).all()
+
+
+def test_checkpoint_holds_the_state(runs):
+    """The epoch-0 file: the model with the ``module.`` prefix, a momentum
+    buffer per parameter, ``count`` and ``step`` after 2 steps, the epoch
+    to resume at; loading it restores them exactly."""
+    first, _ = runs
+    raw = torch.load(first.checkpoints[0], weights_only=True)
+    assert sorted(raw) == ["epoch", "model", "optimizer", "step", "validation"]
+    assert raw["epoch"] == 1 and raw["step"] == 2
+    assert all(k.startswith("module.") for k in raw["model"])
+    (group,) = raw["optimizer"]["param_groups"]
+    assert group["count"] == 2
+    model = FCDenseNet57()
+    n_params = len(list(model.parameters()))
+    assert sorted(raw["optimizer"]["state"]) == list(range(n_params))
+    state, epoch, validation = ckpt.load_checkpoint(first.checkpoints[0],
+                                                    training.create_train_state(model))
+    assert (epoch, validation) == (1, raw["validation"])
+    assert int(state.step) == int(state.count) == 2
+    assert any(b.abs().sum() > 0 for b in state.momentum)
+    for i, b in enumerate(state.momentum):
+        assert torch.equal(b, raw["optimizer"]["state"][i]["momentum_buffer"])
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, raw["model"][f"module.{k}"]), k
+
+
+def test_resume_ends_where_the_first_run_ended(runs):
+    """Epoch 1 of the resumed run reproduces epoch 1 of the first run bit
+    for bit: weights, BN statistics, momentum, count and step."""
+    first, resumed = runs
+    assert len(resumed.checkpoints) == 1
+    assert resumed.losses == first.losses[2:]
+    want = torch.load(first.checkpoints[1], weights_only=True)
+    got = torch.load(resumed.checkpoints[0], weights_only=True)
+    assert got["step"] == want["step"] == 4 and got["epoch"] == want["epoch"] == 2
+    assert got["optimizer"]["param_groups"] == want["optimizer"]["param_groups"]
+    for k, v in want["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    for i, s in want["optimizer"]["state"].items():
+        assert torch.equal(got["optimizer"]["state"][i]["momentum_buffer"],
+                           s["momentum_buffer"]), i
+
+
+def test_jax_package_reads_the_ports_checkpoint(runs):
+    """The JAX ``load_any_checkpoint`` reads the port's ``.pt``: its weights
+    come back to the port unchanged, and its step."""
+    first, _ = runs
+    template = jax.eval_shape(lambda: jtraining.create_train_state(
+        JaxFCDenseNet57(n_classes=1), jax.random.PRNGKey(0), (1, 64, 64, 3),
+        jtraining.TrainConfig()))
+    state, epoch, validation = jckpt.load_any_checkpoint(first.checkpoints[1], template)
+    raw = torch.load(first.checkpoints[1], weights_only=True)
+    assert (int(state.step), epoch, validation) == (4, 2, raw["validation"])
+    back = from_jax_variables(jax.tree.map(np.asarray, state.params),
+                              jax.tree.map(np.asarray, state.batch_stats))
+    assert sorted(back) == sorted(k.removeprefix("module.") for k in raw["model"])
+    for k, v in back.items():
+        if "num_batches_tracked" not in k:
+            assert torch.equal(v, raw["model"][f"module.{k}"]), k
+
+
+@pytest.mark.parametrize("flag", [
+    ["--fused_convs"], ["--remat"], ["--act8"], ["--segmented_last_up"],
+    ["--no-segmented_last_up"], ["--split_last_skip"], ["--no-split_last_skip"],
+    ["--architecture", "unet"], ["--coordinator_address", "localhost:1234"],
+    ["--num_processes", "2"], ["--process_id", "0"]])
+def test_flags_not_ported_raise(tmp_path, flag):
+    """Each flag for what the port does not carry raises, naming its
+    ROADMAP item, before anything is read or written."""
+    with pytest.raises(ValueError, match="ROADMAP"):
+        train.main(_argv(tmp_path / "data", tmp_path / "out", *flag))
+    assert not (tmp_path / "out").exists()
+
+
+def test_block_engine_flag_is_accepted():
+    args = train.build_parser().parse_args(_argv("d", "r", "--block_engine"))
+    train._refuse_unported(args)
+    assert args.block_engine and args.device == "cpu"
+
+
+def test_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """``--device`` defaults to cuda, and without a card the trainer raises
+    rather than fall back to the CPU."""
+    argv = _argv(tmp_path / "data", tmp_path / "out")[:-2]
+    assert train.build_parser().parse_args(argv).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(argv)
+
+
+def test_write_event_writes_the_jax_record():
+    """One sorted-key JSON line with the data, ``step`` and a ``dt``
+    stamp, as the JAX package's ``write_event`` writes it."""
+    got, want = io.StringIO(), io.StringIO()
+    viz.write_event(got, 3, loss=0.5, sfl=0.25)
+    jviz.write_event(want, 3, loss=0.5, sfl=0.25)
+    g, w = json.loads(got.getvalue()), json.loads(want.getvalue())
+    assert got.getvalue().endswith("\n") and list(g) == list(w) == sorted(w)
+    assert {k: v for k, v in g.items() if k != "dt"} == {k: v for k, v in w.items() if k != "dt"}
