@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA GPU.
+"""Drive the PyTorch port's serving, training and evaluation paths on one
+CUDA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit; nothing falls back
 to the CPU or to a kernel's plain version):
 
-  1. environment: the card's name and power limit, torch, CUDA and nvcc
-     versions, whether OpenCV imports;
+  1. environment: the card's name and power limit, torch, CUDA, nvcc and
+     OpenCV versions;
   2. build: ``csrc/dense_conv.cu`` (K1), ``csrc/warp_sample.cu`` (K2, K3)
      and ``csrc/block_engine.cu`` (K4, K5, K6; K1 and K4 share the bf16
      body in ``csrc/conv3x3_mma.cuh``), one nvcc each, started together,
@@ -72,8 +73,23 @@ to the CPU or to a kernel's plain version):
      each) and a resume from the epoch-0 checkpoint for epoch 1 under
      ``--profile_dir``: each run's launches (K2-K6, no K1), finite losses,
      every checkpoint loaded back, the median step against (9)'s, and the
-     device's idle share of the profiled epoch.
-Only the main paths' launches (7, 9, 12) enter the ``kernels`` line.
+     device's idle share of the profiled epoch;
+ 13. evaluation (``evaluate.main``, the evaluate CLI's entry point) on
+     (12)'s epoch-1 checkpoint and data root, FCDenseNet-57 at 256x320:
+     the f32 validation phase on the card against ``--device cpu`` on 4
+     frame pairs (``metrics.json`` at rtol 1e-3), then the validation
+     phase over 15 frames at b8 (a ragged last batch) and the test phase
+     on 4 frames, each in f32 and bf16: every board, cloud and image
+     written, finite metrics, every PLY parsed back with finite z >= 0,
+     44 K1 a forward and one K2 a validation batch, ms a frame, and the
+     host's time to write one PLY and one PNG;
+ 14. UNet (depth 6, wf 6), which runs PyTorch's convs and K2/K3: one f32
+     step on the card against the CPU at b2 128x160, then the trainer
+     with ``--architecture unet`` at b8 256x320 bf16 for 12 steps and its
+     validation (K2 and K3 every step, no K1 or K4-K6), finite losses, the
+     checkpoint loaded back, the median step.
+Only the main paths' launches (7, 9, 12, 13's counted runs, 14b) enter
+the ``kernels`` line.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -93,21 +109,23 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import cv2
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from endoscopydepthestimation_pytorch_tpu_torch import evaluate, training
 from endoscopydepthestimation_pytorch_tpu_torch import train as trainer
-from endoscopydepthestimation_pytorch_tpu_torch import training
 from endoscopydepthestimation_pytorch_tpu_torch.data import (SequenceData, augment, dataset,
                                                            native, preprocess, rasterizer,
                                                            readers)
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
-    FCDenseNet57, init_weights, save_reference_checkpoint)
+    FCDenseNet57, UNet, init_weights, save_reference_checkpoint)
 from endoscopydepthestimation_pytorch_tpu_torch.ops import (block_engine, conv3x3_mma,
                                                           dense_conv, warp_sample)
 from endoscopydepthestimation_pytorch_tpu_torch.serving import DepthPredictor
 from endoscopydepthestimation_pytorch_tpu_torch.utils import checkpoint as ckpt
+from endoscopydepthestimation_pytorch_tpu_torch.utils import plyio
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_sfm_sequence import write_sequence  # noqa: E402  (the tests' SfM writer)
@@ -1232,11 +1250,13 @@ def _trainer_expected(train_steps: int, evals: int) -> dict:
             "block_engine_dweight": 44 * train_steps}
 
 
-def _check_checkpoint(path: Path) -> dict:
-    """Load ``path`` back into a fresh bf16 FCDenseNet-57 on the card; the
-    model, the momentum, ``count`` and ``step`` must equal the file's."""
+def _check_checkpoint(path: Path, model: torch.nn.Module = None) -> dict:
+    """Load ``path`` back into a fresh ``model`` (by default a bf16
+    FCDenseNet-57) on the card; the model, the momentum, ``count`` and
+    ``step`` must equal the file's."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
-    state = training.create_train_state(FCDenseNet57(dtype=torch.bfloat16).cuda())
+    model = FCDenseNet57(dtype=torch.bfloat16) if model is None else model
+    state = training.create_train_state(model.cuda())
     state, epoch, _ = ckpt.load_checkpoint(path, state)
     same = (int(state.step) == raw["step"]
             and int(state.count) == raw["optimizer"]["param_groups"][0]["count"]
@@ -1277,7 +1297,7 @@ def _board_ms(state, host_batch: dict, out: Path) -> dict:
             "png": float(np.median(times["png"])), "shape": "x".join(map(str, board.shape))}
 
 
-def trainer_phase(card: str, synthetic_step_ms: float) -> dict:
+def trainer_phase(card: str, synthetic_step_ms: float, tmp: Path) -> dict:
     """(12) The trainer, ``train.main``, on a synthetic SfM data root
     of two sequences of TRAINER_FRAMES raw 1024x1280 frames (3000 points
     each; a 256x320 crop at ``--input_downsampling 4``): the precompute
@@ -1288,129 +1308,396 @@ def trainer_phase(card: str, synthetic_step_ms: float) -> dict:
     launches are counted from 0 and must be the trainer's; every loss is
     finite and every checkpoint loads back with its momentum, count and
     step."""
-    with tempfile.TemporaryDirectory() as tmp:
-        data, tmp = Path(tmp) / "data", Path(tmp)
+    data = tmp / "data"
+    t0 = time.perf_counter()
+    for segment in (1, 2):
+        write_sequence(data, seed=SEED + 20 + segment, n_frames=TRAINER_FRAMES,
+                       height=TRAINER_RAW[0], width=TRAINER_RAW[1], n_points=3000,
+                       segment=segment, first_frame=100 * segment)
+    written = time.perf_counter() - t0
+    folders = readers.get_parent_folder_names(data, [1, 2])
+    t0 = time.perf_counter()
+    sequences = preprocess.load_or_run_precompute(
+        data, folders, 4.0, 64, False, 0.99, 30, "train", use_store_data=False,
+        num_workers=8)
+    precompute_s = time.perf_counter() - t0
+    print(f"trainer phase [{card}]: wrote 2 sequences of {TRAINER_FRAMES} frames "
+          f"{TRAINER_RAW[0]}x{TRAINER_RAW[1]} in {written:.1f} s; precompute "
+          f"{precompute_s:.2f} s (2 spawned workers)")
+    for seq in sequences.values():
+        clean = float(seq.clean_point_list.mean())
+        if seq.mask_boundary.shape != (TRAINER_RAW[0] // 4, TRAINER_RAW[1] // 4) or clean < 0.9:
+            raise AssertionError(f"crop {seq.mask_boundary.shape}, clean {clean}")
+
+    seq = next(iter(sequences.values()))
+    pair = dict(pair_extrinsics=[seq.extrinsics[0], seq.extrinsics[5]],
+                pair_projections=[seq.projections[0], seq.projections[5]],
+                pair_indexes=[seq.visible_view_indexes[0], seq.visible_view_indexes[5]],
+                point_cloud=seq.point_cloud, mask_boundary=seq.mask_boundary,
+                view_indexes_per_point=seq.view_indexes_per_point,
+                clean_point_list=seq.clean_point_list,
+                visible_view_indexes=seq.visible_view_indexes)
+    times, outs = {}, {}
+    for name, fn in (("numpy", rasterizer.rasterize_pair),
+                     ("native", native.rasterize_pair_native)):
+        fn(**pair)  # warm-up (and the build, where build_phase has not run)
         t0 = time.perf_counter()
-        for segment in (1, 2):
-            write_sequence(data, seed=SEED + 20 + segment, n_frames=TRAINER_FRAMES,
-                           height=TRAINER_RAW[0], width=TRAINER_RAW[1], n_points=3000,
-                           segment=segment, first_frame=100 * segment)
-        written = time.perf_counter() - t0
-        folders = readers.get_parent_folder_names(data, [1, 2])
-        t0 = time.perf_counter()
-        sequences = preprocess.load_or_run_precompute(
-            data, folders, 4.0, 64, False, 0.99, 30, "train", use_store_data=False,
-            num_workers=8)
-        precompute_s = time.perf_counter() - t0
-        print(f"trainer phase [{card}]: wrote 2 sequences of {TRAINER_FRAMES} frames "
-              f"{TRAINER_RAW[0]}x{TRAINER_RAW[1]} in {written:.1f} s; precompute "
-              f"{precompute_s:.2f} s (2 spawned workers)")
-        for seq in sequences.values():
-            clean = float(seq.clean_point_list.mean())
-            if seq.mask_boundary.shape != (TRAINER_RAW[0] // 4, TRAINER_RAW[1] // 4) or clean < 0.9:
-                raise AssertionError(f"crop {seq.mask_boundary.shape}, clean {clean}")
+        for _ in range(20):
+            outs[name] = fn(**pair)
+        times[name] = (time.perf_counter() - t0) * 1e3 / 20
+    if not all(np.array_equal(a, b) for a, b in zip(outs["numpy"], outs["native"])):
+        raise AssertionError("the native rasterizer disagrees with rasterize_pair")
+    print(f"  host rasterizer at 256x320, 3000 points, bit for bit equal: native "
+          f"{times['native']:.3f} ms, numpy {times['numpy']:.3f} ms a pair [host CPU]")
 
-        seq = next(iter(sequences.values()))
-        pair = dict(pair_extrinsics=[seq.extrinsics[0], seq.extrinsics[5]],
-                    pair_projections=[seq.projections[0], seq.projections[5]],
-                    pair_indexes=[seq.visible_view_indexes[0], seq.visible_view_indexes[5]],
-                    point_cloud=seq.point_cloud, mask_boundary=seq.mask_boundary,
-                    view_indexes_per_point=seq.view_indexes_per_point,
-                    clean_point_list=seq.clean_point_list,
-                    visible_view_indexes=seq.visible_view_indexes)
-        times, outs = {}, {}
-        for name, fn in (("numpy", rasterizer.rasterize_pair),
-                         ("native", native.rasterize_pair_native)):
-            fn(**pair)  # warm-up (and the build, where build_phase has not run)
-            t0 = time.perf_counter()
-            for _ in range(20):
-                outs[name] = fn(**pair)
-            times[name] = (time.perf_counter() - t0) * 1e3 / 20
-        if not all(np.array_equal(a, b) for a, b in zip(outs["numpy"], outs["native"])):
-            raise AssertionError("the native rasterizer disagrees with rasterize_pair")
-        print(f"  host rasterizer at 256x320, 3000 points, bit for bit equal: native "
-              f"{times['native']:.3f} ms, numpy {times['numpy']:.3f} ms a pair [host CPU]")
+    files, _, _ = readers.get_color_file_names_by_bag(data, 1, 1, 1)
+    train_set = dataset.SfMDataset(
+        image_file_names=files, folder_list=folders, adjacent_range=[2, 6],
+        transform=augment.TrainingAugmentation(seed=trainer.SEED),
+        use_store_data=True, store_data_root=data, phase="train", num_iter=48)
+    loader = dataset.BatchLoader(train_set, 8, shuffle=True, num_workers=8)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    print(f"  loader alone: {len(batches)} batches of 8 at 256x320 in "
+          f"{loader_ms:.2f} ms a batch, 8 threads [host CPU of the {card} machine]")
 
-        files, _, _ = readers.get_color_file_names_by_bag(data, 1, 1, 1)
-        train_set = dataset.SfMDataset(
-            image_file_names=files, folder_list=folders, adjacent_range=[2, 6],
-            transform=augment.TrainingAugmentation(seed=trainer.SEED),
-            use_store_data=True, store_data_root=data, phase="train", num_iter=48)
-        loader = dataset.BatchLoader(train_set, 8, shuffle=True, num_workers=8)
-        t0 = time.perf_counter()
-        batches = list(loader)
-        loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
-        print(f"  loader alone: {len(batches)} batches of 8 at 256x320 in "
-              f"{loader_ms:.2f} ms a batch, 8 threads [host CPU of the {card} machine]")
+    runs = {}
+    for label, extra, steps in (
+            ("first", (), 12),
+            ("resumed", ("--load_trained_model", "--profile_dir", str(tmp / "profile"),
+                         "--trained_model_path"), 6)):
+        if label == "resumed":
+            extra = extra + (str(runs["first"]["run"].checkpoints[0]),)
+        evals = 3 * (2 if label == "first" else 1)  # 30 frames: 3 batches of 8
+        _reset_launch_counts()
+        rasterized = native.LAUNCHES
+        run = trainer.main(_trainer_argv(data, tmp / label, *extra))
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        rasterized = native.LAUNCHES - rasterized
+        expected = _trainer_expected(steps, evals)
+        print(f"  {label} run [{card}]: launches {launches} (expected {expected}); "
+              f"native rasterizer {rasterized}")
+        if launches != expected:
+            raise AssertionError(f"unexpected launch counts {launches}")
+        if len(run.losses) != steps or not np.isfinite(run.losses).all():
+            raise AssertionError(f"losses {run.losses}")
+        if rasterized < 8 * steps:
+            raise AssertionError(f"{rasterized} native rasterizations")
+        loaded = [_check_checkpoint(p) for p in run.checkpoints]
+        print(f"  {label} run: losses {[round(v, 5) for v in run.losses]}; "
+              f"checkpoints load back {loaded}")
+        runs[label] = {"run": run, "launches": launches, "loaded": loaded}
 
-        runs = {}
-        for label, extra, steps in (
-                ("first", (), 12),
-                ("resumed", ("--load_trained_model", "--profile_dir", str(tmp / "profile"),
-                             "--trained_model_path"), 6)):
-            if label == "resumed":
-                extra = extra + (str(runs["first"]["run"].checkpoints[0]),)
-            evals = 3 * (2 if label == "first" else 1)  # 30 frames: 3 batches of 8
-            _reset_launch_counts()
-            rasterized = native.LAUNCHES
-            run = trainer.main(_trainer_argv(data, tmp / label, *extra))
-            torch.cuda.synchronize()
-            launches = _launch_counts()
-            rasterized = native.LAUNCHES - rasterized
-            expected = _trainer_expected(steps, evals)
-            print(f"  {label} run [{card}]: launches {launches} (expected {expected}); "
-                  f"native rasterizer {rasterized}")
-            if launches != expected:
-                raise AssertionError(f"unexpected launch counts {launches}")
-            if len(run.losses) != steps or not np.isfinite(run.losses).all():
-                raise AssertionError(f"losses {run.losses}")
-            if rasterized < 8 * steps:
-                raise AssertionError(f"{rasterized} native rasterizations")
-            loaded = [_check_checkpoint(p) for p in run.checkpoints]
-            print(f"  {label} run: losses {[round(v, 5) for v in run.losses]}; "
-                  f"checkpoints load back {loaded}")
-            runs[label] = {"run": run, "launches": launches, "loaded": loaded}
+    first, resumed = runs["first"]["run"], runs["resumed"]["run"]
+    if (runs["resumed"]["loaded"][-1]["step"], runs["resumed"]["loaded"][-1]["count"]) != (
+            runs["first"]["loaded"][-1]["step"], runs["first"]["loaded"][-1]["count"]) \
+            or int(resumed.state.step) != 12:
+        raise AssertionError("the resume did not carry step and count over")
+    want = torch.load(first.checkpoints[1], map_location="cpu", weights_only=True)
+    got = torch.load(resumed.checkpoints[0], map_location="cpu", weights_only=True)
+    drift = max(_rel(got["model"][k].float(), v.float()) for k, v in want["model"].items()
+                if v.is_floating_point() and v.abs().max() > 0)
+    print(f"  resumed epoch 1 against the first run's epoch 1: step "
+          f"{got['step']} / {want['step']}, count "
+          f"{got['optimizer']['param_groups'][0]['count']} / "
+          f"{want['optimizer']['param_groups'][0]['count']}, weights max|d|/max|ref| "
+          f"{drift:.3e}")
 
-        first, resumed = runs["first"]["run"], runs["resumed"]["run"]
-        if (runs["resumed"]["loaded"][-1]["step"], runs["resumed"]["loaded"][-1]["count"]) != (
-                runs["first"]["loaded"][-1]["step"], runs["first"]["loaded"][-1]["count"]) \
-                or int(resumed.state.step) != 12:
-            raise AssertionError("the resume did not carry step and count over")
-        want = torch.load(first.checkpoints[1], map_location="cpu", weights_only=True)
-        got = torch.load(resumed.checkpoints[0], map_location="cpu", weights_only=True)
-        drift = max(_rel(got["model"][k].float(), v.float()) for k, v in want["model"].items()
-                    if v.is_floating_point() and v.abs().max() > 0)
-        print(f"  resumed epoch 1 against the first run's epoch 1: step "
-              f"{got['step']} / {want['step']}, count "
-              f"{got['optimizer']['param_groups'][0]['count']} / "
-              f"{want['optimizer']['param_groups'][0]['count']}, weights max|d|/max|ref| "
-              f"{drift:.3e}")
-
-        board_ms = _board_ms(resumed.state, batches[0], tmp / "board")
-        median = float(np.median(first.step_ms))
-        profile = resumed.profile
-        print(f"timing [{card}] trainer step bf16 b8 256x320: median {median:.4f} ms "
-              f"({8000 / median:.2f} samples/s) of {len(first.step_ms)} steps after 2 "
-              f"warm-up steps (board every 2 steps); steps ms "
-              f"{[round(t, 3) for t in first.step_ms]}")
-        print(f"timing [{card}] trainer step against the synthetic-batch train step "
-              f"{synthetic_step_ms:.4f} ms: {median - synthetic_step_ms:+.4f} ms "
-              f"({median / synthetic_step_ms:.3f}x)")
-        # the timer's interval ending at an even step holds that step's board
-        boarded, plain = first.step_ms[0::2], first.step_ms[1::2]
-        print(f"timing [{card}] trainer steps with a board: median "
-              f"{np.median(boarded):.4f} ms; without: median {np.median(plain):.4f} ms "
-              f"({8000 / np.median(plain):.2f} samples/s); one b8 board alone (median of "
-              f"3): {board_ms['board']:.3f} ms to read back and draw, "
-              f"{board_ms['png']:.3f} ms to write its {board_ms['shape']} PNG [host CPU]")
-        print(f"profile [{card}] trainer epoch 1 after the resume, 6 steps: window "
-              f"{profile['window_ms'] / 6:.3f} ms/step, device busy "
-              f"{profile['device_busy_ms'] / 6:.3f} ms/step, idle share "
-              f"{profile['idle_share']:.4f}")
-        launches = {k: runs["first"]["launches"][k] + runs["resumed"]["launches"][k]
-                    for k in runs["first"]["launches"]}
+    board_ms = _board_ms(resumed.state, batches[0], tmp / "board")
+    median = float(np.median(first.step_ms))
+    profile = resumed.profile
+    print(f"timing [{card}] trainer step bf16 b8 256x320: median {median:.4f} ms "
+          f"({8000 / median:.2f} samples/s) of {len(first.step_ms)} steps after 2 "
+          f"warm-up steps (board every 2 steps); steps ms "
+          f"{[round(t, 3) for t in first.step_ms]}")
+    print(f"timing [{card}] trainer step against the synthetic-batch train step "
+          f"{synthetic_step_ms:.4f} ms: {median - synthetic_step_ms:+.4f} ms "
+          f"({median / synthetic_step_ms:.3f}x)")
+    # the timer's interval ending at an even step holds that step's board
+    boarded, plain = first.step_ms[0::2], first.step_ms[1::2]
+    print(f"timing [{card}] trainer steps with a board: median "
+          f"{np.median(boarded):.4f} ms; without: median {np.median(plain):.4f} ms "
+          f"({8000 / np.median(plain):.2f} samples/s); one b8 board alone (median of "
+          f"3): {board_ms['board']:.3f} ms to read back and draw, "
+          f"{board_ms['png']:.3f} ms to write its {board_ms['shape']} PNG [host CPU]")
+    print(f"profile [{card}] trainer epoch 1 after the resume, 6 steps: window "
+          f"{profile['window_ms'] / 6:.3f} ms/step, device busy "
+          f"{profile['device_busy_ms'] / 6:.3f} ms/step, idle share "
+          f"{profile['idle_share']:.4f}")
+    launches = {k: runs["first"]["launches"][k] + runs["resumed"]["launches"][k]
+                for k in runs["first"]["launches"]}
     return {"launches": launches, "median_ms": median, "loader_ms": loader_ms,
-            "precompute_s": precompute_s, "idle_share": profile["idle_share"]}
+            "precompute_s": precompute_s, "idle_share": profile["idle_share"],
+            "data": data, "checkpoint": first.checkpoints[1]}
+
+
+EVAL_BATCH = 8
+EVAL_FRAMES = ["100", "101", "102", "103"]  # the test phase's frames (sequence 1)
+
+
+def _evaluate_argv(data: Path, checkpoint: Path, out: Path, phase: str, *extra) -> list:
+    """The evaluate CLI on sequence 1 of the trainer phase's data root (15
+    frames), at b8 256x320, with the precompute's pickle loaded."""
+    folder = sorted(readers.get_parent_folder_names(data, [1, 2]))[0]
+    return ["--adjacent_range", "2", "6", "--id_range", "1", "2",
+            "--input_size", "256", "320", "--batch_size", str(EVAL_BATCH),
+            "--num_workers", "8", "--testing_patient_id", "1", "--load_intermediate_data",
+            "--trained_model_path", str(checkpoint), "--sequence_root", str(folder),
+            "--evaluation_result_root", str(out), "--evaluation_data_root", str(data),
+            "--phase", phase, *extra]
+
+
+def _check_clouds(paths) -> int:
+    """Each PLY parses back with points whose z is finite and >= 0; returns
+    the number of points."""
+    n = 0
+    for path in paths:
+        z = plyio.read_ply_vertices(path)["z"]
+        if z.size == 0 or not (np.isfinite(z).all() and (z >= 0).all()):
+            raise AssertionError(f"{path.name}: {z.size} points, z in "
+                                 f"[{z.min() if z.size else None}, {z.max() if z.size else None}]")
+        n += z.size
+    return n
+
+
+def evaluate_phase(card: str, data: Path, checkpoint: Path, tmp: Path) -> dict:
+    """(13) The evaluate CLI, ``evaluate.main``, on the trainer phase's
+    epoch-1 checkpoint and data root, FCDenseNet-57 at 256x320: first the
+    f32 validation phase on 4 frame pairs (one batch of 4) on the card
+    against ``--device cpu`` (TF32 off; ``metrics.json`` at rtol 1e-3);
+    then, counted and timed, the validation phase over sequence 1's 15
+    frames at b8 (a batch of 8 and a ragged one of 7, padded) and the test
+    phase on 4 frames, each in f32 (the default) and bf16. Every board,
+    cloud and frame image must exist, the metrics be finite and each PLY
+    parse back with finite z >= 0. Launches per run: validation 44 K1 a
+    batch (one forward over the stacked pairs) and one K2 (the depth
+    warp); test 44 K1 a frame; never K3-K6."""
+    folders = readers.get_parent_folder_names(data, [1, 2])
+    preprocess.load_or_run_precompute(data, folders, 4.0, 64, False, 0.995, 30,
+                                      "validation", use_store_data=True, num_workers=8)
+    pairs = ["--selected_frame_index_list", "100", "103", "106", "109"]
+    got = {}
+    for device in ("cuda", "cpu"):
+        argv = _evaluate_argv(data, checkpoint, tmp / f"parity_{device}", "validation",
+                              *pairs, "--device", device)
+        argv[argv.index("--batch_size") + 1] = "4"
+        t0 = time.perf_counter()
+        run = evaluate.main(argv)
+        torch.cuda.synchronize()
+        got[device] = json.loads((run.log_root / "metrics.json").read_text())
+        print(f"  f32 validation of 4 pairs on {device}: {got[device]} in "
+              f"{time.perf_counter() - t0:.1f} s")
+    rel = {k: abs(got["cuda"][k] - v) / max(abs(v), 1e-12) for k, v in got["cpu"].items()}
+    print(f"  card vs CPU, metrics.json rel {rel} (limit 1e-3)")
+    if not all(np.isfinite(list(got["cuda"].values()))) or max(rel.values()) > 1e-3:
+        raise AssertionError("the card's f32 evaluation disagrees with the CPU's")
+
+    n_batches = -(-TRAINER_FRAMES // EVAL_BATCH)
+    launches, ms = dict.fromkeys(_launch_counts(), 0), {}
+    for phase, frames, extra in (
+            ("validation", TRAINER_FRAMES, ("--load_all_frames",)),
+            ("test", len(EVAL_FRAMES), ("--selected_frame_index_list", *EVAL_FRAMES))):
+        for dtype in ("float32", "bfloat16"):
+            argv = _evaluate_argv(data, checkpoint, tmp / f"eval_{phase}_{dtype}", phase,
+                                  *extra, "--compute_dtype", dtype)
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            run = evaluate.main(argv)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counted = _launch_counts()
+            root = run.log_root
+            # validation: the loop's time over its frames (2 batches);
+            # test: the median frame after the first
+            per_frame = (sum(run.ms) / frames if phase == "validation"
+                         else float(np.median(run.ms[1:])))
+            ms[f"{phase}_{dtype}"] = (per_frame, wall - sum(run.ms), run.ms)
+            expected = dict.fromkeys(counted, 0)
+            if phase == "validation":
+                expected.update(dense_conv_fwd=44 * n_batches, warp_sample_fwd=n_batches)
+                names = [str(b) for b in range(n_batches)]
+                metrics = json.loads((root / "metrics.json").read_text())
+                if sorted(metrics) != ["abs_rel", "sigma_1.25", "sigma_1.25^2",
+                                       "sigma_1.25^3"] \
+                        or not np.isfinite(list(metrics.values())).all():
+                    raise AssertionError(f"metrics {metrics}")
+            else:
+                expected.update(dense_conv_fwd=44 * frames)
+                names = [f"{int(f):08d}" for f in EVAL_FRAMES]
+                metrics = {}
+            missing = [f"{n}.{ext}" for n in names for ext in ("png", "ply")
+                       if not (root / f"{n}.{ext}").exists()]
+            if missing:
+                raise AssertionError(f"{phase} {dtype}: missing {missing}")
+            points = _check_clouds(root / f"{n}.ply" for n in names)
+            print(f"  {phase} {dtype}: {frames} frames, launches {counted} (expected "
+                  f"{expected}); {len(names)} PNG + PLY, {points} points; {metrics}")
+            if counted != expected:
+                raise AssertionError(f"unexpected launch counts {counted}")
+            for k, n in counted.items():
+                launches[k] += n
+    # the forwards alone, on the same checkpoint: CUDA events over 10 calls
+    forwards = {}
+    batch = synthetic_batch(EVAL_BATCH, 256, 320, SEED + 7, "cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        model = FCDenseNet57(dtype=dtype)
+        ckpt.load_any_checkpoint(checkpoint, model)
+        state = training.create_train_state(model.cuda().eval())
+        config = training.TrainConfig(compute_dtype=dtype)
+        dcl = torch.tensor(config.dcl_weight, device="cuda")
+        forwards[dtype] = (
+            _cuda_ms(lambda: training.predict_step(state.model, batch["color_1"][:1],
+                                                   batch["boundary"][:1]), 10),
+            _cuda_ms(lambda: training.eval_step(state, batch, dcl, config,
+                                                with_images=True), 10))
+    print(f"timing [{card}] evaluate forwards alone (CUDA events, 10 calls): test "
+          f"predict_step b1 256x320 f32 {forwards[torch.float32][0]:.4f} ms, bf16 "
+          f"{forwards[torch.bfloat16][0]:.4f} ms; validation eval_step with images "
+          f"b{EVAL_BATCH} 256x320 f32 {forwards[torch.float32][1]:.4f} ms, bf16 "
+          f"{forwards[torch.bfloat16][1]:.4f} ms")
+
+    # what the host spends writing one output, on the files just written
+    writes = {}
+    for kind, name in (("test", f"{int(EVAL_FRAMES[0]):08d}"), ("validation", "0")):
+        root = next((tmp / f"eval_{kind}_float32").iterdir())
+        cloud = plyio.read_ply_vertices(root / f"{name}.ply")
+        cloud = np.stack([cloud[k].astype(np.float32) for k in cloud.dtype.names], 1)
+        image = cv2.imread(str(root / f"{name}.png"))
+        times = {"ply": [], "png": []}
+        for _ in range(3):
+            t0 = time.perf_counter()
+            plyio.write_point_cloud(tmp / "rewrite.ply", cloud)
+            t1 = time.perf_counter()
+            cv2.imwrite(str(tmp / "rewrite.png"), image)
+            times["ply"].append((t1 - t0) * 1e3)
+            times["png"].append((time.perf_counter() - t1) * 1e3)
+        writes[kind] = (len(cloud), float(np.median(times["ply"])), image.shape,
+                        float(np.median(times["png"])))
+    print(f"  host writes, median of 3 [host CPU of the {card} machine]: "
+          + "; ".join(f"{kind}: a PLY of {n} points (ASCII) {ply:.3f} ms, a "
+                      f"{'x'.join(map(str, shape))} PNG {png:.3f} ms"
+                      for kind, (n, ply, shape, png) in writes.items()))
+    for key, (per_frame, setup, each) in ms.items():
+        phase, dtype = key.split("_")
+        what = ("the loop over 2 batches (8 + 7 pairs) over its frames: data, "
+                "forward, board, PLY" if phase == "validation" else
+                "the median frame after the first: data, forward, PNG, PLY")
+        print(f"timing [{card}] evaluate {phase} {dtype} b"
+              f"{EVAL_BATCH if phase == 'validation' else 1} 256x320: {per_frame:.3f} ms "
+              f"a frame ({what}); set-up before the loop {setup:.1f} ms (model load, "
+              f"dataset with the precompute's pickle); each "
+              f"{'batch' if phase == 'validation' else 'frame'} ms "
+              f"{[round(t, 3) for t in each]}")
+    return {"launches": launches, "ms": ms, "writes": writes}
+
+
+def conditioned_unet(model: torch.nn.Module) -> torch.nn.Module:
+    """The UNet's head scaled by 0.1 with 3 added to its bias (see
+    ``conditioned``)."""
+    with torch.no_grad():
+        model.last.weight.mul_(0.1)
+        model.last.bias.mul_(0.1).add_(3.0)
+    return model
+
+
+def unet_parity_phase() -> None:
+    """(14a) The default UNet (depth 6, wf 6) at full width: one f32 step
+    on the card against the CPU at b2 128x160 from the same conditioned
+    weights (TF32 off); on the card K2 and K3 once each and no other
+    kernel."""
+    base = conditioned_unet(init_weights(UNet(), torch.Generator().manual_seed(SEED)))
+    config = training.TrainConfig(lr_step_size=50)
+    results = {}
+    for device in ("cpu", "cuda"):
+        state = training.create_train_state(copy.deepcopy(base).to(device))
+        batch = synthetic_batch(2, 128, 160, SEED + 6, device)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = training.train_step(
+            state, batch, torch.tensor(0.1, device=device), config)
+        launches = _launch_counts()
+        results[device] = ({k: v.cpu() for k, v in metrics.items()},
+                           [b.cpu() for b in state.momentum])
+        print(f"  UNet f32 step on {device}: loss {float(metrics['loss']):.6f} in "
+              f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    (m_cpu, b_cpu), (m_gpu, b_gpu) = results["cpu"], results["cuda"]
+    expected = dict.fromkeys(launches, 0)
+    expected.update(warp_sample_fwd=1, warp_sample_bwd=1)
+    rel = {k: _rel_scalar(m_gpu[k], m_cpu[k]) for k in
+           ("loss", "sparse_flow_loss", "depth_consistency_loss", "grad_norm")}
+    # each parameter's momentum after the first step is its clipped
+    # gradient; the new parameters themselves are not compared: lr x grad
+    # is near the f32 spacing of many weights, so p - lr*b rounds either way.
+    # Held over all parameters, and per tensor against the largest gradient
+    # entry of any. The deep levels' gradients (up to 3e-5, against 0.03
+    # elsewhere) cancel: the CPU's own f32 step differs from its float64
+    # step by 2.75e-3 over all parameters and by 1.24e-2 in
+    # up4_block.conv1.weight on its own scale, the tensor that leads
+    # between card and CPU too; so 1e-2 over all
+    names = [n for n, _ in base.named_parameters()]
+    grad_err = (torch.cat([(g - c).flatten() for g, c in zip(b_gpu, b_cpu)]).norm()
+                / torch.cat([c.flatten() for c in b_cpu]).norm()).item()
+    top = max(c.abs().max() for c in b_cpu)
+    tensor_err = max(((g - c).abs().max() / top).item() for g, c in zip(b_gpu, b_cpu))
+    own = sorted(((_rel(g, c), n, c.abs().max().item()) for g, c, n in
+                  zip(b_gpu, b_cpu, names)), reverse=True)[:3]
+    print("  UNet card vs CPU, f32 step b2 128x160: rel " +
+          ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) +
+          f" (limit 1e-3); the momentum (the clipped gradient) over all "
+          f"{len(names)} parameters |d|/|ref| {grad_err:.3e} (limit 1e-2), per tensor "
+          f"max|d| / the largest entry of any {tensor_err:.3e} (limit 1e-3); on their "
+          f"own scale the worst: " + ", ".join(f"{n} {e:.3e} (max|ref| {m:.3e})"
+                                                for e, n, m in own))
+    if launches != expected:
+        raise AssertionError(f"unexpected UNet step launches {launches}")
+    if not (all(v <= 1e-3 for v in rel.values()) and grad_err <= 1e-2
+            and tensor_err <= 1e-3):
+        raise AssertionError("the card's f32 UNet step disagrees with the CPU's")
+
+
+def unet_trainer_phase(card: str, data: Path, tmp: Path) -> dict:
+    """(14b) The trainer, ``train.main --architecture unet`` (the default
+    UNet), at b8 256x320 bf16 for one epoch of 12 steps and its
+    validation, on the trainer phase's data root: K2 and K3 every step, K2
+    every validation batch, no K1 or K4-K6, finite losses, and a
+    checkpoint that loads back. The run resumes from a conditioned
+    checkpoint (``--load_trained_model``, epoch 0, zero momentum): the
+    UNet's head has no |.|, and from a raw init some depths lie at or
+    below 0, where the objective's 1/z makes the loss NaN (two of 12 steps
+    on the CPU at 64x64)."""
+    steps, evals = 12, 3  # 96 samples an epoch; 30 validation frames: 3 batches of 8
+    start = tmp / "unet_conditioned.pt"
+    ckpt.save_checkpoint(start, training.create_train_state(conditioned_unet(
+        init_weights(UNet(), torch.Generator().manual_seed(SEED)))), 0, 0.0)
+    argv = _trainer_argv(data, tmp / "unet", "--architecture", "unet",
+                         "--load_trained_model", "--trained_model_path", str(start))
+    argv[argv.index("--number_epoch") + 1] = "0"
+    argv[argv.index("--num_iter") + 1] = str(8 * steps)
+    _reset_launch_counts()
+    run = trainer.main(argv)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    expected = dict.fromkeys(launches, 0)
+    expected.update(warp_sample_fwd=steps + evals, warp_sample_bwd=steps)
+    print(f"  UNet trainer [{card}]: launches {launches} (expected {expected}); losses "
+          f"{[round(v, 5) for v in run.losses]}")
+    if launches != expected:
+        raise AssertionError(f"unexpected UNet trainer launches {launches}")
+    if len(run.losses) != steps or not np.isfinite(run.losses).all():
+        raise AssertionError(f"UNet losses {run.losses}")
+    (path,) = run.checkpoints
+    loaded = _check_checkpoint(path, UNet(dtype=torch.bfloat16))
+    if (loaded["epoch"], loaded["step"]) != (1, steps):
+        raise AssertionError(f"{path.name}: {loaded}")
+    median = float(np.median(run.step_ms))
+    n_params = sum(p.numel() for p in run.state.model.parameters())
+    print(f"  UNet checkpoint loads back: {loaded}, {n_params:,} parameters")
+    print(f"timing [{card}] UNet trainer step bf16 b8 256x320: median {median:.4f} ms "
+          f"({8000 / median:.2f} samples/s) of {len(run.step_ms)} steps after 2 warm-up "
+          f"steps (board every 2 steps); steps ms {[round(t, 3) for t in run.step_ms]}")
+    return {"launches": launches, "median_ms": median}
 
 
 def _run(cmd) -> str:
@@ -1433,11 +1720,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     print(_run([dense_conv._build.nvcc_path(), "--version"]).splitlines()[-1])
-    try:
-        import cv2
-        print(f"cv2 importable: yes ({cv2.__version__})")
-    except ImportError:
-        print("cv2 importable: no")
+    print(f"cv2 {cv2.__version__}")
 
     build_phase()
     kernel = kernel_phase(card)
@@ -1504,10 +1787,18 @@ def main() -> int:
                        train["data"])
     synthetic_ms = train["ms"]
     del train, materialized
-    print(f"trainer phase, {card}:")
-    trained = trainer_phase(card, synthetic_ms)
-    for name, n in trained["launches"].items():
-        launches[name] += n
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        print(f"trainer phase, {card}:")
+        trained = trainer_phase(card, synthetic_ms, work)
+        print(f"evaluate phase, {card}:")
+        evaluated = evaluate_phase(card, trained["data"], trained["checkpoint"], work)
+        print(f"UNet phase, {card}:")
+        unet_parity_phase()
+        unet = unet_trainer_phase(card, trained["data"], work)
+    for part in (trained, evaluated, unet):
+        for name, n in part["launches"].items():
+            launches[name] += n
 
     measured = {
         "dense_conv_fwd": dict(kernel),

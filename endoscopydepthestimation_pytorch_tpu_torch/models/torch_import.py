@@ -1,11 +1,12 @@
-"""Weights in and out of the port's FCDenseNet.
+"""Weights in and out of the port's FCDenseNet and UNet.
 
 The port's module names are the reference's state_dict keys, so a
 reference ``checkpoint_model_epoch_*.pt`` (reference utils.py:674-682,
 ``state['model']`` with DataParallel's ``module.`` prefix) loads as it is.
 Weights trained by the JAX package cross over either as such a ``.pt``
 (its ``models.torch_import.save_reference_checkpoint``) or, in memory, as
-its ``{params, batch_stats}`` numpy trees through ``from_jax_variables``.
+its ``{params, batch_stats}`` numpy trees through ``from_jax_variables``
+(FCDenseNet's tree, or UNet's, which has no ``batch_stats``).
 """
 from __future__ import annotations
 
@@ -14,24 +15,55 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from .unet import UP_MODES
+
 
 def _tensor(value) -> torch.Tensor:
     return torch.from_numpy(np.array(value))  # a writable, contiguous copy
 
 
+def _put_conv(sd: Dict[str, torch.Tensor], prefix: str, node: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _tensor(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{prefix}.bias"] = _tensor(node["bias"])
+
+
+def _unet_state_dict(params: Mapping, up_mode: str) -> Dict[str, torch.Tensor]:
+    """UNet's tree, names as they are: HWIO kernels become OIHW; with
+    ``up_mode="upconv"`` each ``up{i}_conv`` kernel (kh, kw, in, out),
+    which flax does not flip, becomes the flipped (in, out, kh, kw) weight
+    of ``nn.ConvTranspose2d`` (``models/unet.py``)."""
+    if up_mode not in UP_MODES:
+        raise ValueError(f"unknown up_mode {up_mode!r}")
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        if "kernel" in node:  # up{i}_conv, last
+            _put_conv(sd, name, node)
+            if up_mode == "upconv" and name.endswith("_conv"):
+                kernel = np.flip(np.asarray(node["kernel"]), (0, 1))
+                sd[f"{name}.weight"] = _tensor(kernel.transpose(2, 3, 0, 1))
+        else:  # down{i}, up{i}_block: conv0, conv1
+            for conv, leaf in node.items():
+                _put_conv(sd, f"{name}.{conv}", leaf)
+    return sd
+
+
 def from_jax_variables(params: Mapping, batch_stats: Mapping,
                        down_blocks=(4, 4, 4, 4, 4), up_blocks=(4, 4, 4, 4, 4),
-                       bottleneck_layers: int = 4) -> Dict[str, torch.Tensor]:
+                       bottleneck_layers: int = 4,
+                       up_mode: str = "upsample") -> Dict[str, torch.Tensor]:
     """The JAX package's Flax ``params`` / ``batch_stats`` (numpy leaves)
     -> the port's state_dict: HWIO kernels become OIHW, BN {scale, bias,
     mean, var} become {weight, bias, running_mean, running_var,
     num_batches_tracked}. Same keys and values as the JAX package's
-    ``export_reference_state_dict(..., module_prefix=False)``."""
-    sd: Dict[str, torch.Tensor] = {}
+    ``export_reference_state_dict(..., module_prefix=False)``.
 
-    def put_conv(prefix, node):
-        sd[f"{prefix}.weight"] = _tensor(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
-        sd[f"{prefix}.bias"] = _tensor(node["bias"])
+    A UNet tree (it has ``last``; its ``batch_stats`` is empty) maps name
+    for name onto the port's ``UNet``; ``up_mode`` says how its
+    ``up{i}_conv`` kernels were used, which their shapes do not tell. The
+    FCDenseNet arguments do not apply to it."""
+    if "last" in params:
+        return _unet_state_dict(params, up_mode)
+    sd: Dict[str, torch.Tensor] = {}
 
     def put_bn(prefix, p_node, s_node):
         sd[f"{prefix}.weight"] = _tensor(p_node["scale"])
@@ -45,19 +77,19 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping,
             p = params[flax_name][f"layers{j}"]
             s = batch_stats[flax_name][f"layers{j}"]
             put_bn(f"{prefix}.layers.{j}.norm", p["norm"], s["norm"])
-            put_conv(f"{prefix}.layers.{j}.conv", p["conv"])
+            _put_conv(sd, f"{prefix}.layers.{j}.conv", p["conv"])
 
-    put_conv("firstconv", params["firstconv"])
+    _put_conv(sd, "firstconv", params["firstconv"])
     for i, n in enumerate(down_blocks):
         dense_block(f"denseBlocksDown{i}", f"denseBlocksDown.{i}", n)
         put_bn(f"transDownBlocks.{i}.norm", params[f"transDownBlocks{i}"]["norm"],
                batch_stats[f"transDownBlocks{i}"]["norm"])
-        put_conv(f"transDownBlocks.{i}.conv", params[f"transDownBlocks{i}"]["conv"])
+        _put_conv(sd, f"transDownBlocks.{i}.conv", params[f"transDownBlocks{i}"]["conv"])
     dense_block("bottleneck", "bottleneck.bottleneck", bottleneck_layers)
     for i, n in enumerate(up_blocks):
-        put_conv(f"transUpBlocks.{i}.convTrans.1", params[f"transUpBlocks{i}"]["conv"])
+        _put_conv(sd, f"transUpBlocks.{i}.convTrans.1", params[f"transUpBlocks{i}"]["conv"])
         dense_block(f"denseBlocksUp{i}", f"denseBlocksUp.{i}", n)
-    put_conv("finalConv", params["finalConv"])
+    _put_conv(sd, "finalConv", params["finalConv"])
     return sd
 
 

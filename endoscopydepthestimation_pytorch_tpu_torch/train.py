@@ -13,8 +13,10 @@ trainer: the per-epoch reseed, the DCL warmup, a training board every
 every ``--validation_interval`` epochs with the batch statistics (the
 reference never leaves train mode there, its train.py:234, 380), and per
 epoch a reference-format ``.pt`` checkpoint and ``all_scalars_<epoch>.json``.
-The train step is ``training.train_step``, every dense block through the
-block engine; batches reach the card through ``parallel.device_prefetch``.
+The train step is ``training.train_step``, every FCDenseNet dense block
+through the block engine (``--architecture unet`` runs PyTorch's convs and
+the warp sampler's kernels only); batches reach the card through
+``parallel.device_prefetch``.
 
 It runs on the CUDA card unless ``--device cpu`` asks for the CPU, and
 raises without a card. Flags for what the port does not carry, or has not
@@ -37,14 +39,21 @@ from . import training
 from .data import readers
 from .data.augment import TrainingAugmentation
 from .data.dataset import BatchLoader, SfMDataset
-from .models import FCDenseNet57, FCDenseNet67, FCDenseNet103, init_weights
+from .models import FCDenseNet57, FCDenseNet67, FCDenseNet103, UNet, init_weights
 from .parallel import device_prefetch
 from .utils import checkpoint as ckpt
 from .utils import visualization as viz
 from .utils.profiling import StepTimer, device_trace
 
+
+def _unet(n_classes: int = 1, dtype=torch.float32) -> UNet:
+    """The default UNet (depth 6, wf 6), as the JAX trainer's ``_unet``
+    (root train.py:44-50) builds it."""
+    return UNet(out_channels=n_classes, dtype=dtype)
+
+
 MODELS = {"fcdensenet57": FCDenseNet57, "fcdensenet67": FCDenseNet67,
-          "fcdensenet103": FCDenseNet103}
+          "fcdensenet103": FCDenseNet103, "unet": _unet}
 SEED = 10085
 _IMAGE_KEYS = ("scaled_depth_1", "scaled_depth_2",
                "flows_from_depth_1", "flows_from_depth_2")
@@ -113,8 +122,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--architecture_summary", action="store_true")
     p.add_argument("--trained_model_path", type=str, default=None)
     p.add_argument("--architecture", type=str, default="fcdensenet57",
-                   choices=sorted([*MODELS, "unet"]),
-                   help="unet is not ported yet (ROADMAP §1 item 6)")
+                   choices=sorted(MODELS))
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", type=str, default="cuda",
@@ -170,9 +178,6 @@ def _refuse_unported(args) -> None:
     for flag, why in NOT_PORTED.items():
         if getattr(args, flag) is not None:  # given on the command line
             raise ValueError(f"--{flag} is not supported by the port: {why}")
-    if args.architecture == "unet":
-        raise ValueError("--architecture unet is not supported by the port: UNet "
-                         "is not ported yet (ROADMAP §1 item 6)")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

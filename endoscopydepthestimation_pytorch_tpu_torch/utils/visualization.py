@@ -1,8 +1,9 @@
-"""Training-board images and metric logging: the part of the JAX
-package's ``utils/visualization.py`` that the trainer uses
-(``make_grid`` :23, ``colorize_depth`` :35, ``flow_to_hsv`` :51,
-``color_panel`` :69, ``training_panel`` :83, ``stack_panels`` :112,
-``write_event`` :119, ``MetricWriter`` :145).
+"""Board images, depth exports and metric logging: the part of the JAX
+package's ``utils/visualization.py`` that the trainer and the evaluate
+CLI use (``make_grid`` :23, ``colorize_depth`` :35, ``flow_to_hsv`` :51,
+``color_panel`` :69, ``training_panel`` :83, ``validation_panel`` :95,
+``stack_panels`` :112, ``write_event`` :119, ``MetricWriter`` :145,
+``write_depth_outputs`` :213).
 
 Re-creates the reference's diagnostic imagery (utils.py:707-1044): JET
 depth colormaps, HSV flow wheels, horizontal sample grids stacked into one
@@ -17,6 +18,8 @@ from typing import Dict, List, Optional
 
 import cv2
 import numpy as np
+
+from .pointcloud import point_cloud_from_depth, write_point_cloud
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -95,6 +98,23 @@ def training_panel(colors, scaled_depths, sparse_flows, dense_flows,
     return [c, d, sf, df]
 
 
+def validation_panel(colors, sparse_depths, scaled_depths, warped_depths,
+                     sparse_flows, dense_flows, boundaries,
+                     is_hsv: bool = False) -> List[np.ndarray]:
+    """The reference's 6-panel eval row (utils.py:903-962): color | sparse
+    depth | pred depth | warped depth | sparse flow | dense flow, depth
+    panels sharing pred-depth's range, flow panels sharing dense-flow's."""
+    c = color_panel(colors, boundaries, is_hsv=is_hsv)
+    pred = make_grid(_to_numpy(scaled_depths))[:, :, 0]
+    lo, hi = float(pred.min()), float(pred.max())
+    d = colorize_depth(pred, lo, hi)
+    sd = colorize_depth(make_grid(_to_numpy(sparse_depths))[:, :, 0], lo, hi)
+    wd = colorize_depth(make_grid(_to_numpy(warped_depths))[:, :, 0], lo, hi)
+    df, max_v = flow_to_hsv(make_grid(_to_numpy(dense_flows)))
+    sf, _ = flow_to_hsv(make_grid(_to_numpy(sparse_flows)), max_v=max_v)
+    return [c, sd, d, wd, sf, df]
+
+
 def stack_panels(panels: List[np.ndarray]) -> np.ndarray:
     """Vertically stack panel rows into one image (utils.py:894-900)."""
     width = max(p.shape[1] for p in panels)
@@ -122,10 +142,15 @@ def write_event(log, step: int, **data) -> None:
 
 
 class MetricWriter:
-    """Scalar + image logging: tensorboardX if importable, JSONL always.
+    """Scalar + image logging: tensorboardX if it imports and starts,
+    JSONL and PNG always.
 
     Mirrors the reference's SummaryWriter usage (train.py:348-350, 481-483)
     plus its per-epoch ``export_scalars_to_json`` (train.py:491-492).
+    TensorBoard is optional logging, so any error while importing or
+    starting tensorboardX (not only a missing package) leaves the writer
+    on JSONL and PNG, as the JAX package's writer does; the device and the
+    kernels never fall back this way.
     """
 
     def __init__(self, log_dir):
@@ -136,7 +161,7 @@ class MetricWriter:
         try:
             from tensorboardX import SummaryWriter
             self._tb = SummaryWriter(logdir=str(self.log_dir))
-        except ImportError:
+        except Exception:  # optional logging: a broken install must not stop a run
             self._tb = None
 
     def add_scalars(self, tag: str, values: Dict[str, float], step: int):
@@ -164,3 +189,30 @@ class MetricWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+def write_depth_outputs(results_root, colors, scaled_depths, boundaries,
+                        intrinsics, prefix: str = "", is_hsv: bool = False,
+                        point_cloud_downsampling: int = 1) -> None:
+    """Per sample a color jpg, a JET depth jpg and a colored ``.ply``: the
+    consolidated form of the reference's generate_{training,validation,
+    test}_output dumps (utils.py:1047-1243). NHWC numpy inputs, colors
+    normalized to [-1, 1]."""
+    results_root = Path(results_root)
+    results_root.mkdir(parents=True, exist_ok=True)
+    colors = np.asarray(colors)
+    depths = np.asarray(scaled_depths) * np.asarray(boundaries)
+    for j in range(colors.shape[0]):
+        color = np.uint8(np.clip(colors[j] * 0.5 + 0.5, 0, 1) * 255)
+        color = cv2.cvtColor(color, cv2.COLOR_HSV2BGR_FULL if is_hsv
+                             else cv2.COLOR_RGB2BGR)
+        d = depths[j, :, :, 0]
+        span = max(float(d.max()) - float(d.min()), 1e-12)
+        depth_vis = cv2.applyColorMap(
+            np.uint8(np.clip((d - d.min()) / span, 0, 1) * 255), cv2.COLORMAP_JET)
+        cv2.imwrite(str(results_root / f"{prefix}color_{j}.jpg"), color)
+        cv2.imwrite(str(results_root / f"{prefix}depth_{j}.jpg"), depth_vis)
+        cloud = point_cloud_from_depth(d, color, np.asarray(boundaries)[j, :, :, 0],
+                                       np.asarray(intrinsics)[j],
+                                       point_cloud_downsampling)
+        write_point_cloud(str(results_root / f"{prefix}point_cloud_{j}.ply"), cloud)

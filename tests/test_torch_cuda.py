@@ -665,3 +665,37 @@ def test_device_prefetch_copies_every_batch_to_the_card(device):
         want = host["color_1"].astype(np.float64).sum() + host["boundary"].astype(np.float64).sum()
         assert abs(total.item() - want) <= 1e-4 * want
     assert len(seen) == 5
+
+
+def test_evaluate_test_phase_on_the_card(device, tmp_path):
+    """The evaluate CLI's test phase on the card (f32, the default):
+    every frame's eval forward launches K1 44 times and nothing else, and
+    every frame writes a PNG and a PLY whose depths are finite and >= 0."""
+    import numpy as np
+
+    from endoscopydepthestimation_pytorch_tpu_torch import evaluate
+    from endoscopydepthestimation_pytorch_tpu_torch.models import save_reference_checkpoint
+    from endoscopydepthestimation_pytorch_tpu_torch.utils import plyio
+    from torch_sfm_sequence import write_sequence
+
+    folder = write_sequence(tmp_path / "data", seed=5, n_frames=4)
+    checkpoint = tmp_path / "model.pt"
+    save_reference_checkpoint(checkpoint, init_weights(FCDenseNet57(),
+                                                       torch.Generator().manual_seed(0)))
+    k1, sampler = dense_conv.LAUNCHES, dict(warp_sample.LAUNCHES)
+    engine = dict(block_engine.LAUNCHES)
+    run = evaluate.main([
+        "--adjacent_range", "1", "3", "--id_range", "1", "2", "--input_size", "64", "64",
+        "--num_pre_workers", "1", "--testing_patient_id", "1", "--load_all_frames",
+        "--trained_model_path", str(checkpoint), "--sequence_root", str(folder),
+        "--evaluation_result_root", str(tmp_path / "out"),
+        "--evaluation_data_root", str(tmp_path / "data"), "--phase", "test"])
+    torch.cuda.synchronize()
+    assert dense_conv.LAUNCHES - k1 == 44 * 4
+    assert warp_sample.LAUNCHES == sampler and block_engine.LAUNCHES == engine
+    assert run.frames == len(run.ms) == 4 and run.metrics is None
+    clouds = sorted(run.log_root.glob("*.ply"))
+    assert len(clouds) == len(list(run.log_root.glob("*.png"))) == 4
+    for path in clouds:
+        z = plyio.read_ply_vertices(path)["z"]
+        assert z.size > 0 and np.isfinite(z).all() and (z >= 0).all(), path.name

@@ -286,6 +286,11 @@ def test_port_imports_no_jax():
             "import endoscopydepthestimation_pytorch_tpu_torch.ops.warp_sample\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.ops.block_engine\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.train\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.evaluate\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.models.unet\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.data.tracker\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.parallel.mesh\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.utils.pointcloud\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.data.readers\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.data.preprocess\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.data.rasterizer\n"

@@ -132,7 +132,7 @@ def test_jax_package_reads_the_ports_checkpoint(runs):
 @pytest.mark.parametrize("flag", [
     ["--fused_convs"], ["--remat"], ["--act8"], ["--segmented_last_up"],
     ["--no-segmented_last_up"], ["--split_last_skip"], ["--no-split_last_skip"],
-    ["--architecture", "unet"], ["--coordinator_address", "localhost:1234"],
+    ["--coordinator_address", "localhost:1234"],
     ["--num_processes", "2"], ["--process_id", "0"]])
 def test_flags_not_ported_raise(tmp_path, flag):
     """Each flag for what the port does not carry raises, naming its
@@ -167,3 +167,26 @@ def test_write_event_writes_the_jax_record():
     g, w = json.loads(got.getvalue()), json.loads(want.getvalue())
     assert got.getvalue().endswith("\n") and list(g) == list(w) == sorted(w)
     assert {k: v for k, v in g.items() if k != "dt"} == {k: v for k, v in w.items() if k != "dt"}
+
+
+def test_metric_writer_logs_on_when_tensorboardx_is_broken(tmp_path, monkeypatch):
+    """An installed tensorboardX that fails to import with another error
+    than ImportError leaves the writer on JSONL and PNG, as the JAX
+    package's writer does, instead of stopping the run."""
+    import builtins
+    real_import = builtins.__import__
+
+    def broken(name, *args, **kwargs):
+        if name == "tensorboardX":
+            raise RuntimeError("tensorboardX is installed but broken")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", broken)
+    writer = viz.MetricWriter(tmp_path)
+    assert writer._tb is None
+    writer.add_scalars("Training", {"overall": 0.5}, 3)
+    writer.add_image("Training/Images/Results", np.zeros((4, 6, 3), np.float32), 3)
+    writer.close()
+    (record,) = [json.loads(line) for line in (tmp_path / "scalars.jsonl").read_text().splitlines()]
+    assert record == {"tag": "Training", "step": 3, "overall": 0.5}
+    assert (tmp_path / "Training_Images_Results_3.png").exists()
