@@ -50,21 +50,28 @@ to the CPU or to a kernel's plain version):
      of the b1 256x320 forward (device busy, idle share, launches per
      forward, the host's enqueue time) on a ``DepthPredictor`` built with
      its default device;
-  9. training, FCDenseNet-57 at full width on a synthetic, geometrically
+  9. serving export, bf16 256x320: the ``torch.export`` artifact of a b8
+     predictor loaded by ``load_exported`` against ``predict_batch``; the
+     op library and the libtorch host (``csrc/dense_conv_op.cpp``,
+     ``csrc/serve_host.cpp``) built with g++ and nvcc; the b1 AOTInductor
+     bundle; the host's timed run and ``--stream`` over 24 frames against
+     the eager predictor. 44 K1 a forward everywhere, the host's counted
+     by the op library; the host's ms/batch beside the Python forward's;
+ 10. training, FCDenseNet-57 at full width on a synthetic, geometrically
      consistent batch, every dense block through the engine: (a) one f32
      step on the card against the same step on the CPU (b2 128x160);
      (b) ten bf16 steps at b8 256x320 with finite, decreasing loss and 44
      K4, K5 and K6, 1 K2, 1 K3 and no K1 launches per step, timed with
      CUDA events; (c) a step with an empty depth mask, which must leave
      params, momentum, count and step and advance the BN statistics;
- 10. profile: torch.profiler over three more bf16 train steps, the device
+ 11. profile: torch.profiler over three more bf16 train steps, the device
      time by op and by kernel and the device's idle share, of the profiled
      window and of the median step of (b);
- 11. for comparison, the same with the engine's gate closed, so every
+ 12. for comparison, the same with the engine's gate closed, so every
      block takes the materialized route (44 K1 launches per step and no
      K4-K6), then ten pairs of one step on each route, alternating which
      runs first;
- 12. the trainer (``train.main``, the CLI's entry point) on a
+ 13. the trainer (``train.main``, the CLI's entry point) on a
      synthetic SfM data root written by ``tests/torch_sfm_sequence.py``:
      two sequences of 15 raw 1024x1280 frames (a 256x320 crop). The
      precompute in spawned workers, the native host rasterizer bit for
@@ -72,10 +79,10 @@ to the CPU or to a kernel's plain version):
      b8 bf16 for epochs 0 and 1 (6 steps each, validation, a checkpoint
      each) and a resume from the epoch-0 checkpoint for epoch 1 under
      ``--profile_dir``: each run's launches (K2-K6, no K1), finite losses,
-     every checkpoint loaded back, the median step against (9)'s, and the
+     every checkpoint loaded back, the median step against (10)'s, and the
      device's idle share of the profiled epoch;
- 13. evaluation (``evaluate.main``, the evaluate CLI's entry point) on
-     (12)'s epoch-1 checkpoint and data root, FCDenseNet-57 at 256x320:
+ 14. evaluation (``evaluate.main``, the evaluate CLI's entry point) on
+     (13)'s epoch-1 checkpoint and data root, FCDenseNet-57 at 256x320:
      the f32 validation phase on the card against ``--device cpu`` on 4
      frame pairs (``metrics.json`` at rtol 1e-3), then the validation
      phase over 15 frames at b8 (a ragged last batch) and the test phase
@@ -83,13 +90,13 @@ to the CPU or to a kernel's plain version):
      written, finite metrics, every PLY parsed back with finite z >= 0,
      44 K1 a forward and one K2 a validation batch, ms a frame, and the
      host's time to write one PLY and one PNG;
- 14. UNet (depth 6, wf 6), which runs PyTorch's convs and K2/K3: one f32
+ 15. UNet (depth 6, wf 6), which runs PyTorch's convs and K2/K3: one f32
      step on the card against the CPU at b2 128x160, then the trainer
      with ``--architecture unet`` at b8 256x320 bf16 for 12 steps and its
      validation (K2 and K3 every step, no K1 or K4-K6), finite losses, the
      checkpoint loaded back, the median step.
-Only the main paths' launches (7, 9, 12, 13's counted runs, 14b) enter
-the ``kernels`` line.
+Only the main paths' launches (7, 9, 10, 13, 14's counted runs, 15b)
+enter the ``kernels`` line.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -101,6 +108,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -121,9 +129,12 @@ from endoscopydepthestimation_pytorch_tpu_torch.data import (SequenceData, augme
                                                            readers)
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
     FCDenseNet57, UNet, init_weights, save_reference_checkpoint)
-from endoscopydepthestimation_pytorch_tpu_torch.ops import (block_engine, conv3x3_mma,
-                                                          dense_conv, warp_sample)
-from endoscopydepthestimation_pytorch_tpu_torch.serving import DepthPredictor
+from endoscopydepthestimation_pytorch_tpu_torch.ops import (_libtorch_build, block_engine,
+                                                          conv3x3_mma, dense_conv,
+                                                          warp_sample)
+from endoscopydepthestimation_pytorch_tpu_torch.serving import (DepthPredictor,
+                                                                build_native_host,
+                                                                load_exported)
 from endoscopydepthestimation_pytorch_tpu_torch.utils import checkpoint as ckpt
 from endoscopydepthestimation_pytorch_tpu_torch.utils import plyio
 
@@ -1186,6 +1197,115 @@ def profile_forward(checkpoint, card: str, height: int = 256, width: int = 320,
         raise AssertionError(f"expected 44 K1 launches per forward, got {k1}")
 
 
+def export_phase(checkpoint, card: str, tmp: Path, python_b1_ms: float) -> dict:
+    """The deployment artifacts on the card, bf16 at 256x320: the
+    ``torch.export`` artifact of a b8 predictor loaded by ``load_exported``
+    against ``predict_batch`` (mean|d|/mean|ref| in the mask <= 1e-4: it
+    replays the same aten ops and K1) with 44 K1 launches a forward and its
+    ms; the op library and the libtorch host built in parallel; the b1
+    AOTInductor bundle (the live-feed shape) with its compile seconds; the
+    host's timed run (``--warmup 5 --iters 50``, CUDA events on its stream)
+    and its output against the eager predictor (<= 1e-2 in the mask:
+    Inductor's fused glue rounds bf16 elsewhere), then ``--stream`` over 24
+    frames against the eager ``stream``. The host's K1 count must be 44 a
+    forward. Returns K1's launches: the artifact's in this process plus the
+    host's."""
+    height, width = 256, 320
+    sequence = synthetic_sequence(height, width)
+    with ThreadPoolExecutor(2) as pool:
+        t_build = time.perf_counter()
+        builds = [pool.submit(_libtorch_build.op_library), pool.submit(build_native_host)]
+
+        b8 = DepthPredictor(checkpoint, sequence, batch_size=8, downsampling=1.0,
+                            device="cuda", dtype=torch.bfloat16)
+        frames = synthetic_frames(24, height, width, seed=SEED + 4)
+        colors8 = np.stack([b8.prepare(f) for f in frames[:8]])
+        t0 = time.perf_counter()
+        b8.export(tmp / "b8.pt2")
+        export_s = time.perf_counter() - t0
+        fn = load_exported(tmp / "b8.pt2")
+        k1 = dense_conv.LAUNCHES
+        exported = fn(colors8)[..., 0].cpu().numpy()
+        if dense_conv.LAUNCHES - k1 != 44:
+            raise AssertionError(f"the loaded artifact launched K1 "
+                                 f"{dense_conv.LAUNCHES - k1} times, not 44")
+        eager = b8.predict_batch(colors8)
+        rel_exported = masked_rel_err(exported, eager, height, width)
+        same = bool(np.array_equal(exported, eager))
+        print(f"export phase: torch.export of the b8 bf16 predictor in {export_s:.1f} s; "
+              f"loaded artifact vs predict_batch: mean|d|/mean|ref| in the mask "
+              f"{rel_exported:.3e} (limit 1e-4), max|d| {np.abs(exported - eager).max():.3e}, "
+              f"bitwise equal {same}; 44 K1 launches a forward")
+        if not (np.isfinite(exported).all() and rel_exported <= 1e-4):
+            raise AssertionError("the exported artifact disagrees with predict_batch")
+        x8 = torch.from_numpy(colors8).cuda()
+        artifact_ms = _cuda_ms(lambda: fn(x8), 10)
+        op_library, host = [b.result() for b in builds]
+        build_s = time.perf_counter() - t_build
+    print(f"export phase: built the op library ({op_library.name}, g++ and nvcc) and the "
+          f"host ({host.name}, g++) in {build_s:.1f} s, in parallel with the b8 export")
+    del b8, fn, x8
+
+    b1 = DepthPredictor(checkpoint, sequence, batch_size=1, downsampling=1.0,
+                        device="cuda", dtype=torch.bfloat16)
+    bundle = tmp / "bundle_b1"
+    t0 = time.perf_counter()
+    b1.export_native_bundle(bundle)
+    compile_s = time.perf_counter() - t0
+    print(f"export phase: AOTInductor bundle of the b1 256x320 bf16 predictor in "
+          f"{compile_s:.1f} s (trace and compile); meta: "
+          + ", ".join((bundle / "meta.txt").read_text().split()))
+
+    colors1 = np.stack([b1.prepare(f) for f in frames])
+    (tmp / "in.bin").write_bytes(colors1[:1].tobytes())
+    warmup, iters = 5, 50
+    out = subprocess.run([str(host), "--bundle", str(bundle), "--warmup", str(warmup),
+                          "--iters", str(iters), "--input", str(tmp / "in.bin"),
+                          "--output", str(tmp / "out.bin")],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"serve_host failed ({out.returncode}):\n{out.stderr}")
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"export phase: serve_host {json.dumps(report)}")
+    hosted = np.fromfile(tmp / "out.bin", np.float32).reshape(1, height, width)
+    eager1 = b1.predict_batch(colors1[:1])
+    rel_host = masked_rel_err(hosted, eager1, height, width)
+    ref = cpu_reference(checkpoint, height, width, colors1[:1])
+    print(f"export phase: b1 against the CPU float32 forward, mean|d|/mean|ref| in the "
+          f"mask: serve_host {masked_rel_err(hosted, ref, height, width):.3e}, eager bf16 "
+          f"{masked_rel_err(eager1, ref, height, width):.3e}")
+    if report["k1_launches"] != 44 * (warmup + iters):
+        raise AssertionError(f"serve_host launched K1 {report['k1_launches']} times, "
+                             f"not {44 * (warmup + iters)}")
+    if not (np.isfinite(hosted).all() and rel_host <= 1e-2):
+        raise AssertionError(f"serve_host disagrees with the eager predictor: {rel_host}")
+
+    out = subprocess.run([str(host), "--bundle", str(bundle), "--stream"],
+                         input=colors1.tobytes(), capture_output=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"serve_host --stream failed ({out.returncode}):\n"
+                             f"{out.stderr.decode()}")
+    stats = json.loads(out.stderr.decode().strip().splitlines()[-1])
+    streamed = np.frombuffer(out.stdout, np.float32).reshape(len(frames), height, width)
+    want = np.stack([d for _, d in b1.stream(frames)])
+    rel_stream = masked_rel_err(streamed, want, height, width)
+    print(f"export phase: serve_host --stream {json.dumps(stats)}; vs the eager stream "
+          f"mean|d|/mean|ref| in the mask {rel_stream:.3e} (limit 1e-2)")
+    if stats["batches"] != len(frames) or stats["k1_launches"] != 44 * len(frames):
+        raise AssertionError(f"serve_host --stream: {stats}")
+    if not (np.isfinite(streamed).all() and rel_stream <= 1e-2):
+        raise AssertionError("serve_host --stream disagrees with the eager stream")
+    print(f"timing [{card}] serving export, bf16 256x320: serve_host b1 "
+          f"{report['value']:.4f} ms/batch (CUDA events, {iters} iterations) against the "
+          f"Python predictor's forward_ms b1 {python_b1_ms:.4f}; loaded torch.export "
+          f"artifact b8 {artifact_ms:.4f} ms (CUDA events); serve_host --stream "
+          f"{stats['ms_per_batch']:.4f} ms a frame (host clock, pipes and read back "
+          f"included; {stats['ms_per_batch_after_first']:.4f} after the first frame's "
+          f"{stats['first_batch_ms']:.4f}); "
+          f"host vs eager b1 mean|d|/mean|ref| in the mask {rel_host:.3e} (limit 1e-2)")
+    return {"launches": report["k1_launches"] + stats["k1_launches"]}
+
+
 def paired_steps_phase(card: str, config, engine_state, materialized_state, data,
                        pairs: int = 10) -> None:
     """``pairs`` pairs of one bf16 train step through the engine and one
@@ -1713,6 +1833,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(8)
+    # Inductor's cache inside the checkout (gitignored), not the user's temp dir
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(Path(__file__).resolve().parent / "build" / "inductor"))
 
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"]).splitlines()[0]
@@ -1768,6 +1891,11 @@ def main() -> int:
         profile_forward(checkpoint, card)
         del hi
 
+        print(f"export phase, {card}:")
+        _reset_launch_counts()
+        exported = export_phase(checkpoint, card, Path(tmp), fwd["b1_256x320"])
+        export_launches = dense_conv.LAUNCHES + exported["launches"]
+
     base = training.TrainConfig(lr_step_size=50)
     config = dataclasses.replace(base, compute_dtype=torch.bfloat16)
     print(f"train parity phase, {card}:")
@@ -1775,7 +1903,7 @@ def main() -> int:
     train = train_phase(card, config)
     profile_train_step(train["state"], train["data"], config, card, train["ms"])
     launches = dict(train["launches"])
-    launches["dense_conv_fwd"] += serving_launches
+    launches["dense_conv_fwd"] += serving_launches + export_launches
 
     print(f"materialized-route comparison (the engine's gate closed), {card}:")
     with materialized_route():

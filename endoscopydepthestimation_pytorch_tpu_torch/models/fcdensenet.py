@@ -178,6 +178,10 @@ class DenseBlock(nn.Module):
                 b, h, w, len(self.layers), self.growth_rate):
             out, stats = self._engine(x)
             return (out, stats) if with_stats else out
+        # each layer's NHWC view must be contiguous: a no-op in eager, where
+        # cuDNN, the pools and torch.cat keep channels_last, but a
+        # torch.export trace on CUDA records convolutions' outputs as NCHW
+        x = x.contiguous(memory_format=torch.channels_last)
         new_features = []
         for layer in self.layers:
             out = layer(x)
@@ -211,14 +215,20 @@ class TransitionUp(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
+        # [0] has no parameters and is not called: it keeps the conv at the
+        # reference's key convTrans.1
         self.convTrans = nn.Sequential(
             nn.Upsample(scale_factor=2, mode="nearest"),
             nn.Conv2d(channels, channels, 3, padding=1))
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        # a 1x1 map's strides fit NCHW and channels_last alike, and torch
-        # then upsamples it to NCHW; pin channels_last (a no-op otherwise)
-        up = self.convTrans[0](x).contiguous(memory_format=torch.channels_last)
+        # the nearest x2 upsample as one copy in NHWC, channels_last by
+        # construction: torch's upsample takes a 1x1 map (whose strides fit
+        # NCHW and channels_last alike) to NCHW, where a torch.export trace
+        # expects channels_last
+        n, c, h, w = x.shape
+        up = (x.permute(0, 2, 3, 1)[:, :, None, :, None]
+              .expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c).permute(0, 3, 1, 2))
         up = _conv(up, self.convTrans[1], 1)
         up = center_crop(up, skip.shape[2], skip.shape[3])
         return torch.cat([up, skip], 1)

@@ -8,13 +8,19 @@ package's ``ops/dense_conv.fused_dense_conv`` (dense_conv.py:272, math at
 tensor in ``torch.channels_last`` memory becomes such an ``x`` through a
 zero-copy ``permute(0, 2, 3, 1)``.
 
-On a CUDA tensor the forward launches the hand-written kernel in
-``csrc/dense_conv.cu`` (built at first use, see ``ops/_build.py``) or
-raises: in bf16 the tensor-core implicit GEMM of ``csrc/conv3x3_mma.cuh``
-(shared with the block engine's K4) in the tiles, chunk split and vector
-width that ``forward_tiling`` and ``vector_width`` pick; in f32 a direct
-convolution on FFMAs. On a CPU tensor it runs the plain PyTorch version
-``fused_dense_conv_reference``. The op is differentiable through
+The forward is the op ``torch.ops.endodepth.fused_dense_conv``
+(``dense_conv_op``: a ``torch.library`` custom op with a fake
+implementation, so ``torch.export`` and AOTInductor keep it as one opaque
+node; ``csrc/dense_conv_op.cpp`` registers the same schema in C++ for the
+Python-free serving host). On a CUDA tensor it launches the hand-written
+kernel in ``csrc/dense_conv.cu`` (built at first use, see
+``ops/_build.py``) or raises: in bf16 the tensor-core implicit GEMM of
+``csrc/conv3x3_mma.cuh`` (shared with the block engine's K4) in the tiles
+and chunk split that ``forward_tiling`` picks from the shape (passed to
+the op as ints) and the vector width ``vector_width`` picks from the
+pointers; in f32 a direct convolution on FFMAs. On a CPU tensor it runs
+the plain PyTorch version ``fused_dense_conv_reference``. It takes x only
+as contiguous NHWC and never copies. The op is differentiable through
 ``FusedDenseConv``, whose backward mirrors the JAX package's
 ``_fused_bwd`` (dense_conv.py:288-302): it recomputes the activation from
 the saved ``x`` and takes the conv adjoints from PyTorch (cuDNN on the
@@ -118,7 +124,11 @@ def vector_width(dtype: torch.dtype, c: int, f: int, x_ptr: int, w_ptr: int,
     return 1
 
 
-def _check(x, scale, shift, w, bias) -> None:
+def _check(x, scale, shift, w, bias, tile_h: int, tile_w: int, n_split: int) -> None:
+    """What the kernels take: contiguous NHWC x, the shapes and dtypes of
+    ``fused_dense_conv``, one device, and a tiling some kernel has (a
+    256-pixel tile in bf16; 16x32 and no split in f32; the C entry checks
+    tile_w and n_split again)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got shape {tuple(x.shape)}")
     c = x.shape[3]
@@ -146,18 +156,50 @@ def _check(x, scale, shift, w, bias) -> None:
         if t.device != x.device:
             raise ValueError(f"all inputs must lie on {x.device}, "
                              f"found one on {t.device}")
+    ok = (tile_h * tile_w == conv3x3_mma.MMA_PIXELS and tile_w in (32, 16, 8)
+          and n_split >= 1 if x.dtype == torch.bfloat16
+          else (tile_h, tile_w, n_split) == (*conv3x3_mma.FFMA_TILE, 1))
+    if not ok:
+        raise ValueError(f"no {x.dtype} kernel for the tiling "
+                         f"{(tile_h, tile_w, n_split)}")
 
 
-def _forward(x, scale, shift, w, bias) -> torch.Tensor:
+# The op's schema, here and in csrc/dense_conv_op.cpp (the serving host's
+# C++ registration): the tiling enters as ints, chosen in Python from the
+# shape (``forward_tiling``), so an exported graph fixes it with the shape
+SCHEMA = ("fused_dense_conv(Tensor x, Tensor scale, Tensor shift, Tensor w, "
+          "Tensor? bias, int tile_h, int tile_w, int n_split) -> Tensor")
+# Inductor must hand the op x in the strides the trace saw (contiguous
+# NHWC; it may lay a cat's output out otherwise); the op raises on others
+_STRIDES = getattr(torch.Tag, "needs_exact_strides", torch.Tag.needs_fixed_stride_order)
+
+
+@torch.library.custom_op("endodepth::fused_dense_conv", mutates_args=(),
+                         device_types="cpu", schema=SCHEMA.removeprefix("fused_dense_conv"),
+                         tags=(_STRIDES,))
+def dense_conv_op(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                  w: torch.Tensor, bias: torch.Tensor | None, tile_h: int,
+                  tile_w: int, n_split: int) -> torch.Tensor:
+    """``torch.ops.endodepth.fused_dense_conv``: K1's forward as an op that
+    ``torch.export`` and AOTInductor keep opaque. On the CPU the plain
+    version (the tiling unused), on the card the kernel."""
+    _check(x, scale, shift, w, bias, tile_h, tile_w, n_split)
+    return fused_dense_conv_reference(x, scale, shift, w, bias).contiguous()
+
+
+@dense_conv_op.register_fake
+def _(x, scale, shift, w, bias, tile_h, tile_w, n_split):
+    _check(x, scale, shift, w, bias, tile_h, tile_w, n_split)
+    return x.new_empty((*x.shape[:3], w.shape[3]))
+
+
+@dense_conv_op.register_kernel("cuda")
+def _(x, scale, shift, w, bias, tile_h, tile_w, n_split):
     global LAUNCHES
-    if x.device.type == "cpu":
-        return fused_dense_conv_reference(x, scale, shift, w, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"no dense_conv kernel for device {x.device}")
+    _check(x, scale, shift, w, bias, tile_h, tile_w, n_split)
     b, h, wd, c = x.shape
     f = w.shape[3]
     y = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
-    tile_h, tile_w, n_split = forward_tiling(x.dtype, b, h, wd, c)
     vw = vector_width(x.dtype, c, f, x.data_ptr(), w.data_ptr(), y.data_ptr())
     # split chunks: the blocks' f32 partial y, summed in order by a second pass
     ypart = (torch.empty((n_split, conv3x3_mma.n_tiles(b, h, wd, tile_h, tile_w),
@@ -191,10 +233,11 @@ class FusedDenseConv(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, scale, shift, w, bias):
+    def forward(ctx, x, scale, shift, w, bias, tile_h, tile_w, n_split):
         ctx.save_for_backward(x, scale, shift, w)
         ctx.has_bias = bias is not None
-        return _forward(x, scale, shift, w, bias)
+        return torch.ops.endodepth.fused_dense_conv(x, scale, shift, w, bias,
+                                                    tile_h, tile_w, n_split)
 
     @staticmethod
     def backward(ctx, gy):
@@ -213,7 +256,8 @@ class FusedDenseConv(torch.autograd.Function):
         dscale = (da_m * xf).sum((0, 1, 2))
         dshift = da_m.sum((0, 1, 2))
         dbias = gy.float().sum((0, 1, 2)) if ctx.has_bias else None
-        return dx, dscale, dshift, dw.permute(2, 3, 1, 0).to(w.dtype), dbias
+        return (dx, dscale, dshift, dw.permute(2, 3, 1, 0).to(w.dtype), dbias,
+                None, None, None)
 
 
 def fused_dense_conv(x: torch.Tensor, scale: torch.Tensor,
@@ -226,5 +270,7 @@ def fused_dense_conv(x: torch.Tensor, scale: torch.Tensor,
     Returns y (B, H, W, F) contiguous, in x's dtype. Differentiable in all
     five inputs (``FusedDenseConv``).
     """
-    _check(x, scale, shift, w, bias)
-    return FusedDenseConv.apply(x, scale, shift, w, bias)
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, C), got shape {tuple(x.shape)}")
+    tiling = forward_tiling(x.dtype, *x.shape)
+    return FusedDenseConv.apply(x, scale, shift, w, bias, *tiling)

@@ -1,15 +1,25 @@
 """Streaming depth inference (JAX package ``serving.py``, ``DepthPredictor``
-:54-240).
+:54-240) and its two deployment artifacts.
 
 A trained FCDenseNet-57 (reference-format ``.pt``) behind a double-buffered
 pipeline: a host thread decodes and normalizes frame t+1 while the device
 runs frame t, and results are read back one batch late, after the next
 batch has been dispatched. Same faces as the JAX predictor: (B, H, W, 3)
 float32 normalized colors in, (B, H, W) boundary-masked depth out.
+
+For deployment a predictor writes the function colors -> masked depth,
+with its weights, running BN statistics and boundary baked in, as a
+``torch.export`` artifact (``export``, loaded by ``load_exported``; JAX
+``export`` and ``load_exported``) or as a bundle for the Python-free
+libtorch host ``csrc/serve_host.cpp`` (``export_native_bundle`` and
+``build_native_host``; JAX ``export_pjrt_bundle`` and ``build_pjrt_host``).
+In both the dense layers stay K1, as the opaque op
+``endodepth::fused_dense_conv`` (``ops/dense_conv``).
 """
 from __future__ import annotations
 
 import queue
+import shutil
 import threading
 from pathlib import Path
 from typing import Iterable, Iterator, Optional, Tuple
@@ -21,7 +31,63 @@ from . import training
 from .data import preprocess
 from .data.augment import normalize_color
 from .models import FCDenseNet57
+from .ops import _libtorch_build
 from .utils import checkpoint as ckpt
+
+
+def build_native_host() -> Path:
+    """Build the libtorch serving host (``csrc/serve_host.cpp``) with g++
+    unless it is built; return the binary's path (JAX
+    ``build_pjrt_host``). Raises with the compiler's output on failure."""
+    return _libtorch_build.host_binary()
+
+
+def load_exported(path, device="cuda"):
+    """Load an artifact written by :meth:`DepthPredictor.export`.
+
+    Returns ``fn(colors) -> depth``: ``(B, H, W, 3)`` float32 normalized
+    colors (numpy or a tensor) to ``(B, H, W, 1)`` float32 boundary-masked
+    depth on ``device``. It needs torch and ``ops.dense_conv``, which
+    registers the K1 op, and no model code or checkpoint machinery. The
+    artifact runs on the device it was exported on: ``device`` is the card
+    unless the caller asks for the CPU, and without a card it raises.
+    """
+    from .ops import dense_conv  # noqa: F401  (registers endodepth::fused_dense_conv)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_exported: no CUDA device (pass device='cpu' for "
+                           "an artifact exported on the CPU)")
+    program = torch.export.load(str(path))
+    where = {t.device.type for t in (*program.state_dict.values(),
+                                     *program.constants.values())
+             if isinstance(t, torch.Tensor)}
+    if where != {device.type}:
+        raise ValueError(f"the artifact was exported on {sorted(where)}, not {device.type}")
+    module = program.module()
+
+    def fn(colors) -> torch.Tensor:
+        x = torch.as_tensor(colors, dtype=torch.float32, device=device)
+        with torch.inference_mode():  # as predict_step; traced under no_grad
+            return module(x)
+
+    return fn
+
+
+class _MaskedDepth(torch.nn.Module):
+    """colors (B, H, W, 3) -> predict_step(model, colors, boundary) *
+    boundary, (B, H, W, 1) float32: the function the artifacts hold.
+    ``predict_step`` runs under inference_mode, which ``torch.export``
+    does not trace, so this repeats its two lines for a trace under
+    no_grad."""
+
+    def __init__(self, model: torch.nn.Module, boundary: torch.Tensor):
+        super().__init__()
+        self.model = model
+        self.register_buffer("boundary", boundary)
+
+    def forward(self, colors: torch.Tensor) -> torch.Tensor:
+        x = (colors * self.boundary).permute(0, 3, 1, 2)  # NCHW, channels_last
+        return self.model(x).permute(0, 2, 3, 1) * self.boundary
 
 
 class DepthPredictor:
@@ -88,6 +154,67 @@ class DepthPredictor:
     def predict_frame(self, frame) -> np.ndarray:
         colors = np.repeat(self.prepare(frame)[None], self.batch_size, axis=0)
         return self.predict_batch(colors)[0]
+
+    # -- deployment artifacts --------------------------------------------------
+
+    def _exported_program(self) -> torch.export.ExportedProgram:
+        """The masked-depth function traced by ``torch.export`` under
+        no_grad, at this predictor's batch, on its device: weights, BN
+        statistics and boundary baked in, the 44 dense layers as
+        ``endodepth::fused_dense_conv`` nodes."""
+        colors = torch.zeros(self.batch_size, self.height, self.width, 3,
+                             device=self.device)
+        with torch.no_grad():
+            return torch.export.export(_MaskedDepth(self.model, self._boundary),
+                                       (colors,), strict=False)
+
+    def export(self, path) -> None:
+        """Write this predictor as one ``torch.export`` file (JAX ``export``).
+
+        A host loads it with :func:`load_exported` on the device it was
+        exported on. The batch is fixed at ``batch_size``; input
+        ``(batch, H, W, 3)`` float32 normalized colors, output
+        ``(batch, H, W, 1)`` float32 masked depth.
+        """
+        torch.export.save(self._exported_program(), str(path))
+
+    def export_native_bundle(self, bundle_dir) -> None:
+        """Write a bundle for the libtorch host ``csrc/serve_host.cpp``
+        (JAX ``export_pjrt_bundle``). Layout::
+
+            model.pt2  the AOTInductor package of the same function as
+                       ``export``, for this predictor's device (``cuda``
+                       or ``cpu``), depth in float32
+            meta.txt   key=value input/output specs parsed by the host
+                       (platform, shapes, dtypes)
+            ops.so     the op library of ``csrc/dense_conv_op.cpp``, which
+                       the package calls by name for the 44 dense layers
+
+        The host then needs libtorch alone, and builds nothing when the
+        bundle loads. Inductor compiles the glue between the K1 nodes; the
+        K1 nodes stay opaque, and the other convolutions extern calls.
+        """
+        program = self._exported_program()
+        bundle = Path(bundle_dir)
+        bundle.mkdir(parents=True, exist_ok=True)
+        torch._inductor.aoti_compile_and_package(
+            program, package_path=str(bundle / "model.pt2"),
+            inductor_configs={"cpp.cxx": (None, _libtorch_build.CXX)})
+
+        def fmt(t: torch.Tensor):
+            return ",".join(str(d) for d in t.shape), str(t.dtype).removeprefix("torch.")
+        (colors,) = [n.meta["val"] for n in program.graph.nodes
+                     if n.op == "placeholder" and n.name in
+                     program.graph_signature.user_inputs]
+        (depth,) = [n.meta["val"] for n in list(program.graph.nodes)[-1].args[0]]
+        if depth.dtype != torch.float32:
+            raise AssertionError(f"the exported depth is {depth.dtype}, not float32")
+        lines = [f"platform={self.device.type}"]
+        for kind, t in (("input0", colors), ("output0", depth)):
+            shape, dtype = fmt(t)
+            lines += [f"{kind}_shape={shape}", f"{kind}_dtype={dtype}"]
+        (bundle / "meta.txt").write_text("\n".join(lines) + "\n")
+        shutil.copyfile(_libtorch_build.op_library(), bundle / "ops.so")
 
     def stream(self, frames: Iterable, prefetch: int = 2
                ) -> Iterator[Tuple[int, np.ndarray]]:

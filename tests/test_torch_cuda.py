@@ -699,3 +699,80 @@ def test_evaluate_test_phase_on_the_card(device, tmp_path):
     for path in clouds:
         z = plyio.read_ply_vertices(path)["z"]
         assert z.size > 0 and np.isfinite(z).all() and (z >= 0).all(), path.name
+
+
+# -- K1 as the op endodepth::fused_dense_conv, and the serving export ---------
+
+# bf16 K1 with its chunks split (8 tiles) and in one pass (320 tiles)
+OP_SHAPES = [(8, 16, 20, 372, 12), (8, 128, 160, 96, 12)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_op_through_torch_ops_is_fused_dense_conv(device, dtype):
+    for shape in OP_SHAPES:
+        args = _inputs(*shape, dtype, device)
+        tiling = dense_conv.forward_tiling(dtype, *args[0].shape)
+        before = dense_conv.LAUNCHES
+        got = torch.ops.endodepth.fused_dense_conv(*args, *tiling)
+        assert dense_conv.LAUNCHES == before + 1
+        assert torch.equal(got, dense_conv.fused_dense_conv(*args))
+
+
+def test_cpp_op_library_matches_the_python_op(device, tmp_path):
+    """The C++ registration (``csrc/dense_conv_op.cpp``), in a process of
+    its own that never imports ``ops/dense_conv.py``, gives the Python
+    op's output bitwise at a split and an unsplit shape, and counts its
+    launches."""
+    import subprocess
+    import sys
+
+    from endoscopydepthestimation_pytorch_tpu_torch.ops import _libtorch_build
+    cases, want = [], []
+    for seed, shape in enumerate(OP_SHAPES):
+        args = _inputs(*shape, torch.bfloat16, device, seed=seed)
+        tiling = dense_conv.forward_tiling(torch.bfloat16, *args[0].shape)
+        assert (tiling[2] > 1) == (seed == 0)
+        cases.append(([t.cpu() for t in args], tiling))
+        want.append(dense_conv.fused_dense_conv(*args).cpu())
+    torch.save(cases, tmp_path / "cases.pt")
+    code = ("import ctypes, sys, torch\n"
+            "torch.ops.load_library(sys.argv[1])\n"
+            "outs = [torch.ops.endodepth.fused_dense_conv(*(t.cuda() for t in args), *tiling)"
+            ".cpu() for args, tiling in torch.load(sys.argv[2])]\n"
+            "torch.save(outs, sys.argv[3])\n"
+            "count = ctypes.CDLL(sys.argv[1]).endodepth_dense_conv_launches\n"
+            "count.restype = ctypes.c_int64\n"
+            "print(count())\n")
+    out = subprocess.run([sys.executable, "-c", code, str(_libtorch_build.op_library()),
+                          str(tmp_path / "cases.pt"), str(tmp_path / "outs.pt")],
+                         capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [str(len(OP_SHAPES))]
+    for got, ref in zip(torch.load(tmp_path / "outs.pt"), want):
+        assert torch.equal(got, ref)
+
+
+def test_load_exported_runs_k1_on_the_card(device, tmp_path):
+    """A bf16 predictor's ``torch.export`` artifact loads on the card and
+    launches K1 44 times a forward, agreeing with ``predict_batch``."""
+    import numpy as np
+
+    import chip_smoke
+    from endoscopydepthestimation_pytorch_tpu_torch import serving
+    from endoscopydepthestimation_pytorch_tpu_torch.models import save_reference_checkpoint
+
+    checkpoint = tmp_path / "model.pt"
+    save_reference_checkpoint(checkpoint, chip_smoke.seeded_model(0))
+    predictor = serving.DepthPredictor(checkpoint, chip_smoke.synthetic_sequence(64, 96),
+                                       batch_size=2, downsampling=1.0, dtype=torch.bfloat16)
+    predictor.export(tmp_path / "depth.pt2")
+    fn = serving.load_exported(tmp_path / "depth.pt2")
+    colors = np.random.RandomState(0).randn(2, 64, 96, 3).astype(np.float32)
+    before = dense_conv.LAUNCHES
+    got = fn(colors)
+    torch.cuda.synchronize()
+    assert dense_conv.LAUNCHES - before == 44
+    assert got.shape == (2, 64, 96, 1) and got.device.type == "cuda"
+    want = predictor.predict_batch(colors)
+    # the same aten ops and K1 replayed: f32 glue rounding at most
+    assert chip_smoke.masked_rel_err(got[..., 0].cpu().numpy(), want, 64, 96) <= 1e-4

@@ -278,6 +278,10 @@ def test_forward_without_grad_skips_the_autograd_node():
 def test_port_imports_no_jax():
     code = ("import sys, endoscopydepthestimation_pytorch_tpu_torch\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.serving\n"
+            "from endoscopydepthestimation_pytorch_tpu_torch.serving import (\n"
+            "    build_native_host, load_exported)\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.ops.dense_conv\n"
+            "import endoscopydepthestimation_pytorch_tpu_torch.ops._libtorch_build\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.training\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.losses\n"
             "import endoscopydepthestimation_pytorch_tpu_torch.schedule\n"
