@@ -26,10 +26,13 @@ to the CPU or to a kernel's plain version):
      and 8, its chunks split against one pass;
   4. K2/K3: the warp sampler's kernels against the plain four-gather
      version and its autograd at the train step's shape, image
-     (16, 256, 320, 2) f32, full and grad-first variants, plus NaN
-     coordinates; forward and backward times beside the plain ones and
-     ``F.grid_sample``'s, through the wrappers and alone (CUDA graph
-     replay);
+     (16, 256, 320, 2) f32, full and grad-first variants, and K3's dimg
+     against its twin bit for bit; NaN coordinates, non-finite g, a
+     collapse of every query onto one texel (the fixed point's headroom),
+     K3's device launches per backward and its share of tiles summed in
+     shared memory at a smooth and a random warp; forward and backward
+     times beside the plain ones and the library's, through the wrappers
+     and alone (CUDA graph replay), K3 also at the random warp;
   5. K4/K5/K6: the block engine's kernels against their plain versions at
      every layer of FCDenseNet-57's 11 dense blocks at 2B = 16, 256x320,
      in f32 and bf16, with their times beside the plain versions' and the
@@ -563,13 +566,35 @@ def _value_and_grads(fn, leaves, cot):
     return out, torch.autograd.grad(out, leaves, cot)
 
 
+def _device_launches(fn) -> list:
+    """(name, device us) of each device activity (kernels and memsets) of
+    one ``fn()``, by torch.profiler, after one call outside it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(re.split(r"[<(]", e.name.replace("(anonymous namespace)::", "")
+                      .replace("void ", ""))[0].strip(), e.time_range.elapsed_us())
+            for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
     """K2 and K3 against the plain four-gather sampler and its autograd, at
     the train step's image (2B, H, W, 2) f32: a random warp over
     [-3, size+3] (clamped to the sampler's band) with every 7th row on
-    integer coordinates, full and grad-first variants; then NaN
-    coordinates; then times at a smooth warp (a small motion, the train
-    step's kind) beside the plain version's."""
+    integer coordinates, full and grad-first variants, and K3's dimg
+    against its twin ``_backward_plain`` bit for bit; then NaN
+    coordinates, non-finite g, every query collapsed onto one texel (the
+    fixed point's headroom), K3's device launches per backward and the
+    share of its tiles summed in shared memory; then times at a smooth
+    warp (a small motion, the train step's kind) beside the plain
+    version's and the library's, and K3 at the random warp."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(SEED + 10)
     image = torch.randn(b, h, w, 2, generator=g).to(dev)
@@ -591,10 +616,15 @@ def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
                                     ref_cot)
         rel = {"fwd": _rel(got, ref)}
         rel.update({n: _rel(a, r) for n, a, r in zip(("dimg", "dpx", "dpy"), got_g, ref_g)})
+        twin = warp_sample._backward_plain(image, px, py, cot, 1 if grad_first else 2)[0]
+        same = torch.equal(got_g[0], twin)
         print(f"  sampler {'grad-first' if grad_first else 'full'}: max|d|/max|ref| "
-              + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + " (limit 1e-5)")
+              + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + " (limit 1e-5); "
+              f"K3's dimg = the twin's bit for bit: {same}")
         if not all(v <= 1e-5 for v in rel.values()):
             raise AssertionError(f"sampler kernel mismatch: {rel}")
+        if not same:
+            raise AssertionError("K3's dimg differs from _backward_plain's bits")
         err["fwd"] = max(err["fwd"], rel["fwd"])
         err["abs_fwd"] = max(err["abs_fwd"], (got - ref).abs().max().item())
         err["bwd"] = max(err["bwd"], *(rel[k] for k in ("dimg", "dpx", "dpy")))
@@ -610,10 +640,63 @@ def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
         raise AssertionError("a NaN coordinate did not give exactly its NaN sample")
     print("  sampler NaN coordinates: NaN samples exactly there")
 
+    # non-finite g: Inf on an integer coordinate (Inf * 0 = NaN in its
+    # zero-weight taps), NaN, -Inf in channel 1, and a NaN coordinate
+    nf = [t[:2, :40, :48].clone() for t in (image, px, py, cot)]
+    nf[1][0, 2, 3], nf[2][0, 2, 3] = 4.0, 5.0
+    nf[3][0, 2, 3, 0] = float("inf")
+    nf[1][1, 4, 5], nf[2][1, 4, 5] = 10.5, 7.25
+    nf[3][1, 4, 5, 0] = float("nan")
+    nf[1][1, 7, 8], nf[2][1, 7, 8] = 20.75, 30.5
+    nf[3][1, 7, 8, 1] = -float("inf")
+    nf[1][1, 9, 10], nf[2][1, 9, 10] = float("nan"), 3.0
+    for cg in (1, 2):
+        got = warp_sample._backward(*nf, cg)[0]
+        twin = warp_sample._backward_plain(*nf, cg)[0]
+        bad = ~torch.isfinite(got)
+        checks = {"bits": _same_bits(got, twin), "NaN": torch.equal(bad, torch.isnan(got)),
+                  "channel 0": int(bad[..., 0].sum()) == 12,
+                  "channel 1": int(bad[..., 1].sum()) == (0 if cg == 1 else 8)}
+        if not all(checks.values()):
+            raise AssertionError(f"K3 with non-finite g (CG = {cg}): {checks}")
+    print(f"  K3 non-finite g and a NaN coordinate: dimg = the twin's bit for bit, NaN at "
+          f"its {int(bad.sum())} non-finite texel channels (CG = 2)")
+
+    # every query on one integer coordinate with g = +m (the largest float
+    # below 1): texel (60, 100) of each image sums Q_b * m, the headroom's
+    # limit at h = ceil(log2(Q_b))
+    m = float(np.nextafter(np.float32(1), np.float32(0)))
+    q = h * w
+    collapse = torch.zeros(b, h, w, 2, device=dev)
+    collapse[..., 0] = m
+    got = warp_sample._backward(image, torch.full_like(px, 100.0), torch.full_like(py, 60.0),
+                                collapse, 1)[0].double()
+    want = torch.zeros_like(got)
+    want[:, 60, 100, 0] = q * m
+    tol = q * m * (2.0 ** -24 + 2.0 ** ((q - 1).bit_length() - 62))
+    collapse_err = (got - want).abs().max().item()
+    print(f"  K3 collapse: {b} x {q} queries onto one texel each, g = {m!r}: "
+          f"max|d| {collapse_err:.3e} against the float64 sum {q * m!r} (limit {tol:.3e})")
+    if not collapse_err <= tol:
+        raise AssertionError("K3's fixed-point sum overflowed or lost its headroom")
+
     yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
                             torch.arange(w, dtype=torch.float32), indexing="ij")
     sx = (xx + 2 * torch.sin(yy / 17) + 0.3).expand(b, h, w).contiguous().to(dev)
     sy = (yy + 2 * torch.cos(xx / 23) - 0.2).expand(b, h, w).contiguous().to(dev)
+    activities = _device_launches(lambda: warp_sample._backward(image, sx, sy, cot, 1))
+    print(f"  K3 device launches per backward: {len(activities)} ("
+          + ", ".join(f"{name} {us:.2f} us" for name, us in activities) + ")")
+    if len(activities) > 4:
+        raise AssertionError("K3 launches more than its memset and three kernels")
+    tiles = b * -(-h // warp_sample.TILE[0]) * -(-w // warp_sample.TILE[1])
+    share = {name: int(warp_sample._backward_cuda(image, x, y, cot, 1)[3]) / tiles
+             for name, x, y in (("smooth", sx, sy), ("random", px, py))}
+    print(f"  K3 tiles summed in shared memory: smooth warp {share['smooth']:.4f}, "
+          f"random warp {share['random']:.4f} of {tiles}")
+    if share["smooth"] != 1.0:
+        raise AssertionError("a smooth warp's tile did not fit K3's window")
+
     # F.grid_sample (bilinear, zeros, align_corners) on the same image and
     # warp, NCHW with the grid normalized: pixel x = (gx + 1) / 2 * (W - 1)
     img = image.permute(0, 3, 1, 2).contiguous()
@@ -624,6 +707,7 @@ def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
     calls = {"fwd": lambda: warp_sample.sample_bilinear(image, sx, sy),
              # the train step's variant: channel 0 only
              "bwd": lambda: warp_sample._backward(image, sx, sy, cot, 1),
+             "bwd_random": lambda: warp_sample._backward(image, px, py, cot, 1),
              "library_fwd": lambda: F.grid_sample(
                  img, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
              "library_bwd": lambda: torch.ops.aten.grid_sampler_2d_backward(
@@ -647,13 +731,14 @@ def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
     print(f"timing [{card}] sampler at ({b}, {h}, {w}, 2) f32, smooth warp: "
           f"K2 {ms['fwd']:.4f} ms vs plain {ms['plain_fwd']:.4f} ms vs F.grid_sample "
           f"{ms['library_fwd']:.4f} ms (bound {bounds['fwd'][0]:.4f} ms); K3 "
-          f"(grad-first) {ms['bwd']:.4f} ms vs plain autograd {ms['plain_bwd']:.4f} ms "
-          f"vs aten.grid_sampler_2d_backward on channel 0 {ms['library_bwd']:.4f} ms "
+          f"(grad-first) {ms['bwd']:.4f} ms (random warp {ms['bwd_random']:.4f}) vs plain "
+          f"autograd {ms['plain_bwd']:.4f} ms vs aten.grid_sampler_2d_backward on channel 0 "
+          f"{ms['library_bwd']:.4f} ms "
           f"(bound {bounds['bwd'][0]:.4f} ms)")
     print(f"timing [{card}] sampler device time alone (CUDA graph replay): K2 "
           f"{alone['fwd']:.4f} ms vs F.grid_sample {alone['library_fwd']:.4f} ms; K3 "
-          f"(grad-first) {alone['bwd']:.4f} ms vs aten.grid_sampler_2d_backward "
-          f"{alone['library_bwd']:.4f} ms")
+          f"(grad-first) {alone['bwd']:.4f} ms (random warp {alone['bwd_random']:.4f}) vs "
+          f"aten.grid_sampler_2d_backward {alone['library_bwd']:.4f} ms")
     return {"err": err, "ms": ms, "bounds": bounds}
 
 

@@ -11,9 +11,20 @@ On a CUDA tensor the ``autograd.Function`` ``SampleBilinear`` launches
 the hand-written kernels in ``csrc/warp_sample.cu`` (K2 forward, K3
 backward; built at first use, see ``ops/_build.py``) or raises. On a CPU
 tensor it runs the plain forward ``sample_bilinear_reference`` and a
-plain PyTorch rendering of the kernel's backward formula
-(``_backward_plain``), so the CPU tests hold that formula against the
+plain PyTorch rendering of the kernel's backward arithmetic
+(``_backward_plain``), so the CPU tests hold that arithmetic against the
 JAX package.
+
+K3's dimg is an order-free fixed-point scatter: each tap's f32 product d
+is added to its texel as round(d * 2^S) in int64, S = 62 - h - e, where
+e is ``frexp(max finite |g|)``'s exponent and h = ceil(log2(Hq*Wq))
+(``fixed_point_shift``). A texel takes at most one tap of each query of
+its image, so no sum reaches 2^62, and integer sums give the same bits
+in any order: dimg is bitwise repeatable, and the kernel's dimg equals
+``_backward_plain``'s bit for bit. One contribution rounds by at most
+max|g| * 2^(h-62). A non-finite product marks its texel, whose dimg is
+NaN. The kernel's scratch (``warp_sample_bwd_scratch_bytes``: 9 bytes a
+texel and gradient channel) comes from the caching allocator.
 
 ``sample_bilinear(..., grad_first_only=True)`` passes a gradient to image
 channel 0 only and returns zeros for the others (their consumers are not
@@ -34,24 +45,27 @@ MAX_CHANNELS = 2  # the kernels' compiled maximum of image channels
 _SOURCES = ("warp_sample.cu",)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("warp_sample", _SOURCES)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument and result types on a loaded
+    ``warp_sample`` library (once); check its compiled maximum channels."""
     if lib.warp_sample_fwd.argtypes is None:
-        lib.warp_sample_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.warp_sample_fwd.restype = ctypes.c_int
-        lib.warp_sample_bwd_count.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.warp_sample_bwd_count.restype = ctypes.c_int
-        lib.warp_sample_bwd_dimg.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.warp_sample_bwd_dimg.restype = ctypes.c_int
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.warp_sample_fwd.argtypes = [p] * 4 + [i] * 6 + [p]
+        lib.warp_sample_fwd.restype = i
+        lib.warp_sample_bwd.argtypes = [p] * 8 + [ctypes.c_longlong] + [i] * 7 + [p]
+        lib.warp_sample_bwd.restype = i
+        lib.warp_sample_bwd_scratch_bytes.argtypes = [i] * 4
+        lib.warp_sample_bwd_scratch_bytes.restype = ctypes.c_longlong
         lib.warp_sample_max_channels.argtypes = []
-        lib.warp_sample_max_channels.restype = ctypes.c_int
+        lib.warp_sample_max_channels.restype = i
         if lib.warp_sample_max_channels() != MAX_CHANNELS:
             raise RuntimeError("warp_sample library and wrapper disagree on "
                                "the maximum channel count")
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return bind(_build.load("warp_sample", _SOURCES))
 
 
 def build_report() -> str:
@@ -95,10 +109,21 @@ def sample_bilinear_reference(image: torch.Tensor, px: torch.Tensor,
     return top * (1.0 - wy) + bot * wy
 
 
+def fixed_point_shift(g: torch.Tensor, queries: int) -> int:
+    """S of K3's fixed-point sums for a cotangent ``g`` (its gradient
+    channels only) and ``queries`` = Hq*Wq per image: 62 - h - e, with
+    h = ceil(log2(queries)) and e the exponent of ``frexp(m)``, m the
+    largest finite |g| (0, and e = 0, when there is none)."""
+    m = torch.where(torch.isfinite(g), g.abs(), 0.0).amax()
+    return 62 - (queries - 1).bit_length() - int(torch.frexp(m).exponent)
+
+
 def _backward_plain(image, px, py, g, grad_channels: int):
-    """The kernel's backward formula in PyTorch: dpx and dpy from the tap
-    differences, dimg as the scatter-add of g times each tap's weight.
-    Only the first ``grad_channels`` channels are read and scattered."""
+    """The kernel's backward arithmetic in PyTorch: dpx and dpy from the
+    tap differences; dimg as the int64 scatter-add of each valid tap's f32
+    product g*(row weight)*(column weight) rounded to 2^-S, converted back
+    to f32, NaN where a product is non-finite. Only the first
+    ``grad_channels`` channels are read and scattered."""
     b, h, w, c = image.shape
     cg = grad_channels
     values, indices, valid, wx, wy = _taps(image[..., :cg], px, py)
@@ -106,12 +131,20 @@ def _backward_plain(image, px, py, g, grad_channels: int):
     g = g[..., :cg]
     dpx = (g * ((1.0 - wy) * (v01 - v00) + wy * (v11 - v10))).sum(-1)
     dpy = (g * ((1.0 - wx) * (v10 - v00) + wx * (v11 - v01))).sum(-1)
+    shift = fixed_point_shift(g, px.shape[1] * px.shape[2])
     gt, gb = g * (1.0 - wy), g * wy
     weights = (gt * (1.0 - wx), gt * wx, gb * (1.0 - wx), gb * wx)
-    dimg = torch.zeros(b, h * w, cg, dtype=image.dtype, device=image.device)
+    sums = torch.zeros(b, h * w, cg, dtype=torch.int64, device=image.device)
+    marks = torch.zeros_like(sums)
     for d, idx, ok in zip(weights, indices, valid):
-        d = torch.where(ok[..., None], d, 0.0).reshape(b, -1, cg)
-        dimg.scatter_add_(1, idx[..., None].expand(-1, -1, cg), d)
+        d, ok = d.reshape(b, -1, cg), ok.reshape(b, -1, 1)
+        idx = idx[..., None].expand(-1, -1, cg)
+        finite = torch.isfinite(d)
+        fixed = torch.where(ok & finite, d, 0.0).double() * 2.0 ** shift
+        sums.scatter_add_(1, idx, torch.round(fixed).long())
+        marks.scatter_add_(1, idx, (ok & ~finite).long())
+    dimg = (sums.double() * 2.0 ** -shift).float()
+    dimg = torch.where(marks > 0, float("nan"), dimg)
     dimg = torch.nn.functional.pad(dimg, (0, c - cg))  # zeros past channel cg
     return dimg.reshape(b, h, w, c), dpx, dpy
 
@@ -161,28 +194,33 @@ def _forward(image, px, py) -> torch.Tensor:
     return out
 
 
-def _backward(image, px, py, g, grad_channels: int):
+# K3's tile of queries (csrc/warp_sample.cu TILE_H x TILE_W)
+TILE = (16, 64)
+
+
+def _backward_cuda(image, px, py, g, grad_channels: int):
+    """K3 on CUDA tensors: dimg, dpx, dpy and a 0-d int64 tensor on the
+    card, the count of query tiles whose taps were summed in shared memory
+    (of ``b * ceil(Hq/16) * ceil(Wq/64)``, ``TILE``)."""
     g = g.contiguous()
-    if image.device.type == "cpu":
-        return _backward_plain(image, px, py, g, grad_channels)
     b, h, w, c = image.shape
     hq, wq = px.shape[1:]
-    ints, shape = (b, h, w, c, grad_channels, hq, wq), tuple(image.shape)
-    dev = image.device
-    # K3 sums dimg in a fixed order (csrc/warp_sample.cu): per cell (a
-    # query's top-left tap, (H+1) x (W+1) an image) the count of its
-    # queries, their segment of a query list by the scan of the counts
-    count = torch.zeros(b * (h + 1) * (w + 1), dtype=torch.int32, device=dev)
+    lib = _library()
+    # the int64 sums, the marks, the tile count and max|g|'s bits
+    scratch = torch.empty(lib.warp_sample_bwd_scratch_bytes(b, h, w, grad_channels),
+                          dtype=torch.uint8, device=image.device)
     dimg = torch.empty_like(image)
     dpx, dpy = torch.empty_like(px), torch.empty_like(py)
-    _cuda_call("warp_sample_bwd_count", (image, px, py, g, dpx, dpy, count),
-               ints, shape)
-    end = torch.cumsum(count, 0, dtype=torch.int32)
-    order = torch.empty(b * hq * wq, dtype=torch.int32, device=dev)
-    _cuda_call("warp_sample_bwd_dimg", (px, py, g, count, end, end - count,
-                                        order, dimg), ints, shape)
+    _cuda_call("warp_sample_bwd", (image, px, py, g, dpx, dpy, dimg, scratch),
+               (scratch.numel(), b, h, w, c, grad_channels, hq, wq), tuple(image.shape))
     LAUNCHES["warp_sample_bwd"] += 1
-    return dimg, dpx, dpy
+    return dimg, dpx, dpy, scratch[-16:-8].view(torch.int64)[0]
+
+
+def _backward(image, px, py, g, grad_channels: int):
+    if image.device.type == "cpu":
+        return _backward_plain(image, px, py, g, grad_channels)
+    return _backward_cuda(image, px, py, g, grad_channels)[:3]
 
 
 class SampleBilinear(torch.autograd.Function):

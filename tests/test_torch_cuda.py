@@ -284,25 +284,91 @@ def test_warp_sample_matches_plain(device, b, h, w, c, grad_first):
     ref_cot = torch.cat([cot[..., :1], torch.zeros_like(cot[..., 1:])], -1
                         ) if grad_first else cot
     ref_grads = torch.autograd.grad(ref, ref_leaves, ref_cot)
+    twin = warp_sample._backward_plain(image, px, py, cot, 1 if grad_first else c)
     torch.cuda.synchronize()
-    # the same f32 arithmetic; K3 sums each texel's dimg in query order,
-    # scatter_add_ in its own
+    # the same f32 products; K3 sums dimg in fixed point (each product
+    # rounded by at most max|g| * 2^(h-62)), the autograd scatter in f32
     assert _rel(got, ref) <= 1e-5
     for name, a, r in zip(("dimg", "dpx", "dpy"), got_grads, ref_grads):
         assert _rel(a, r) <= 1e-5, name
+    # the twin does K3's arithmetic in int64 scatter_add_: the same bits
+    assert torch.equal(got_grads[0], twin[0])
 
 
 @pytest.mark.parametrize("grad_first", [False, True])
 def test_warp_sample_bwd_is_deterministic(device, grad_first):
     """Two K3 launches at the train step's image on the same inputs give
-    bitwise-equal dimg, dpx and dpy: dimg sums in a fixed order, with no
-    float atomics."""
+    bitwise-equal dimg, dpx and dpy: dimg is a sum of int64 fixed-point
+    contributions, which integer atomics add to the same bits in any
+    order, with no float atomics."""
     image, px, py, cot = _warp_case(16, 256, 320, 2, device, seed=2)
     runs = [warp_sample._backward(image, px, py, cot, 1 if grad_first else 2)
             for _ in range(2)]
     torch.cuda.synchronize()
     for name, a, r in zip(("dimg", "dpx", "dpy"), *runs):
         assert torch.equal(a, r), name
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("grad_first", [False, True])
+def test_warp_sample_bwd_non_finite_g(device, grad_first):
+    """Inf and NaN in g (an Inf on an integer coordinate, so its
+    zero-weight taps take Inf * 0 = NaN) and a NaN coordinate: K3's dimg
+    is bitwise equal to the twin's, NaN at its non-finite texels (which
+    the CPU tests hold to the plain f32 scatter's)."""
+    image, px, py, cot = _warp_case(2, 40, 48, 2, device, seed=3)
+    px[0, 2, 3], py[0, 2, 3] = 4.0, 5.0
+    cot[0, 2, 3, 0] = float("inf")
+    cot[1, 4, 5, 0] = float("nan")
+    cot[1, 7, 8, 1] = -float("inf")
+    px[1, 9, 10] = float("nan")
+    cg = 1 if grad_first else 2
+    got = warp_sample._backward(image, px, py, cot, cg)
+    twin = warp_sample._backward_plain(image, px, py, cot, cg)
+    torch.cuda.synchronize()
+    assert _same_bits(got[0], twin[0])
+    nan = torch.isnan(got[0])
+    assert torch.equal(nan, ~torch.isfinite(got[0]))
+    assert int(nan[..., 0].sum()) > 4 and bool(nan[..., 1].any()) == (not grad_first)
+
+
+@pytest.mark.parametrize("scale", [1e-40, 1e-30, 1e30])
+def test_warp_sample_bwd_bits_at_extreme_g_scales(device, scale):
+    """g scaled so that max|g| is subnormal (1e-40), S exceeds f32's
+    exponent range (1e-30) or S < 0 (1e30): K3's dimg still equals the
+    twin's bit for bit, in both variants."""
+    image, px, py, cot = _warp_case(2, 40, 48, 2, device, seed=5)
+    cot = cot * scale
+    for cg in (1, 2):
+        got = warp_sample._backward(image, px, py, cot, cg)[0]
+        twin = warp_sample._backward_plain(image, px, py, cot, cg)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, twin), cg
+        assert got[..., 0].abs().max() > 0
+
+
+@pytest.mark.parametrize("warp", ["smooth", "random"])
+def test_warp_sample_bwd_shared_window_and_fallback(device, warp):
+    """K3 sums a tile in shared memory where its taps' box fits the window
+    (a smooth warp: every tile), else (a random warp: no tile) with global
+    atomics: the same bits as the twin either way."""
+    b, h, w = 4, 96, 160
+    image, px, py, cot = _warp_case(b, h, w, 2, device, seed=4)
+    if warp == "smooth":
+        yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
+                                torch.arange(w, dtype=torch.float32, device=device),
+                                indexing="ij")
+        px = (xx + 2 * torch.sin(yy / 17) + 0.3).expand(b, h, w).contiguous()
+        py = (yy + 2 * torch.cos(xx / 23) - 0.2).expand(b, h, w).contiguous()
+    tiles = b * -(-h // warp_sample.TILE[0]) * -(-w // warp_sample.TILE[1])
+    dimg, _, _, fit = warp_sample._backward_cuda(image, px, py, cot, 1)
+    twin = warp_sample._backward_plain(image, px, py, cot, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(dimg, twin[0])
+    assert int(fit) == (tiles if warp == "smooth" else 0)
 
 
 def test_warp_sample_nan_coordinate_gives_nan(device):

@@ -3,15 +3,19 @@
 
 On CPU tensors the port's ``SampleBilinear`` (full and grad-first) runs
 the plain forward and the plain PyTorch rendering of the CUDA
-backward's formula, so these tests hold that formula against JAX. Same
-seeded numpy inputs to both, f32; every comparison at rtol/atol 1e-5 (the
-same f32 arithmetic summed in another order).
+backward's arithmetic, so these tests hold that arithmetic against JAX.
+Same seeded numpy inputs to both, f32; every comparison at rtol/atol 1e-5
+(the same f32 products, summed in another order and, for dimg, in
+fixed point: each rounded by at most max|g| * 2^(h-62)). Then the
+fixed-point scatter's own properties: query order, headroom, non-finite
+values.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from endoscopydepthestimation_pytorch_tpu.ops import warp_pallas
 from endoscopydepthestimation_pytorch_tpu_torch.ops import gridsample, warp_sample
@@ -137,3 +141,117 @@ def test_refuses_what_the_kernel_does_not_take(case):
         px, py = px[:1], py[:1]
     with pytest.raises(ValueError):
         warp_sample.sample_bilinear(image, px, py)
+
+
+def _sampler_coordinates(seed, b, h, w, c):
+    """_case's inputs as torch tensors, the coordinates shifted to the
+    sampler's convention and clamped to its band."""
+    image, x, y, cot = _case(seed, b, h, w, c, h, w)
+    px = torch.from_numpy(x - 0.5).clamp(-2, w + 1)
+    py = torch.from_numpy(y - 0.5).clamp(-2, h + 1)
+    return torch.from_numpy(image), px, py, torch.from_numpy(cot)
+
+
+def _f32_scatter(image, px, py, g, cg):
+    """dimg as the plain f32 scatter-add of each valid tap's product."""
+    b, h, w, c = image.shape
+    _, indices, valid, wx, wy = warp_sample._taps(image[..., :cg], px, py)
+    g = g[..., :cg]
+    gt, gb = g * (1.0 - wy), g * wy
+    dimg = torch.zeros(b, h * w, cg)
+    for d, idx, ok in zip((gt * (1.0 - wx), gt * wx, gb * (1.0 - wx), gb * wx),
+                          indices, valid):
+        d = torch.where(ok[..., None], d, 0.0).reshape(b, -1, cg)
+        dimg.scatter_add_(1, idx[..., None].expand(-1, -1, cg), d)
+    return F.pad(dimg, (0, c - cg)).reshape(b, h, w, c)
+
+
+@pytest.mark.parametrize("grad_channels", [1, 2])
+def test_plain_dimg_is_bitwise_invariant_to_query_order(grad_channels):
+    """Integer sums ignore order: the queries of each image shuffled give
+    the same dimg bit for bit (and dpx, dpy follow their queries)."""
+    b, h, w = 2, 37, 53
+    image, px, py, cot = _sampler_coordinates(6, b, h, w, 2)
+    perm = torch.from_numpy(np.random.RandomState(7).permutation(h * w))
+
+    def shuffled(t):
+        return t.reshape(b, h * w, *t.shape[3:])[:, perm].reshape(t.shape)
+
+    want = warp_sample._backward_plain(image, px, py, cot, grad_channels)
+    got = warp_sample._backward_plain(image, shuffled(px), shuffled(py),
+                                      shuffled(cot), grad_channels)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], shuffled(want[1]))
+    assert torch.equal(got[2], shuffled(want[2]))
+
+
+@pytest.mark.parametrize("hq,wq", [(16, 16), (15, 17)])
+def test_collapse_onto_one_texel_does_not_overflow(hq, wq):
+    """Every query on one integer coordinate with g = +m, m the largest
+    float below 1: one texel sums Q_b*m, at the headroom's limit (2^62 -
+    2^38 for Q_b = 256). It agrees with a float64 scatter within one f32
+    rounding of the sum plus Q_b*m*2^(h-62)."""
+    b, h, w = 2, 9, 11
+    m = float(np.nextafter(np.float32(1), np.float32(0)))
+    image = torch.from_numpy(np.random.RandomState(8).randn(b, h, w, 2).astype(np.float32))
+    px, py = torch.full((b, hq, wq), 4.0), torch.full((b, hq, wq), 6.0)
+    cot = torch.zeros(b, hq, wq, 2)
+    cot[..., 0] = m
+    got = warp_sample._backward_plain(image, px, py, cot, 1)[0].double()
+    leaves = [image.double().requires_grad_(), px.double(), py.double()]
+    ref = torch.autograd.grad(warp_sample.sample_bilinear_reference(*leaves),
+                              leaves[0], torch.cat([cot[..., :1].double(),
+                                                    torch.zeros(b, hq, wq, 1)], -1))[0]
+    q = hq * wq
+    assert ref[:, 6, 4, 0].eq(q * m).all() and ref.count_nonzero() == b
+    tol = ref.abs() * 2.0 ** -24 + q * m * 2.0 ** ((q - 1).bit_length() - 62)
+    assert ((got - ref).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("grad_channels", [1, 2])
+def test_non_finite_texels_are_the_plain_scatters(grad_channels):
+    """Inf and NaN in g (an Inf on an integer coordinate, whose
+    zero-weight taps then take Inf * 0 = NaN), -Inf in channel 1 and a NaN
+    coordinate: dimg is non-finite exactly where the plain f32 scatter's
+    is, NaN there, and within 1e-5 of it elsewhere."""
+    image, px, py, cot = _sampler_coordinates(9, 2, 12, 15, 2)
+    px[0, 2, 3], py[0, 2, 3] = 4.0, 5.0
+    cot[0, 2, 3, 0] = float("inf")
+    cot[1, 4, 5, 0] = float("nan")
+    cot[1, 7, 8, 1] = -float("inf")
+    px[1, 9, 10] = float("nan")
+    got = warp_sample._backward_plain(image, px, py, cot, grad_channels)[0]
+    ref = _f32_scatter(image, px, py, cot, grad_channels)
+    bad = ~torch.isfinite(ref)
+    assert bad[..., 0].sum() > 4 and bad[..., 1].any() == (grad_channels == 2)
+    assert torch.equal(~torch.isfinite(got), bad)
+    assert torch.isnan(got[bad]).all()
+    torch.testing.assert_close(got[~bad], ref[~bad], **TOL)
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e30])
+@pytest.mark.parametrize("grad_channels", [1, 2])
+def test_plain_dimg_at_extreme_g_scales(scale, grad_channels):
+    """g far from 1 puts S outside f32's exponent range (S > 127 for tiny
+    g, S < 0 for huge g): the fixed-point dimg still agrees with the plain
+    f32 scatter."""
+    image, px, py, cot = _sampler_coordinates(11, 2, 12, 15, 2)
+    cot = cot * scale
+    got = warp_sample._backward_plain(image, px, py, cot, grad_channels)[0]
+    ref = _f32_scatter(image, px, py, cot, grad_channels)
+    assert (warp_sample.fixed_point_shift(cot[..., :grad_channels], 180) > 127) == (scale < 1)
+    torch.testing.assert_close(got / scale, ref / scale, **TOL)
+
+
+def test_fixed_point_shift_ignores_non_finite_g():
+    """m is the largest finite |g|: Inf and NaN leave S as zeros would;
+    S = 62 - ceil(log2(Q_b)) - frexp(m)'s exponent; no finite g: e = 0."""
+    g = torch.from_numpy(np.random.RandomState(10).randn(2, 5, 7, 1).astype(np.float32))
+    poisoned = g.clone()
+    poisoned[0, 1, 2, 0], poisoned[1, 3, 4, 0] = float("inf"), -float("inf")
+    poisoned[1, 0, 0, 0] = float("nan")
+    zeroed = torch.where(torch.isfinite(poisoned), poisoned, 0.0)
+    shift = warp_sample.fixed_point_shift(poisoned, 35)
+    assert shift == warp_sample.fixed_point_shift(zeroed, 35)
+    assert shift == 62 - 6 - int(np.frexp(np.abs(zeroed.numpy()).max())[1])
+    assert warp_sample.fixed_point_shift(torch.full((1, 2, 2, 1), float("nan")), 4) == 60
