@@ -97,9 +97,27 @@ to the CPU or to a kernel's plain version):
      step on the card against the CPU at b2 128x160, then the trainer
      with ``--architecture unet`` at b8 256x320 bf16 for 12 steps and its
      validation (K2 and K3 every step, no K1 or K4-K6), finite losses, the
-     checkpoint loaded back, the median step.
-Only the main paths' launches (7, 9, 10, 13, 14's counted runs, 15b)
-enter the ``kernels`` line.
+     checkpoint loaded back, the median step;
+ 16. data parallel across processes (``parallel.distributed``): (a) K2-K6
+     against their plain versions at a rank's shapes (2B = 8, as (4) and
+     (5) without the times); two
+     ranks spawned on the one card over gloo, FCDenseNet-57 at b8 256x320
+     split 2 x b4 from (10)'s conditioned weights and batch: their f32
+     step against one process's b8 step (the scalars, the step's update
+     and the BN statistics), the same step with a planted fault (the
+     engine's BN gradients twice too large) that the update's limit must
+     reject, then ten bf16 steps with each
+     rank's K2-K6 launches those of a step, and the ranks' parameters,
+     momentum, BN statistics and losses bitwise equal; their median step
+     (not a scaling figure); (b) the trainer over NCCL at world size 1
+     through ``--coordinator_address``, ``--num_processes`` and
+     ``--process_id``, one epoch with validation in a process of its own,
+     beside the same run without the flags: both exit 0, launch what a
+     run without a process group launches, and write a checkpoint that
+     loads back.
+Only the main paths' launches (7, 9, 10, 13, 14's counted runs, 15b,
+16a's bf16 steps on both ranks and 16b's NCCL run) enter the ``kernels``
+line.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -584,17 +602,10 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
-    """K2 and K3 against the plain four-gather sampler and its autograd, at
-    the train step's image (2B, H, W, 2) f32: a random warp over
-    [-3, size+3] (clamped to the sampler's band) with every 7th row on
-    integer coordinates, full and grad-first variants, and K3's dimg
-    against its twin ``_backward_plain`` bit for bit; then NaN
-    coordinates, non-finite g, every query collapsed onto one texel (the
-    fixed point's headroom), K3's device launches per backward and the
-    share of its tiles summed in shared memory; then times at a smooth
-    warp (a small motion, the train step's kind) beside the plain
-    version's and the library's, and K3 at the random warp."""
+def _sampler_inputs(b: int, h: int, w: int) -> tuple:
+    """Image (b, h, w, 2), a random warp over [-3, size+3] (clamped to the
+    sampler's band) with every 7th row on integer coordinates, and a
+    cotangent; f32 on the card."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(SEED + 10)
     image = torch.randn(b, h, w, 2, generator=g).to(dev)
@@ -603,6 +614,14 @@ def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
     px[:, ::7], py[:, ::7] = px[:, ::7].round(), py[:, ::7].round()
     px, py = px.clamp(-2, w + 1).to(dev), py.clamp(-2, h + 1).to(dev)
     cot = torch.randn(b, h, w, 2, generator=g).to(dev)
+    return image, px, py, cot
+
+
+def sampler_check(image, px, py, cot) -> dict:
+    """K2 and K3 against the plain four-gather sampler and its autograd,
+    full and grad-first variants (max|d|/max|ref| <= 1e-5), and K3's dimg
+    against its twin ``_backward_plain`` bit for bit; returns the largest
+    relative and absolute errors."""
     err = {"fwd": 0.0, "bwd": 0.0, "abs_fwd": 0.0, "abs_bwd": 0.0}
     for grad_first in (False, True):
         leaves = [t.clone().requires_grad_() for t in (image, px, py)]
@@ -630,6 +649,19 @@ def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
         err["bwd"] = max(err["bwd"], *(rel[k] for k in ("dimg", "dpx", "dpy")))
         err["abs_bwd"] = max(err["abs_bwd"], *((a - r).abs().max().item()
                                                for a, r in zip(got_g, ref_g)))
+    return err
+
+
+def sampler_phase(card: str, b: int = 16, h: int = 256, w: int = 320) -> dict:
+    """``sampler_check`` at the train step's image (2B, H, W, 2) f32; then
+    NaN coordinates, non-finite g, every query collapsed onto one texel
+    (the fixed point's headroom), K3's device launches per backward and
+    the share of its tiles summed in shared memory; then times at a smooth
+    warp (a small motion, the train step's kind) beside the plain
+    version's and the library's, and K3 at the random warp."""
+    dev = torch.device("cuda")
+    image, px, py, cot = _sampler_inputs(b, h, w)
+    err = sampler_check(image, px, py, cot)
 
     nan_px, nan_py = px[:2, :8, :12].clone(), py[:2, :8, :12].clone()
     nan_px[0, 3, 4] = float("nan")
@@ -754,6 +786,103 @@ def _engine_bytes(kernel: str, pixels: int, c: int, f: int, itemsize: int) -> in
     return s * pixels * (c + 2 * f) + 4 * (2 * c + 2 * f + weights)
 
 
+ENGINE_KERNELS = ("block_engine_fwd", "block_engine_dinput", "block_engine_dweight")
+
+
+def _engine_err(got, ref, dtype, max_abs=None, name=None) -> float:
+    """The error measure of ``dtype``'s limit: f32 max|d|/max|ref|, bf16
+    mean|d|/mean|ref|; ``name``: keep the f32 max|d| in ``max_abs[name]``
+    as that kernel's max_abs_err (its tensor output)."""
+    got, ref = got.float(), ref.float()
+    if dtype == torch.float32:
+        err = (got - ref).abs().max().item()
+        if name:
+            max_abs[name] = max(max_abs[name], err)
+        return err / ref.abs().max().item()
+    return ((got - ref).abs().mean() / ref.abs().mean()).item()
+
+
+def _engine_buffers(g, batch: int, h: int, w: int, c0: int) -> tuple:
+    """A dense block's f32 buffer and gradient buffer (c0 + 4 x 12 channels)."""
+    ld = c0 + 4 * 12
+    return (torch.randn(batch, h, w, ld, generator=g, device="cuda"),
+            torch.randn(batch, h, w, ld, generator=g, device="cuda"))
+
+
+def _engine_layer_params(g, c: int, f: int) -> tuple:
+    """One layer's BN fold (scale, shift), weights, bias and (C1, C2)."""
+    scale = torch.rand(c, generator=g, device="cuda") + 0.5
+    shift = torch.randn(c, generator=g, device="cuda") * 0.3
+    wk = torch.randn(3, 3, c, f, generator=g, device="cuda") * (2.0 / (9 * c)) ** 0.5
+    bias = torch.randn(f, generator=g, device="cuda") * 0.1
+    c1 = torch.randn(f, generator=g, device="cuda") * 0.1
+    c2 = torch.randn(f, generator=g, device="cuda") * 0.1
+    return scale, shift, wk, bias, c1, c2
+
+
+def _engine_layer_check(buf32, grad32, c: int, f: int, layer: tuple,
+                        max_abs: dict) -> dict:
+    """K4, K5 and K6 against their plain versions at one layer (prefix c,
+    growth f), in f32 and bf16: y and its sums, the updated gradient prefix
+    and the three BN/bias sums, and dW; each limit 1e-4. Returns the
+    errors by dtype, (K4, K5, K6) each."""
+    scale, shift, wk, bias, c1, c2 = layer
+    names = ENGINE_KERNELS
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        buf, grad, w_t = buf32.to(dtype), grad32.to(dtype), wk.to(dtype)
+        e = []
+        got_b, ref_b = buf.clone(), buf.clone()
+        got = block_engine.layer_forward(got_b, c, scale, shift, w_t, bias)
+        ref = block_engine.layer_forward_reference(ref_b, c, scale, shift, w_t, bias)
+        e.append(max(_engine_err(got_b[..., c:c + f], ref_b[..., c:c + f], dtype,
+                                 max_abs, names[0]), _engine_err(got, ref, dtype)))
+        del got_b, ref_b
+        # K5 adds into the random gradient prefix; in bf16 also into a zero
+        # one, which compares the increment itself after rounding
+        grads = [grad]
+        if dtype == torch.bfloat16:
+            grads.append(torch.cat([torch.zeros_like(grad[..., :c]), grad[..., c:]], -1))
+        k5 = []
+        for grad0 in grads:
+            got_g, ref_g = grad0.clone(), grad0.clone()
+            got = block_engine.layer_dinput(got_g, buf, c, scale, shift, w_t, c1, c2)
+            ref = block_engine.layer_dinput_reference(ref_g, buf, c, scale, shift, w_t,
+                                                      c1, c2)
+            k5 += [_engine_err(got_g[..., :c], ref_g[..., :c], dtype, max_abs, names[1])]
+            k5 += [_engine_err(a, r, dtype) for a, r in zip(got, ref)]
+            del got_g, ref_g
+        e.append(max(k5))
+        del grads
+        got = block_engine.layer_dweight(grad, buf, c, f, scale, shift, c1, c2)
+        ref = block_engine.layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2)
+        e.append(_engine_err(got, ref, dtype, max_abs, names[2]))
+        errs[dtype] = e
+    if not max(errs[torch.float32]) <= 1e-4 or not max(errs[torch.bfloat16]) <= 1e-4:
+        raise AssertionError(f"engine kernel mismatch at {(buf32.shape, c)}: {errs}")
+    return errs
+
+
+def engine_kernel_check(batch: int, height: int = 256, width: int = 320) -> dict:
+    """``_engine_layer_check`` at every layer of FCDenseNet-57's 11 dense
+    blocks at ``batch``; returns each kernel's f32 max|d|."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    max_abs, max_f32, max_bf16 = dict.fromkeys(ENGINE_KERNELS, 0.0), 0.0, 0.0
+    for h, w, c0 in dense_block_shapes(height, width):
+        buf32, grad32 = _engine_buffers(g, batch, h, w, c0)
+        for j in range(4):
+            c, f = c0 + 12 * j, 12
+            errs = _engine_layer_check(buf32, grad32, c, f, _engine_layer_params(g, c, f),
+                                       max_abs)
+            max_f32 = max(max_f32, *errs[torch.float32])
+            max_bf16 = max(max_bf16, *errs[torch.bfloat16])
+        del buf32, grad32
+    print(f"  engine kernels at batch {batch}, {height}x{width}, 44 layers against their "
+          f"plain versions: f32 max|d|/max|ref| {max_f32:.3e}, bf16 mean rel "
+          f"{max_bf16:.3e} (limit 1e-4 each); f32 max|d| {max_abs}")
+    return max_abs
+
+
 def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
                         width: int = 320) -> dict:
     """K4, K5 and K6 against their plain versions at every layer of the 11
@@ -766,7 +895,7 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
     cuDNN call on the already activated tensor (conv2d; convolution_backward
     for the input only; for the weight only), which folds no BN or ReLU."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    names = ("block_engine_fwd", "block_engine_dinput", "block_engine_dweight")
+    names = ENGINE_KERNELS
     tot = {n: {"ms": 0.0, "alone_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "library_alone_ms": 0.0, "bytes": 0, "ops": 0} for n in names}
     max_abs, max_f32, max_bf16 = dict.fromkeys(names, 0.0), 0.0, 0.0
@@ -790,64 +919,12 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
     print(f"engine kernel phase, batch {batch}, {height}x{width}, {card}:")
     print("  H    W    C    f32 max|d|/max|ref| (K4 K5 K6)  bf16 mean rel (K4 K5 K6)"
           "  bf16 ms kernel / plain / cuDNN (K4; K5; K6)")
-
-    def compare(got, ref, dtype, name=None):
-        """The error measure of ``dtype``'s limit; ``name``: keep the f32
-        max|d| as that kernel's max_abs_err (its tensor output)."""
-        got, ref = got.float(), ref.float()
-        if dtype == torch.float32:
-            err = (got - ref).abs().max().item()
-            if name:
-                max_abs[name] = max(max_abs[name], err)
-            return err / ref.abs().max().item()
-        return ((got - ref).abs().mean() / ref.abs().mean()).item()
-
     for h, w, c0 in dense_block_shapes(height, width):
-        ld = c0 + 4 * 12
-        buf32 = torch.randn(batch, h, w, ld, generator=g, device="cuda")
-        grad32 = torch.randn(batch, h, w, ld, generator=g, device="cuda")
+        buf32, grad32 = _engine_buffers(g, batch, h, w, c0)
         for j in range(4):
             c, f = c0 + 12 * j, 12
-            scale = torch.rand(c, generator=g, device="cuda") + 0.5
-            shift = torch.randn(c, generator=g, device="cuda") * 0.3
-            wk = torch.randn(3, 3, c, f, generator=g, device="cuda") * (2.0 / (9 * c)) ** 0.5
-            bias = torch.randn(f, generator=g, device="cuda") * 0.1
-            c1 = torch.randn(f, generator=g, device="cuda") * 0.1
-            c2 = torch.randn(f, generator=g, device="cuda") * 0.1
-            errs = {}
-            for dtype in (torch.float32, torch.bfloat16):
-                buf, grad, w_t = buf32.to(dtype), grad32.to(dtype), wk.to(dtype)
-                e = []
-                got_b, ref_b = buf.clone(), buf.clone()
-                got = block_engine.layer_forward(got_b, c, scale, shift, w_t, bias)
-                ref = block_engine.layer_forward_reference(ref_b, c, scale, shift, w_t, bias)
-                e.append(max(compare(got_b[..., c:c + f], ref_b[..., c:c + f], dtype,
-                                     names[0]), compare(got, ref, dtype)))
-                # K5 adds into the random gradient prefix; in bf16 also into
-                # a zero one, which compares the increment itself after rounding
-                grads = [grad]
-                if dtype == torch.bfloat16:
-                    grads.append(torch.cat([torch.zeros_like(grad[..., :c]),
-                                            grad[..., c:]], -1))
-                k5 = []
-                for grad0 in grads:
-                    got_g, ref_g = grad0.clone(), grad0.clone()
-                    got = block_engine.layer_dinput(got_g, buf, c, scale, shift, w_t,
-                                                    c1, c2)
-                    ref = block_engine.layer_dinput_reference(ref_g, buf, c, scale, shift,
-                                                              w_t, c1, c2)
-                    k5 += [compare(got_g[..., :c], ref_g[..., :c], dtype, names[1])]
-                    k5 += [compare(a, r, dtype) for a, r in zip(got, ref)]
-                e.append(max(k5))
-                del grads
-                got = block_engine.layer_dweight(grad, buf, c, f, scale, shift, c1, c2)
-                ref = block_engine.layer_dweight_reference(grad, buf, c, f, scale, shift,
-                                                           c1, c2)
-                e.append(compare(got, ref, dtype, names[2]))
-                errs[dtype] = e
-                del got_b, ref_b, got_g, ref_g
-            if not max(errs[torch.float32]) <= 1e-4 or not max(errs[torch.bfloat16]) <= 1e-4:
-                raise AssertionError(f"engine kernel mismatch at {(batch, h, w, c)}: {errs}")
+            scale, shift, wk, bias, c1, c2 = layer = _engine_layer_params(g, c, f)
+            errs = _engine_layer_check(buf32, grad32, c, f, layer, max_abs)
             max_f32 = max(max_f32, *errs[torch.float32])
             max_bf16 = max(max_bf16, *errs[torch.bfloat16])
 
@@ -1905,6 +1982,270 @@ def unet_trainer_phase(card: str, data: Path, tmp: Path) -> dict:
     return {"launches": launches, "median_ms": median}
 
 
+# the distributed phase: FCDenseNet-57's global batch b8 256x320 over 2 ranks
+DIST_WORLD, DIST_BATCH, DIST_STEPS = 2, 8, 10
+DIST_SCALARS = ("loss", "sparse_flow_loss", "depth_consistency_loss", "grad_norm")
+# the f32 step's update, max|d|/max|ref|: between the 2-rank step's
+# reading and a planted fault's (PERF.md §2)
+DIST_UPDATE_LIMIT = 1e-3
+# a rank's trainer in a process of its own: its launches, step times and
+# checkpoints as the last line of its output
+TRAINER_CHILD = """\
+import json, sys
+from endoscopydepthestimation_pytorch_tpu_torch import train
+from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine, dense_conv, warp_sample
+run = train.main(sys.argv[1:])
+print(json.dumps({"launches": {"dense_conv_fwd": dense_conv.LAUNCHES, **warp_sample.LAUNCHES,
+                               **block_engine.LAUNCHES},
+                  "step_ms": run.step_ms, "losses": run.losses,
+                  "checkpoints": [str(p) for p in run.checkpoints]}))
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_rank(rank: int, world: int, port: int, out: str) -> None:
+    """(16a) One of two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device; gloo stages CUDA tensors through the host): one
+    f32 step and DIST_STEPS bf16 steps on its rows of the train phase's
+    synthetic b8 batch, from the train phase's conditioned weights. Saves
+    what the parent compares to ``out/rank<r>.pt``, with the f32 step's
+    twin under a planted fault."""
+    from endoscopydepthestimation_pytorch_tpu_torch.parallel import distributed
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(4)
+    dev = torch.device("cuda", 0)
+    distributed.init_distributed(f"127.0.0.1:{port}", world, rank, dev, backend="gloo")
+    try:
+        n = DIST_BATCH // world
+        data = {k: v[rank * n:(rank + 1) * n].contiguous() for k, v in
+                synthetic_batch(DIST_BATCH, 256, 320, SEED + 5, dev).items()}
+        dcl = torch.tensor(0.1, device=dev)
+        base = training.TrainConfig(lr_step_size=50)
+
+        def f32_step() -> dict:
+            state = distributed.broadcast_state(training.create_train_state(
+                conditioned(seeded_model(SEED)).to(dev)))
+            state, metrics = training.train_step(state, data, dcl, base)
+            return {"metrics": {k: float(metrics[k]) for k in DIST_SCALARS},
+                    "momentum": [b.cpu() for b in state.momentum],
+                    "model": {k: v.cpu() for k, v in state.model.state_dict().items()}}
+
+        f32 = f32_step()
+        # a planted fault: the engine's BN gradients summed over the ranks
+        # inside the engine as well as averaged after the backward, i.e.
+        # world times too large; the parent's limits must reject it
+        engine_bn = [".layers." in k and ".norm." in k
+                     for k, _ in FCDenseNet57().named_parameters()]
+        average = distributed.average_gradients
+        distributed.average_gradients = lambda grads: [
+            g * world if bn else g for g, bn in zip(average(grads), engine_bn)]
+        try:
+            planted = f32_step()
+        finally:
+            distributed.average_gradients = average
+
+        config = dataclasses.replace(base, compute_dtype=torch.bfloat16)
+        state = distributed.broadcast_state(training.create_train_state(
+            conditioned(seeded_model(SEED, torch.bfloat16)).to(dev)))
+        torch.cuda.synchronize()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(DIST_STEPS + 1)]
+        losses = []
+        _reset_launch_counts()
+        events[0].record()
+        for i in range(DIST_STEPS):
+            state, metrics = training.train_step(state, data, dcl, config)
+            events[i + 1].record()
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        # the step's collectives alone: 110 of a (2, C) statistic, one of
+        # the gradients (host clock, synchronized; after a barrier)
+        n_grad = sum(p.numel() for p in state.model.parameters())
+        collective_ms = {}
+        for name, shape, count in (("stats", (2, 256), 110), ("grads", (n_grad,), 1)):
+            t = torch.ones(shape, device=dev)
+            distributed.barrier(name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(count):
+                distributed.all_mean_(t)
+            torch.cuda.synchronize()
+            collective_ms[name] = (time.perf_counter() - t0) * 1e3
+        torch.save({"f32": f32, "planted": planted, "launches": launches, "collective_ms": collective_ms,
+                    "n_grad": n_grad,
+                    "losses": torch.stack(losses).cpu(),
+                    "step_ms": [events[i].elapsed_time(events[i + 1])
+                                for i in range(DIST_STEPS)],
+                    "model": {k: v.cpu() for k, v in state.model.state_dict().items()},
+                    "momentum": [b.cpu() for b in state.momentum],
+                    "count": int(state.count), "step": int(state.step)},
+                   Path(out) / f"rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+def _spawn_ranks(world: int, out: Path, timeout: float = 300.0) -> list:
+    """Run ``_dist_rank`` on ``world`` spawned ranks; a rank that fails
+    ends the others and raises, and so does one that outlives
+    ``timeout``."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_dist_rank, args=(world, _free_port(), str(out)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"the {world} ranks ran past {timeout} s")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _trainer_process(argv: list) -> dict:
+    """The trainer (``train.main``) in a process of its own, which must exit
+    0; returns the launches, step times, losses and checkpoints it prints."""
+    proc = subprocess.run([sys.executable, "-c", TRAINER_CHILD, *argv],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the trainer exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def two_rank_phase(card: str, tmp: Path) -> dict:
+    """(16a) Data parallel across processes (``parallel.distributed``):
+    K2-K6 against their plain versions at a rank's shapes (2B = 8); two
+    ranks on the one card over gloo, each with 4 rows of the b8 batch:
+    their f32 step against one process's b8 f32 step (losses and grad norm
+    rel <= 1e-3, PERF.md's train-parity limit; the step's update, the
+    momentum, max|d|/max|ref| over all parameters <= DIST_UPDATE_LIMIT;
+    BN statistics max|d|/max|ref| <= 1e-4), and a planted fault (the
+    engine's BN gradients world times too large) that the update's limit
+    must reject; then DIST_STEPS bf16 steps after which both ranks'
+    launches (K2-K6, no K1) are those of a step and equal, and their
+    parameters, momentum and running statistics and their losses bitwise
+    equal."""
+    dev = torch.device("cuda")
+    local = 2 * DIST_BATCH // DIST_WORLD  # a rank's stacked pair
+    print(f"  K2-K6 at a rank's shapes, 2B = {local}:")
+    max_abs = engine_kernel_check(local)
+    err = sampler_check(*_sampler_inputs(local, 256, 320))
+    max_abs.update(warp_sample_fwd=err["abs_fwd"], warp_sample_bwd=err["abs_bwd"])
+
+    base = training.TrainConfig(lr_step_size=50)
+    state = training.create_train_state(conditioned(seeded_model(SEED)).to(dev))
+    state, metrics = training.train_step(
+        state, synthetic_batch(DIST_BATCH, 256, 320, SEED + 5, dev),
+        torch.tensor(0.1, device=dev), base)
+    ref = {k: float(metrics[k]) for k in DIST_SCALARS}
+    ref_momentum = [b.cpu() for b in state.momentum]
+    param_names = [k for k, _ in state.model.named_parameters()]
+    ref_model = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    del state, metrics
+
+    def readings(step: dict) -> dict:
+        """rel of each scalar; the update over all parameters at once (a
+        conv bias ahead of a BN has a true gradient of 0, so its update is
+        f32 noise) and the tensor of its largest error; the BN statistics
+        per tensor. The update is read from the momentum, the step's
+        parameter change over -lr before the parameters' f32 rounding."""
+        rel = {k: _rel_scalar(step["metrics"][k], ref[k]) for k in DIST_SCALARS}
+        d = [(a - b).abs().max().item() for a, b in zip(step["momentum"], ref_momentum)]
+        rel["update"] = max(d) / max(b.abs().max().item() for b in ref_momentum)
+        rel["worst"] = param_names[d.index(max(d))]
+        rel["statistics"] = max(_rel(step["model"][k], ref_model[k])
+                                for k in ref_model if "running" in k)
+        return rel
+
+    t0 = time.perf_counter()
+    out = tmp / "ranks"
+    out.mkdir()
+    ranks = _spawn_ranks(DIST_WORLD, out)
+    spawned_s = time.perf_counter() - t0
+    rel, planted = readings(ranks[0]["f32"]), readings(ranks[0]["planted"])
+    print(f"distributed phase [{card}]: 2 ranks on one card over gloo, b{DIST_BATCH} "
+          f"256x320 split 2 x b{DIST_BATCH // DIST_WORLD}, {spawned_s:.1f} s with the "
+          f"spawns; f32 step against one process at b{DIST_BATCH}: rel " +
+          ", ".join(f"{k} {rel[k]:.3e}" for k in DIST_SCALARS) +
+          f" (limit 1e-3); the update (momentum) max|d|/max|ref| {rel['update']:.3e} "
+          f"(limit {DIST_UPDATE_LIMIT:.0e}; largest in {rel['worst']}), BN statistics "
+          f"{rel['statistics']:.3e} "
+          f"(limit 1e-4); planted fault (the engine's BN gradients x{DIST_WORLD}): grad "
+          f"norm rel {planted['grad_norm']:.3e}, update {planted['update']:.3e} (largest "
+          f"in {planted['worst']}), BN statistics {planted['statistics']:.3e}")
+    if not (all(rel[k] <= 1e-3 for k in DIST_SCALARS) and rel["update"] <= DIST_UPDATE_LIMIT
+            and rel["statistics"] <= 1e-4):
+        raise AssertionError("the 2-rank f32 step disagrees with the b8 step")
+    if not planted["update"] > DIST_UPDATE_LIMIT:
+        raise AssertionError("the update's limit lets the planted fault pass")
+
+    a, b = ranks
+    expected = {"dense_conv_fwd": 0, "warp_sample_fwd": DIST_STEPS,
+                "warp_sample_bwd": DIST_STEPS,
+                **dict.fromkeys(block_engine.LAUNCHES, 44 * DIST_STEPS)}
+    same = (all(torch.equal(a["model"][k], v) for k, v in b["model"].items())
+            and all(torch.equal(x, y) for x, y in zip(a["momentum"], b["momentum"]))
+            and (a["count"], a["step"]) == (b["count"], b["step"]) == (DIST_STEPS,) * 2
+            and torch.equal(a["losses"], b["losses"]))
+    print(f"  {DIST_STEPS} bf16 steps: losses " +
+          " ".join(f"{v:.5f}" for v in a["losses"].tolist()) +
+          f"; launches rank 0 {a['launches']}, rank 1 {b['launches']} (expected "
+          f"{expected} each); parameters, momentum, BN statistics and losses "
+          f"bitwise equal across the ranks: {same}")
+    if not (a["launches"] == b["launches"] == expected and same
+            and torch.isfinite(a["losses"]).all()):
+        raise AssertionError("the 2-rank bf16 steps failed their checks")
+    step_ms = sorted(a["step_ms"][2:])[len(a["step_ms"][2:]) // 2]
+    print(f"timing [{card}] 2 ranks, one card, gloo: not a scaling figure: bf16 step "
+          f"b{DIST_BATCH // DIST_WORLD} a rank, 256x320: {step_ms:.4f} ms median of "
+          f"rank 0's steps 3-{DIST_STEPS}; steps ms {[round(t, 3) for t in a['step_ms']]}; "
+          f"the step's collectives alone on rank 0: 110 all-reduces of a (2, 256) f32 "
+          f"tensor {a['collective_ms']['stats']:.3f} ms, one of the {a['n_grad']} "
+          f"gradient floats {a['collective_ms']['grads']:.3f} ms")
+
+    return {"launches": {k: a["launches"][k] + b["launches"][k] for k in a["launches"]},
+            "max_abs": max_abs}
+
+
+def nccl_world1_phase(card: str, data: Path, tmp: Path) -> dict:
+    """(16b) The trainer over NCCL at world size 1 through its flags, one
+    epoch with validation, against the same trainer run without them: both
+    exit 0 with a checkpoint that loads back and the launches of a run
+    without a process group."""
+    # one epoch of 12 steps and 3 validation batches, no boards, so that the
+    # step times are the steps'
+    extra = ("--number_epoch", "0", "--num_iter", "96", "--display_interval", "0")
+    flags = ("--num_processes", "1", "--process_id", "0", "--coordinator_address")
+    runs = {"plain": _trainer_process(_trainer_argv(data, tmp / "plain", *extra)),
+            "nccl": _trainer_process(_trainer_argv(data, tmp / "nccl", *extra, *flags,
+                                                   f"127.0.0.1:{_free_port()}"))}
+    expected = _trainer_expected(12, 3)
+    names = {"plain": "without a process group", "nccl": "NCCL world size 1"}
+    for label, run in runs.items():
+        loaded = [_check_checkpoint(Path(p)) for p in run["checkpoints"]]
+        print(f"  trainer {names[label]}: exit 0, launches {run['launches']} (expected "
+              f"{expected}), losses {[round(v, 5) for v in run['losses']]}, checkpoint "
+              f"loads back {loaded}")
+        if (run["launches"] != expected or len(loaded) != 1
+                or not np.isfinite(run["losses"]).all()):
+            raise AssertionError(f"the trainer {names[label]} failed its checks")
+    medians = {label: float(np.median(run["step_ms"])) for label, run in runs.items()}
+    print(f"timing [{card}] trainer step bf16 b8 256x320 without boards, one epoch of 12 "
+          f"steps in a process of its own, median of the {len(runs['nccl']['step_ms'])} "
+          f"steps timed after 2 warm-ups, the plain run first: NCCL world size 1 through "
+          f"the flags {medians['nccl']:.4f} ms, without a process group "
+          f"{medians['plain']:.4f} ms; steps ms {[round(t, 3) for t in runs['nccl']['step_ms']]}"
+          f" and {[round(t, 3) for t in runs['plain']['step_ms']]}")
+    return {"launches": runs["nccl"]["launches"]}
+
+
 def _run(cmd) -> str:
     out = subprocess.run(cmd, capture_output=True, text=True, check=True)
     return out.stdout.strip()
@@ -2009,7 +2350,10 @@ def main() -> int:
         print(f"UNet phase, {card}:")
         unet_parity_phase()
         unet = unet_trainer_phase(card, trained["data"], work)
-    for part in (trained, evaluated, unet):
+        print(f"distributed phase, {card}:")
+        spread = two_rank_phase(card, work)
+        world1 = nccl_world1_phase(card, trained["data"], work)
+    for part in (trained, evaluated, unet, spread, world1):
         for name, n in part["launches"].items():
             launches[name] += n
 
@@ -2029,6 +2373,8 @@ def main() -> int:
             "bound_by": sampler["bounds"]["bwd"][1]},
         **engine,
     }
+    for name, err in spread["max_abs"].items():  # the kernels at a rank's shapes
+        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

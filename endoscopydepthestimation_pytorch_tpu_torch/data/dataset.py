@@ -221,15 +221,32 @@ class BatchLoader:
     yielded strictly in order; every sample draws from its own
     ``random.Random`` and ``RandomState``, derived from (seed, epoch, its
     position in the epoch), so the batches are the same under any worker
-    interleaving. The JAX loader's multi-host partition of a batch is not
-    ported (ROADMAP §1 item 8).
+    interleaving.
+
+    Several processes (``process_index`` of ``process_count``, one per
+    rank of ``parallel.distributed``): each takes its contiguous
+    ``batch_size / process_count`` rows of every global batch of
+    ``batch_size`` samples. Every process walks the same global order and
+    draws each sample from the RNG stream of its global position, so the
+    processes' rows, concatenated in process order, are the batch one
+    process would build (JAX data/dataset.py:223-245, 280-296).
     """
 
     def __init__(self, dataset: SfMDataset, batch_size: int, shuffle: bool,
                  num_workers: int = 4, seed: int = 10085, drop_last: bool = True,
-                 prefetch: int = 4):
+                 prefetch: int = 4, process_index: int = 0,
+                 process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is not in "
+                             f"[0, {process_count})")
+        if batch_size % process_count:
+            raise ValueError(f"the global batch_size {batch_size} must divide "
+                             f"evenly over {process_count} processes")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.process_index = process_index
+        self.process_count = process_count
+        self.local_batch_size = batch_size // process_count
         self.shuffle = shuffle
         # more worker threads than cores thrash (GIL and context switches
         # on the numpy-heavy parts); sched_getaffinity reflects the
@@ -263,15 +280,22 @@ class BatchLoader:
     def __iter__(self):
         order = self._index_order()
         n_batches = len(self)
+        if (self.process_count > 1 and not self.drop_last
+                and len(order) % self.batch_size):
+            # a ragged last batch does not split into equal rows per process
+            raise ValueError("loading in several processes needs drop_last=True "
+                             "or a dataset length divisible by batch_size")
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         base = (self.seed + self._epoch) * 1000003
 
         def build(b):
-            start = b * self.batch_size
+            # this process's rows of global batch b, at their global
+            # positions (the RNG streams' ids)
+            start = b * self.batch_size + self.process_index * self.local_batch_size
             samples = []
-            for k, i in enumerate(order[start:start + self.batch_size]):
+            for k, i in enumerate(order[start:start + self.local_batch_size]):
                 pos = start + k
                 # per-sample RNG streams: deterministic under any worker
                 # interleaving

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import multiprocessing
+import os
 import pickle
 from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass
@@ -399,8 +400,14 @@ def save_precompute(path, sequences: Dict[str, SequenceData], downsampling,
     payload = dicts[:10] + [downsampling, network_downsampling, inlier_percentage, scales]
     # reference order: crop, selected, visible, point_cloud, intrinsic, mask,
     # view_indexes_per_point, extrinsics, projections, clean, ds, nds, inlier, scale
-    with open(str(path), "wb") as f:
+    # written under a name of this process's, then renamed: the trainer's
+    # ranks on one host may write the same file, and a reader never sees
+    # a part of one
+    path = Path(path)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
         pickle.dump(payload, f, pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
 
 
 def load_precompute(path, folder_list=None) -> Dict[str, SequenceData]:

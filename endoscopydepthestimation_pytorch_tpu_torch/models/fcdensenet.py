@@ -29,7 +29,9 @@ not torch's defaults. In eval mode it folds the running statistics. In
 train mode it folds the batch statistics mu = mean(x) and
 var = mean(x^2) - mu^2 (the biased variance), taken in f32 with the
 gradient flowing through mu and mean(x^2), and moves the running
-statistics to 0.9*r + 0.1*stat with that biased variance.
+statistics to 0.9*r + 0.1*stat with that biased variance. In a process
+group (``parallel.distributed``) those statistics are the global batch's,
+as JAX's ``axis_name`` pmean makes them (:200-202).
 
 Attribute names follow the reference's state_dict (``firstconv``,
 ``denseBlocksDown.i.layers.j.{norm,conv}``, ``transDownBlocks.i.{norm,conv}``,
@@ -47,6 +49,7 @@ from torch import nn
 
 from ..ops import block_engine as engine
 from ..ops.dense_conv import fused_dense_conv
+from ..parallel import distributed
 
 MOMENTUM = 0.9  # running statistics keep 0.9 of their value (torch's 0.1)
 
@@ -71,18 +74,29 @@ class BatchMoments(torch.autograd.Function):
     """Per-channel mean and mean of squares of an NCHW tensor over
     (N, H, W), in f32 (JAX ``segment_stats``, fcdensenet.py:152-159).
     Saves only ``x`` itself, which the layer that consumes ``x`` saves
-    anyway, instead of an f32 copy."""
+    anyway, instead of an f32 copy.
+
+    In a process group the moments are the global batch's: the forward
+    averages the packed (mean, mean of squares) over the ranks, and the
+    backward sums their cotangents over the ranks and divides by the
+    global count (``parallel.distributed``, convention 2)."""
 
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
         xf = x.float()
-        return xf.mean((0, 2, 3)), xf.square().mean((0, 2, 3))
+        mean, mean2 = xf.mean((0, 2, 3)), xf.square().mean((0, 2, 3))
+        if distributed.group() is not None:
+            mean, mean2 = distributed.all_mean_(torch.stack([mean, mean2]))
+        return mean, mean2
 
     @staticmethod
     def backward(ctx, dmean, dmean2):
         (x,) = ctx.saved_tensors
         n = x.numel() // x.shape[1]
+        if distributed.group() is not None:
+            dmean, dmean2 = distributed.all_sum_(torch.stack([dmean, dmean2]).float())
+            n *= distributed.world()
         dx = (dmean[:, None, None] + 2.0 * x.float() * dmean2[:, None, None]) / n
         return dx.to(x.dtype)
 
@@ -104,7 +118,9 @@ def batch_fold(bn: nn.BatchNorm2d, x: torch.Tensor, stats=None) -> tuple:
     in eval mode from the running statistics; in train mode from the
     batch statistics (``stats`` = (mean, mean of squares) when the
     producer already has them), advancing the running ones (JAX
-    ``BNFold``)."""
+    ``BNFold``). In a process group the batch statistics are the global
+    batch's (``BatchMoments``; the engine's ``stats`` already are), so the
+    running ones advance identically on every rank."""
     if not bn.training:
         return fold_batchnorm(bn)
     mean, mean2 = BatchMoments.apply(x) if stats is None else stats

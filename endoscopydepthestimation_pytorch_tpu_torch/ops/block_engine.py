@@ -50,8 +50,20 @@ orchestration (``BlockEngine``) is the same on both, so the CPU tests
 exercise the (C1, C2) bookkeeping that runs on the card. Callers gate on
 ``supported``, by shape, before any launch.
 
-Not ported: the cross-device reductions of JAX's ``axis_name`` (its
-``pmean``/``psum``, :585-586, :1171-1172) wait for the multi-GPU port.
+In a process group (``parallel.distributed``) the block normalizes with
+the global batch's statistics, as JAX's ``axis_name`` makes it (its
+``_pmean``/``_psum``, :585-586, :1171-1172). Each collective is one
+all-reduce of one packed (2, C) tensor, between the launches: in the
+forward the block input's (mu, m2) and each layer's K4 sums, once divided
+by the local count, are averaged over the ranks (JAX :597-598, :627-628);
+in the backward the statistics' cotangent (gmu, gm2) is summed over the
+ranks before C1 and C2 are formed with the global pixel count (JAX
+:1184-1205), and so is each layer's (sum dpre*x, sum dpre), for the
+(C1, C2) updates only (JAX :1263-1301). dgamma, dbeta, dW and the bias
+gradient stay the rank's own, averaged with every other parameter
+gradient after the backward (the module docstring of
+``parallel.distributed``, convention 3). That is 5 + 5 all-reduces per
+4-layer block and step, none at world size 1.
 """
 from __future__ import annotations
 
@@ -62,6 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, conv3x3_mma
+from ..parallel import distributed
 
 # kernel launches in this process, by kernel
 LAUNCHES = {"block_engine_fwd": 0, "block_engine_dinput": 0,
@@ -390,15 +403,19 @@ class BlockEngine(torch.autograd.Function):
                           device=x.device)
         buf[..., :c0] = x
         xf = x.float()
-        mus, m2s = [xf.mean((0, 1, 2))], [xf.square().mean((0, 1, 2))]
+        mu_x, m2_x = xf.mean((0, 1, 2)), xf.square().mean((0, 1, 2))
+        if distributed.group() is not None:
+            mu_x, m2_x = distributed.all_mean_(torch.stack([mu_x, m2_x]))
+        mus, m2s = [mu_x], [m2_x]
         for j in range(n_layers):
             mu, m2 = torch.cat(mus), torch.cat(m2s)
             scale, shift, _ = _fold(gammas[j], betas[j], mu, m2)
             sums = layer_forward(buf, c0 + j * growth, scale, shift,
                                  kernels[j].to(x.dtype).contiguous(),
                                  biases[j].float().contiguous())
-            mus.append(sums[0] / n)
-            m2s.append(sums[1] / n)
+            stats = distributed.all_mean_(sums / n)
+            mus.append(stats[0])
+            m2s.append(stats[1])
         mu, m2 = torch.cat(mus), torch.cat(m2s)
         ctx.save_for_backward(buf, mu, m2, *params)
         ctx.n_layers = n_layers
@@ -412,14 +429,18 @@ class BlockEngine(torch.autograd.Function):
         b, h, w, ctot = buf.shape
         growth = biases[0].shape[0]
         c0 = ctot - n_layers * growth
-        n = b * h * w
+        n = b * h * w * distributed.world()  # the global pixel count
         grad = torch.empty_like(buf)  # K5 accumulates into it in place
         grad.copy_(gbuf)
         # the statistics' cotangent, d buf += gmu/n + 2*buf*gm2/n, is affine
         # in buf: kept as per-channel coefficients (C1, C2) and applied
-        # lazily (JAX :1195-1205)
-        c1 = gmu.float() / n
-        c2 = 2.0 * gm2.float() / n
+        # lazily (JAX :1195-1205); in a process group gmu and gm2 are the
+        # sums of every rank's
+        gmu, gm2 = gmu.float(), gm2.float()
+        if distributed.group() is not None:
+            gmu, gm2 = distributed.all_sum_(torch.stack([gmu, gm2]))
+        c1 = gmu / n
+        c2 = 2.0 * gm2 / n
         dgammas, dbetas, dkernels, dbiases = ([None] * n_layers for _ in range(4))
         for j in reversed(range(n_layers)):
             c = c0 + j * growth
@@ -432,9 +453,13 @@ class BlockEngine(torch.autograd.Function):
             dkernels[j] = layer_dweight(grad, buf, c, growth, scale, shift,
                                         c1j, c2j)
             # dgamma, dbeta, and layer j's BN-through-statistics gradient
-            # folded into the prefix's (C1, C2) (JAX :1262-1301)
+            # folded into the prefix's (C1, C2) (JAX :1262-1301); the
+            # updates take every rank's sums, the gradients this rank's
             dgamma = inv * (dsx - mu[:c] * dss)
             dgammas[j], dbetas[j] = dgamma, dss
+            if distributed.group() is not None:
+                dsx, dss = distributed.all_sum_(torch.stack([dsx, dss]))
+                dgamma = inv * (dsx - mu[:c] * dss)
             gamma = gammas[j].float()
             c2[:c] -= gamma * inv * inv * dgamma / n
             c1[:c] += gamma * inv * (inv * mu[:c] * dgamma - dss) / n

@@ -21,6 +21,18 @@ the warp sampler's kernels only); batches reach the card through
 It runs on the CUDA card unless ``--device cpu`` asks for the CPU, and
 raises without a card. Flags for what the port does not carry, or has not
 ported yet, raise an error that names the ROADMAP item.
+
+Data parallel across cards and hosts (``parallel.distributed``): start
+one process per card, each with ``--coordinator_address HOST:PORT`` (rank
+0's), ``--num_processes N`` (the number of ranks in all) and
+``--process_id i``. Rank i runs on ``cuda:<i % the host's card count>``
+over NCCL, or on the CPU over gloo with ``--device cpu``, and loads its
+``batch_size / N`` rows of every global batch. Only rank 0 creates the
+log root, prints, and writes boards (from its own rows), scalars and
+checkpoints, as the JAX trainer's ``_NullWriter`` ranks (root train.py:178,
+234); every rank reaches the barrier after each save. When a rank raises,
+it prints its traceback first and then leaves the group; the others fail
+at their next collective, or at the group's timeout at the latest.
 """
 from __future__ import annotations
 
@@ -29,6 +41,8 @@ import contextlib
 import dataclasses
 import datetime
 import random
+import sys
+import traceback
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -40,7 +54,7 @@ from .data import readers
 from .data.augment import TrainingAugmentation
 from .data.dataset import BatchLoader, SfMDataset
 from .models import FCDenseNet57, FCDenseNet67, FCDenseNet103, UNet, init_weights
-from .parallel import device_prefetch
+from .parallel import device_prefetch, distributed
 from .utils import checkpoint as ckpt
 from .utils import visualization as viz
 from .utils.profiling import StepTimer, device_trace
@@ -58,7 +72,7 @@ SEED = 10085
 _IMAGE_KEYS = ("scaled_depth_1", "scaled_depth_2",
                "flows_from_depth_1", "flows_from_depth_2")
 _LOSS_KEYS = ("loss", "sparse_flow_loss", "depth_consistency_loss")
-_MULTI_HOST = "multi-GPU and multi-host training are not ported yet (ROADMAP §1 item 8)"
+_DISTRIBUTED_FLAGS = ("coordinator_address", "num_processes", "process_id")
 # flag -> why the port refuses it when it is set
 NOT_PORTED = {
     "fused_convs": "the port's train path runs every dense block through the "
@@ -72,9 +86,6 @@ NOT_PORTED = {
     "split_last_skip": "an XLA-level variant of the same math that the port "
                        "does not carry (ROADMAP, north star: left out on purpose)",
     "act8": "the fp8 activation store is not ported yet (ROADMAP §1 item 10)",
-    "coordinator_address": _MULTI_HOST,
-    "num_processes": _MULTI_HOST,
-    "process_id": _MULTI_HOST,
 }
 
 
@@ -154,9 +165,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "device); 1 gives the reference's per-iteration "
                         "scalars (its train.py:348-350)")
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="not ported: raises")
-    p.add_argument("--num_processes", type=int, default=None, help="not ported: raises")
-    p.add_argument("--process_id", type=int, default=None, help="not ported: raises")
+                   help="host:port of rank 0 (data-parallel training across "
+                        "cards and hosts; give all three of these flags)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="total number of ranks, one process per card")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank in [0, num_processes)")
     return p
 
 
@@ -165,8 +179,9 @@ class TrainRun:
     """What ``main`` returns: the log root, the final state, the
     checkpoints written, every loss read back (one per step at
     ``--log_interval 1``), the wall-clock step times after the timer's
-    warm-up, and the profile's summary (``--profile_dir``)."""
-    log_root: Path
+    warm-up, and the profile's summary (``--profile_dir``). On every rank
+    but 0 the log root is None and there are no checkpoints."""
+    log_root: Optional[Path]
     state: training.TrainState
     checkpoints: List[Path]
     losses: List[float]
@@ -178,6 +193,17 @@ def _refuse_unported(args) -> None:
     for flag, why in NOT_PORTED.items():
         if getattr(args, flag) is not None:  # given on the command line
             raise ValueError(f"--{flag} is not supported by the port: {why}")
+
+
+def _distributed(args) -> bool:
+    """Whether the flags ask for a process group: all three of them, or
+    none."""
+    given = [f"--{f}" for f in _DISTRIBUTED_FLAGS if getattr(args, f) is not None]
+    if given and len(given) < len(_DISTRIBUTED_FLAGS):
+        raise ValueError("data-parallel training needs --coordinator_address, "
+                         "--num_processes and --process_id together; got only "
+                         + ", ".join(given))
+    return bool(given)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -201,13 +227,37 @@ def _board(batch, metrics, is_hsv: bool) -> np.ndarray:
 def main(argv=None) -> TrainRun:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    multi = _distributed(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; --device cpu asks for "
                            "the CPU")
+    if not multi:
+        return _run(args, device)
+    distributed.check_batch_divides(args.batch_size, args.num_processes)
+    if device.type == "cuda":
+        device = torch.device("cuda", args.process_id % torch.cuda.device_count())
+    distributed.init_distributed(args.coordinator_address, args.num_processes,
+                                 args.process_id, device)
+    try:
+        run = _run(args, device)
+        distributed.barrier("train_done")  # no rank leaves while another works
+        return run
+    except BaseException:
+        # this rank's traceback first: leaving the group may wait, and the
+        # other ranks then fail with errors of their own
+        traceback.print_exc()
+        sys.stderr.flush()
+        raise
+    finally:
+        distributed.shutdown()
 
+
+def _run(args, device: torch.device) -> TrainRun:
     np.random.seed(SEED)
     random.seed(SEED)
+    if not distributed.is_main():  # no log root, no writer (JAX's _NullWriter)
+        return _train(args, device, None, None)
 
     now = datetime.datetime.now()
     log_root = Path(args.training_result_root) / (
@@ -220,8 +270,9 @@ def main(argv=None) -> TrainRun:
         return _train(args, device, log_root, writer)
 
 
-def _train(args, device: torch.device, log_root: Path, writer) -> TrainRun:
+def _train(args, device: torch.device, log_root: Optional[Path], writer) -> TrainRun:
     height, width = args.input_size
+    world, rank, main = distributed.world(), distributed.rank(), distributed.is_main()
     data_root = Path(args.training_data_root)
     train_files, val_files, _ = readers.get_color_file_names_by_bag(
         data_root, args.training_patient_id, args.validation_patient_id,
@@ -240,10 +291,12 @@ def _train(args, device: torch.device, log_root: Path, writer) -> TrainRun:
         num_iter=args.num_iter, **common)  # samples per epoch (reference train.py:51)
     val_dataset = SfMDataset(image_file_names=val_files, transform=None,
                              use_store_data=True, phase="validation", **common)
+    partition = dict(process_index=rank, process_count=world)
     train_loader = BatchLoader(train_dataset, args.batch_size, shuffle=True,
-                               num_workers=args.num_workers, seed=SEED)
+                               num_workers=args.num_workers, seed=SEED, **partition)
     val_loader = BatchLoader(val_dataset, args.batch_size, shuffle=False,
-                             num_workers=args.num_workers, seed=SEED, drop_last=True)
+                             num_workers=args.num_workers, seed=SEED, drop_last=True,
+                             **partition)
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     model = init_weights(MODELS[args.architecture](n_classes=1, dtype=dtype),
@@ -253,7 +306,7 @@ def _train(args, device: torch.device, log_root: Path, writer) -> TrainRun:
         max_lr=args.max_lr, min_lr=args.min_lr, lr_step_size=args.num_iter,
         zero_division_epsilon=args.zero_division_epsilon, compute_dtype=dtype)
     state = training.create_train_state(model)
-    if args.architecture_summary:
+    if args.architecture_summary and main:
         print(model)
         n_params = sum(p.numel() for p in model.parameters())
         print(f"{args.architecture}: {n_params:,} parameters, input "
@@ -264,11 +317,18 @@ def _train(args, device: torch.device, log_root: Path, writer) -> TrainRun:
         if args.trained_model_path is None or not Path(args.trained_model_path).exists():
             raise OSError("No trained model detected")
         state, start_epoch, _ = ckpt.load_checkpoint(args.trained_model_path, state)
-        print(f"Restored model, epoch {start_epoch}, step {int(state.step)}, "
-              f"count {int(state.count)}")
-    if args.batch_size % args.grad_accum:
-        raise ValueError(f"--batch_size {args.batch_size} must be divisible by "
+        if main:
+            print(f"Restored model, epoch {start_epoch}, step {int(state.step)}, "
+                  f"count {int(state.count)}")
+    if (args.batch_size // world) % args.grad_accum:
+        raise ValueError(f"the batch of each of the {world} process(es), "
+                         f"{args.batch_size // world}, must be divisible by "
                          f"--grad_accum {args.grad_accum}")
+    if world > 1:
+        distributed.broadcast_state(state)
+        if main:
+            print(f"Data parallel over {world} processes, {args.batch_size // world} "
+                  f"rows each")
 
     mean_sfl = 0.0
     timer = StepTimer()
@@ -283,7 +343,7 @@ def _train(args, device: torch.device, log_root: Path, writer) -> TrainRun:
         pending = None  # one-step-delayed metric readback
         means = {}
         count = 0
-        traced = args.profile_dir is not None and epoch == start_epoch
+        traced = args.profile_dir is not None and epoch == start_epoch and main
         with device_trace(args.profile_dir, enabled=traced) as trace:
             for batch_idx, batch in enumerate(device_prefetch(train_loader, device)):
                 display = (args.display_interval > 0
@@ -292,9 +352,10 @@ def _train(args, device: torch.device, log_root: Path, writer) -> TrainRun:
                     state, batch, dcl_weight, config, with_images=display,
                     grad_accum=args.grad_accum)
                 if display:
-                    writer.add_image("Training/Images/Results",
-                                     _board(batch, metrics, args.use_hsv_colorspace),
-                                     int(state.step))
+                    if main:  # the board shows rank 0's rows
+                        writer.add_image("Training/Images/Results",
+                                         _board(batch, metrics, args.use_hsv_colorspace),
+                                         int(state.step))
                     metrics = {k: v for k, v in metrics.items() if k not in _IMAGE_KEYS}
                 if pending is not None and batch_idx % args.log_interval == 0:
                     vals = {k: float(pending[k]) for k in _LOSS_KEYS}
@@ -303,11 +364,12 @@ def _train(args, device: torch.device, log_root: Path, writer) -> TrainRun:
                     count += 1
                     for k, v in vals.items():
                         means[k] = means.get(k, 0.0) + (v - means.get(k, 0.0)) / count
-                    writer.add_scalars("Training", {
-                        "overall": means["loss"],
-                        "depth_consistency": means["depth_consistency_loss"],
-                        "sparse_flow": means["sparse_flow_loss"]}, int(state.step))
-                    if batch_idx % 50 == 0:
+                    if main:
+                        writer.add_scalars("Training", {
+                            "overall": means["loss"],
+                            "depth_consistency": means["depth_consistency_loss"],
+                            "sparse_flow": means["sparse_flow_loss"]}, int(state.step))
+                    if batch_idx % 50 == 0 and main:
                         print(f"epoch {epoch} it {batch_idx} "
                               f"loss {vals['loss']:.5f} (avg {means['loss']:.5f}) "
                               f"sfl {vals['sparse_flow_loss']:.5f} "
@@ -318,9 +380,10 @@ def _train(args, device: torch.device, log_root: Path, writer) -> TrainRun:
             print(f"epoch {epoch} profile: {profile}")
         if pending is not None:
             losses.append(float(pending["loss"]))
-            print(f"epoch {epoch} final loss {losses[-1]:.5f}")
+            if main:
+                print(f"epoch {epoch} final loss {losses[-1]:.5f}")
         summary = timer.summary()
-        if summary:
+        if summary and main:
             scale = max(1, args.log_interval)  # ticks come once per log_interval steps
             print(f"epoch {epoch} step time: mean {summary['mean_ms']/scale:.1f} ms, "
                   f"p50 {summary['p50_ms']/scale:.1f}, "
@@ -339,22 +402,24 @@ def _train(args, device: torch.device, log_root: Path, writer) -> TrainRun:
             for k in _LOSS_KEYS:
                 v = float(metrics[k])
                 val_means[k] = val_means.get(k, 0.0) + (v - val_means.get(k, 0.0)) / n
-            if args.display_interval > 0 and batch_idx % args.display_interval == 0:
+            if main and args.display_interval > 0 and batch_idx % args.display_interval == 0:
                 writer.add_image("Validation/Images/Results",
                                  _board(batch, metrics, args.use_hsv_colorspace),
                                  int(state.step))
-        if val_means:
+        if val_means and main:
             writer.add_scalars("Validation", {
                 "overall": val_means["loss"],
                 "depth_consistency": val_means["depth_consistency_loss"],
                 "sparse_flow": val_means["sparse_flow_loss"]}, epoch)
         mean_sfl = val_means.get("sparse_flow_loss", mean_sfl)
 
-        model_path = log_root / f"checkpoint_model_epoch_{epoch}_validation_{mean_sfl}.pt"
-        ckpt.save_checkpoint(model_path, state, epoch + 1, mean_sfl)
-        checkpoints.append(model_path)
-        writer.export_scalars_to_json(log_root / f"all_scalars_{epoch}.json")
-        print(f"epoch {epoch}: validation sfl {mean_sfl:.5f}, saved {model_path}")
+        if main:
+            model_path = log_root / f"checkpoint_model_epoch_{epoch}_validation_{mean_sfl}.pt"
+            ckpt.save_checkpoint(model_path, state, epoch + 1, mean_sfl)
+            checkpoints.append(model_path)
+            writer.export_scalars_to_json(log_root / f"all_scalars_{epoch}.json")
+            print(f"epoch {epoch}: validation sfl {mean_sfl:.5f}, saved {model_path}")
+        distributed.barrier(f"saved_epoch_{epoch}")
 
     return TrainRun(log_root=log_root, state=state, checkpoints=checkpoints,
                     losses=losses, step_ms=list(timer.times_ms), profile=profile)

@@ -19,6 +19,14 @@ finite but a gradient is not, params, momentum and count stay put but
 The port's state is mutable: ``train_step`` updates the model's
 parameters, its running statistics and the optimizer state in place, and
 returns the same ``TrainState``.
+
+In a process group (``parallel.distributed``) each rank passes its own
+rows of the global batch: BatchNorm normalizes with the global batch's
+statistics, the gradients are averaged over the ranks after the backward
+in one all-reduce, and the loss and the scalars in another, before the
+update, so every rank applies the same update (JAX
+``make_shardmap_train_step``, parallel/mesh.py:180-256). ``eval_step``
+averages its metrics the same way. At world size 1 neither runs.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from torch import nn
 
 from . import losses
 from .ops import geometry
+from .parallel import distributed
 from .schedule import make_cyclic_schedule
 
 
@@ -210,6 +219,12 @@ _SCALAR_KEYS = ("sparse_flow_loss", "depth_consistency_loss",
                 "scale_std_1", "scale_std_2")
 
 
+def _all_mean(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Scalar ``values`` averaged over the ranks, in one all-reduce."""
+    packed = distributed.all_mean_(torch.stack([v.float() for v in values.values()]))
+    return dict(zip(values, packed))
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                dcl_weight: torch.Tensor, config: TrainConfig,
                with_images: bool = False, grad_accum: int = 1
@@ -223,7 +238,9 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     microbatches (rows m::n), runs forward and backward on each, and
     applies one update on the mean gradient; each microbatch normalizes
     with its own batch statistics, so the running statistics advance n
-    times (JAX training.py:231-243).
+    times (JAX training.py:231-243). In a process group each rank takes
+    rows m::n of its own rows; their union over the ranks is the global
+    batch's microbatch m, whose statistics BatchNorm uses.
     """
     model = state.model
     _check_dtype(model, config)
@@ -253,6 +270,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         grad_sum = [g * (1.0 / n) for g in grad_sum]
         loss_sum = loss_sum * (1.0 / n)
         scalar_sum = {k: v * (1.0 / n) for k, v in scalar_sum.items()}
+    if distributed.group() is not None:
+        grad_sum = distributed.average_gradients(grad_sum)
+        scalar_sum = _all_mean({"loss": loss_sum, **scalar_sum})
+        loss_sum = scalar_sum.pop("loss")
     metrics = apply_gradients(state, loss_sum, grad_sum, scalar_sum, config)
     if with_images:
         for k in _IMAGE_KEYS:
@@ -271,7 +292,10 @@ def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
     reference's training-loop validation does (it never leaves train
     mode, train.py:234, 380); by default the running ones, as its
     evaluate.py does. The running statistics are never written, and the
-    model is left in the mode it was in."""
+    model is left in the mode it was in. In a process group the batch
+    statistics are the global batch's and the three losses are averaged
+    over the ranks (JAX ``make_parallel_eval_step``); images stay the
+    rank's own rows."""
     model = state.model
     _check_dtype(model, config)
     was_training = model.training
@@ -290,6 +314,8 @@ def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
     metrics = {"loss": loss,
                "sparse_flow_loss": aux["sparse_flow_loss"],
                "depth_consistency_loss": aux["depth_consistency_loss"]}
+    if distributed.group() is not None:
+        metrics = _all_mean(metrics)
     if with_images:
         metrics.update({k: aux[k] for k in (
             "scaled_depth_1", "scaled_depth_2", "flows_from_depth_1",

@@ -10,6 +10,11 @@ port's ``.pt``; each flag the port does not carry raises.
 """
 import io
 import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -21,11 +26,15 @@ from endoscopydepthestimation_pytorch_tpu.models import FCDenseNet57 as JaxFCDen
 from endoscopydepthestimation_pytorch_tpu.utils import checkpoint as jckpt
 from endoscopydepthestimation_pytorch_tpu.utils import visualization as jviz
 from endoscopydepthestimation_pytorch_tpu_torch import train, training
-from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet57, from_jax_variables
+from endoscopydepthestimation_pytorch_tpu_torch.models import (FCDenseNet57, from_jax_variables,
+                                                                 init_weights)
 from endoscopydepthestimation_pytorch_tpu_torch.utils import checkpoint as ckpt
 from endoscopydepthestimation_pytorch_tpu_torch.utils import visualization as viz
 
+from torch_parallel_ranks import free_port
 from torch_sfm_sequence import write_sequence
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _argv(data_root, result_root, *extra):
@@ -131,13 +140,22 @@ def test_jax_package_reads_the_ports_checkpoint(runs):
 
 @pytest.mark.parametrize("flag", [
     ["--fused_convs"], ["--remat"], ["--act8"], ["--segmented_last_up"],
-    ["--no-segmented_last_up"], ["--split_last_skip"], ["--no-split_last_skip"],
-    ["--coordinator_address", "localhost:1234"],
-    ["--num_processes", "2"], ["--process_id", "0"]])
+    ["--no-segmented_last_up"], ["--split_last_skip"], ["--no-split_last_skip"]])
 def test_flags_not_ported_raise(tmp_path, flag):
     """Each flag for what the port does not carry raises, naming its
     ROADMAP item, before anything is read or written."""
     with pytest.raises(ValueError, match="ROADMAP"):
+        train.main(_argv(tmp_path / "data", tmp_path / "out", *flag))
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("flag", [
+    ["--coordinator_address", "localhost:1234"],
+    ["--num_processes", "2"], ["--process_id", "0"]])
+def test_distributed_flags_need_each_other(tmp_path, flag):
+    """One of the three data-parallel flags without the other two raises
+    before anything is read or written."""
+    with pytest.raises(ValueError, match="together"):
         train.main(_argv(tmp_path / "data", tmp_path / "out", *flag))
     assert not (tmp_path / "out").exists()
 
@@ -190,3 +208,65 @@ def test_metric_writer_logs_on_when_tensorboardx_is_broken(tmp_path, monkeypatch
     (record,) = [json.loads(line) for line in (tmp_path / "scalars.jsonl").read_text().splitlines()]
     assert record == {"tag": "Training", "step": 3, "overall": 0.5}
     assert (tmp_path / "Training_Images_Results_3.png").exists()
+
+
+def _trainer_process(argv, out: Path, *extra) -> subprocess.Popen:
+    """The trainer CLI in a process of its own, two threads."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "endoscopydepthestimation_pytorch_tpu_torch.train", *argv,
+         "--training_result_root", str(out), *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+        env={**os.environ, "OMP_NUM_THREADS": "2"})
+
+
+def _communicate(procs, timeout: float = 600):
+    """Every process's (exit code, stdout, stderr); all are killed when one
+    outlives ``timeout``."""
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail(f"a trainer process ran past {timeout} s")
+    return [(p.returncode, *o) for p, o in zip(procs, outs)]
+
+
+def _final_loss(stdout: str) -> float:
+    found = re.findall(r"epoch 0 final loss ([0-9.]+)", stdout)
+    assert found, stdout[-2000:]
+    return float(found[-1])
+
+
+def test_two_process_cli_matches_single_process(tmp_path):
+    """The twin of the JAX package's tests/test_multihost_cli.py: the
+    trainer as 2 processes (gloo on the CPU, 2 rows each of a global batch
+    of 4) ends its epoch at the loss of one process at batch 4, at 64x64
+    f32 with validation, both from one conditioned start. The single
+    process writes the precompute, the pair loads it. Only rank 0 prints its loss and writes logs and
+    checkpoints; both exit 0."""
+    write_sequence(tmp_path / "data", seed=7)
+    # the trainer's seeded init, its head conditioned as the step tests do
+    # (test_torch_training.py: at a raw init the objective amplifies f32
+    # order noise, here from convolutions at batch 8 against 4, ~1000x)
+    model = init_weights(FCDenseNet57(), torch.Generator().manual_seed(train.SEED))
+    with torch.no_grad():
+        model.finalConv.weight.mul_(0.1)
+        model.finalConv.bias.mul_(0.1).add_(3.0)
+    ckpt.save_checkpoint(tmp_path / "start.pt", training.create_train_state(model), 0, 0.0)
+    # each process's --training_result_root comes last and wins
+    argv = _argv(tmp_path / "data", tmp_path / "unused", "--batch_size", "4",
+                 "--number_epoch", "0", "--load_trained_model",
+                 "--trained_model_path", str(tmp_path / "start.pt"))
+    (code, out, err), = _communicate([_trainer_process(argv, tmp_path / "single")])
+    assert code == 0, err[-3000:]
+    port = free_port()
+    pair = _communicate([_trainer_process(
+        argv, tmp_path / f"multi_{rank}", "--coordinator_address", f"127.0.0.1:{port}",
+        "--num_processes", "2", "--process_id", str(rank), "--load_intermediate_data")
+        for rank in range(2)])
+    assert [c for c, _, _ in pair] == [0, 0], "\n".join(e[-3000:] for _, _, e in pair)
+    np.testing.assert_allclose(_final_loss(pair[0][1]), _final_loss(out), rtol=0, atol=5e-5)
+    assert "final loss" not in pair[1][1] and pair[1][1] == "", pair[1][1]  # prints nothing
+    assert list((tmp_path / "multi_0").glob("*/checkpoint_model_epoch_0_*.pt"))
+    assert not (tmp_path / "multi_1").exists()
