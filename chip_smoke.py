@@ -114,10 +114,27 @@ to the CPU or to a kernel's plain version):
      ``--process_id``, one epoch with validation in a process of its own,
      beside the same run without the flags: both exit 0, launch what a
      run without a process group launches, and write a checkpoint that
-     loads back.
+     loads back;
+ 17. the aux paths and the activation stores, FCDenseNet-57 at full
+     width: (a) ``distill.distill_step``, one f32 step on the card against
+     the CPU at b2 128x160, then ten bf16 steps at b8 256x320 (finite,
+     falling; 44 K1 for the teacher and 44 K4, K5, K6 for the student a
+     step; the teacher unchanged); (b) ``validation.network_validation``
+     over (13)'s validation frames from its epoch-0 and epoch-1
+     checkpoints, f32 on the card against the CPU, then bf16 (44 K1 and 1
+     K2 a batch), and ``failure.save_if_best`` over the two vectors; (c)
+     the train step at b8 256x320 bf16 with act8 in ``replay`` and
+     ``saved_buf`` modes and (d) with remat, each against the engine
+     route in the same call: the first step's loss and new BN statistics
+     bitwise equal, act8's gradient cosine above 0.99 and remat's
+     gradients bitwise equal, ten steps finite and falling with K4 88 a
+     step where the backward replays the blocks, peak memory and the
+     median step, then the stores in turns; (e) the trainer with
+     ``--act8`` and with ``--remat``, one epoch each, and their
+     checkpoints loaded back.
 Only the main paths' launches (7, 9, 10, 13, 14's counted runs, 15b,
-16a's bf16 steps on both ranks and 16b's NCCL run) enter the ``kernels``
-line.
+16a's bf16 steps on both ranks, 16b's NCCL run and 17's runs) enter the
+``kernels`` line.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -143,14 +160,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from endoscopydepthestimation_pytorch_tpu_torch import evaluate, training
+from endoscopydepthestimation_pytorch_tpu_torch import (distill, evaluate, failure, training,
+                                                        validation)
 from endoscopydepthestimation_pytorch_tpu_torch import train as trainer
 from endoscopydepthestimation_pytorch_tpu_torch.data import (SequenceData, augment, dataset,
                                                            native, preprocess, rasterizer,
                                                            readers)
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
     FCDenseNet57, UNet, init_weights, save_reference_checkpoint)
-from endoscopydepthestimation_pytorch_tpu_torch.ops import (_libtorch_build, block_engine,
+from endoscopydepthestimation_pytorch_tpu_torch.ops import (_libtorch_build, act8, block_engine,
                                                           conv3x3_mma, dense_conv,
                                                           warp_sample)
 from endoscopydepthestimation_pytorch_tpu_torch.serving import (DepthPredictor,
@@ -1712,7 +1730,8 @@ def trainer_phase(card: str, synthetic_step_ms: float, tmp: Path) -> dict:
                 for k in runs["first"]["launches"]}
     return {"launches": launches, "median_ms": median, "loader_ms": loader_ms,
             "precompute_s": precompute_s, "idle_share": profile["idle_share"],
-            "data": data, "checkpoint": first.checkpoints[1]}
+            "data": data, "checkpoint": first.checkpoints[1],
+            "checkpoints": first.checkpoints}
 
 
 EVAL_BATCH = 8
@@ -2245,6 +2264,310 @@ def nccl_world1_phase(card: str, data: Path, tmp: Path) -> dict:
           f" and {[round(t, 3) for t in runs['plain']['step_ms']]}")
     return {"launches": runs["nccl"]["launches"]}
 
+# -- (17) the aux paths, act8 and remat -------------------------------------------
+
+
+def distill_phase(card: str, config, steps: int = 10) -> dict:
+    """(17a) ``distill.distill_step``: one f32 step on the card against the
+    CPU at b2 128x160 (the loss and the momentum's norm, i.e. the clipped
+    gradient's, rel <= 1e-3, the train-parity limit), then ``steps`` bf16
+    steps at b8 256x320: finite, falling, 44 K1 (the teacher) and 44 K4,
+    K5 and K6 (the student) a step, no K2 or K3. Teacher: (10)'s
+    conditioned weights; student: the same from seed SEED + 1."""
+    f32 = dataclasses.replace(config, compute_dtype=torch.float32)
+    results = {}
+    for device in ("cpu", "cuda"):
+        teacher = training.create_train_state(conditioned(seeded_model(SEED)).to(device))
+        student = training.create_train_state(conditioned(seeded_model(SEED + 1)).to(device))
+        batch = synthetic_batch(2, 128, 160, SEED + 4, device)
+        student, metrics = distill.distill_step(student, teacher, batch, f32)
+        results[device] = (float(metrics["loss"]), float(training.global_norm(student.momentum)))
+    rel = [abs(a - b) / abs(b) for a, b in zip(results["cuda"], results["cpu"])]
+    print(f"  distill f32 step b2 128x160, card vs CPU: loss {results['cuda'][0]:.6f} / "
+          f"{results['cpu'][0]:.6f} rel {rel[0]:.3e}, clipped-gradient norm rel "
+          f"{rel[1]:.3e} (limit 1e-3)")
+    if not max(rel) <= 1e-3:
+        raise AssertionError("the card's distill step disagrees with the CPU's")
+
+    dev = torch.device("cuda")
+    teacher = training.create_train_state(
+        conditioned(seeded_model(SEED, torch.bfloat16)).to(dev))
+    student = training.create_train_state(
+        conditioned(seeded_model(SEED + 1, torch.bfloat16)).to(dev))
+    batch = synthetic_batch(8, 256, 320, SEED + 5, dev)
+    teacher_stats = {k: v.clone() for k, v in teacher.model.state_dict().items()}
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    events[0].record()
+    for i in range(steps):
+        student, metrics = distill.distill_step(student, teacher, batch, config)
+        events[i + 1].record()
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    losses = torch.stack(losses).cpu()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    median = float(np.median(step_ms[2:]))
+    expected = {"dense_conv_fwd": 44 * steps, "warp_sample_fwd": 0, "warp_sample_bwd": 0,
+                **dict.fromkeys(block_engine.LAUNCHES, 44 * steps)}
+    kept = all(torch.equal(teacher.model.state_dict()[k], v) for k, v in teacher_stats.items())
+    print(f"  distill {steps} bf16 steps b8 256x320: losses "
+          + " ".join(f"{v:.6f}" for v in losses.tolist())
+          + f"; launches {launches} (expected {expected}); teacher unchanged {kept}")
+    print(f"timing [{card}] distill step bf16 b8 256x320: {median:.4f} ms median of steps "
+          f"3-{steps} ({8000 / median:.2f} samples/s); steps ms {[round(t, 3) for t in step_ms]}")
+    if not (torch.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"distill losses not finite and falling: {losses.tolist()}")
+    if launches != expected or not kept or int(student.step) != steps:
+        raise AssertionError("the distill steps failed their checks")
+    return {"launches": launches, "ms": median}
+
+
+def _validation_loader(data: Path):
+    """(13)'s validation frames as the trainer loads them: 30 frames, 3
+    batches of 8 at 256x320."""
+    _, val_files, _ = readers.get_color_file_names_by_bag(data, ["1"], ["1"], ["1"])
+    val_set = dataset.SfMDataset(
+        image_file_names=val_files, folder_list=readers.get_parent_folder_names(data, [1, 2]),
+        adjacent_range=[2, 6], transform=None, use_store_data=True, store_data_root=data,
+        phase="validation")
+    return dataset.BatchLoader(val_set, 8, shuffle=False, num_workers=8, drop_last=True)
+
+
+def validation_phase(card: str, data: Path, checkpoints: list, tmp: Path) -> dict:
+    """(17b) ``validation.network_validation`` over (13)'s validation
+    frames from its epoch-0 and epoch-1 checkpoints: f32 on the card
+    against ``device="cpu"`` (the per-batch vector at rtol 1e-3), then bf16
+    on the card (44 K1 and 1 K2 a batch, ms a batch), and
+    ``failure.save_if_best`` over the two bf16 vectors, which must write
+    what ``outlier_robust_validation_loss_delta`` decides."""
+    batches = list(_validation_loader(data))
+    vectors, launches, ms = {}, {}, []
+    for epoch, path in enumerate(checkpoints):
+        f32 = {}
+        for device in ("cpu", "cuda"):
+            model, _, _ = ckpt.load_any_checkpoint(path, FCDenseNet57())
+            state = training.create_train_state(model.to(device))
+            _, f32[device] = validation.network_validation(state, batches)
+        worst = float(np.max(np.abs(np.subtract(f32["cuda"], f32["cpu"]))
+                             / np.abs(f32["cpu"])))
+        print(f"  network_validation f32, epoch-{epoch} checkpoint, {len(batches)} batches "
+              f"of 8: card {[round(v, 6) for v in f32['cuda']]}, CPU "
+              f"{[round(v, 6) for v in f32['cpu']]}, max rel {worst:.3e} (limit 1e-3)")
+        if len(f32["cuda"]) != len(batches) or not worst <= 1e-3:
+            raise AssertionError("the card's f32 validation disagrees with the CPU's")
+        model, _, _ = ckpt.load_any_checkpoint(path, FCDenseNet57(dtype=torch.bfloat16))
+        state = training.create_train_state(model.cuda())
+        validation.network_validation(state, batches[:1])  # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        _, vectors[epoch] = validation.network_validation(state, batches)
+        ms.append((time.perf_counter() - t0) * 1e3 / len(batches))
+        launches[epoch] = _launch_counts()
+        expected = dict.fromkeys(launches[epoch], 0)
+        expected.update(dense_conv_fwd=44 * len(batches), warp_sample_fwd=len(batches))
+        print(f"  network_validation bf16, epoch-{epoch} checkpoint: "
+              f"{[round(v, 6) for v in vectors[epoch]]}; launches {launches[epoch]} "
+              f"(expected {expected})")
+        if launches[epoch] != expected or not np.isfinite(vectors[epoch]).all():
+            raise AssertionError("the bf16 validation failed its checks")
+    print(f"timing [{card}] network_validation bf16 b8 256x320 (2B = 16 a forward): "
+          f"{np.median(ms):.4f} ms a batch by the host clock, data on the host "
+          f"(epoch 0, 1: {[round(t, 3) for t in ms]})")
+
+    written = []
+    model, _, _ = ckpt.load_any_checkpoint(checkpoints[-1], FCDenseNet57())
+    state = training.create_train_state(model)
+
+    def save(path):
+        ckpt.save_checkpoint(path, state, 0, 0.0)
+        written.append(Path(path).name)
+
+    best = failure.save_if_best(save, tmp, tmp / "best.pt", "0", vectors[0],
+                                np.full(len(vectors[0]), 1e10))  # no best yet
+    best = failure.save_if_best(save, tmp, tmp / "best.pt", "1", vectors[1], best)
+    delta = failure.outlier_robust_validation_loss_delta(vectors[1], vectors[0])
+    want = ["checkpoint_model_epoch_0", "best.pt", "checkpoint_model_epoch_1"] + (
+        ["best.pt"] if delta < 0 else [])
+    print(f"  save_if_best: robust delta epoch 1 vs 0 {delta:+.6f}, wrote {written}, "
+          f"best vector {[round(v, 6) for v in best]}")
+    if written != want or not np.array_equal(best, vectors[1] if delta < 0 else vectors[0]):
+        raise AssertionError(f"save_if_best wrote {written}, expected {want}")
+    counts = {k: launches[0][k] + launches[1][k] for k in launches[0]}
+    return {"launches": counts, "ms": float(np.median(ms))}
+
+
+def _store_model(store: str, dtype=torch.bfloat16) -> torch.nn.Module:
+    model = FCDenseNet57(dtype=dtype, act8=store.startswith("act8"), remat=store == "remat")
+    model.load_state_dict(conditioned(seeded_model(SEED, dtype)).state_dict())
+    return model.cuda()
+
+
+def _store_grads(model, batch, config) -> tuple:
+    """One train-mode forward and backward of the step's loss, on a copy
+    (the model's statistics stay): the loss and the gradients."""
+    model = copy.deepcopy(model).train()
+    d1, d2 = training._forward_pair(model, batch)
+    loss, _ = training.compute_losses(d1, d2, batch, config.sfl_weight,
+                                      torch.tensor(0.1, device=batch["boundary"].device),
+                                      config.zero_division_epsilon)
+    return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+STORES = ("engine", "act8 replay", "act8 saved_buf", "remat")
+
+
+@contextlib.contextmanager
+def _bwd_mode(store: str):
+    saved = act8.BWD_MODE
+    act8.BWD_MODE = "saved_buf" if store == "act8 saved_buf" else "replay"
+    try:
+        yield
+    finally:
+        act8.BWD_MODE = saved
+
+
+def store_phase(card: str, config, steps: int = 10) -> dict:
+    """(17c, d) The train step at b8 256x320 bf16 from (10)'s conditioned
+    weights and batch, through the engine and with act8 (replay and
+    saved_buf) and remat, in one call: each store's first step's loss and
+    new BN statistics bitwise equal to the engine route's; act8's gradient
+    cosine above 0.99 against the engine route's, remat's gradients bitwise
+    equal; ``steps`` steps finite and falling with the launches of a step
+    (K4 88 where the backward replays the blocks); peak memory (act8's
+    below the engine route's) and the median step of each, the stores in
+    turns."""
+    dev = torch.device("cuda")
+    data = synthetic_batch(8, 256, 320, SEED + 5, dev)
+    dcl = torch.tensor(0.1, device=dev)
+    runs = {}
+    ref_grads = None
+    for store in STORES:
+        with _bwd_mode(store):
+            model = _store_model(store)
+            loss, grads = _store_grads(model, data, config)
+            if ref_grads is None:
+                ref_grads, ref_loss = grads, loss
+            flat = torch.cat([g.flatten().double() for g in grads])
+            ref = torch.cat([g.flatten().double() for g in ref_grads])
+            cos = float(flat @ ref / flat.norm() / ref.norm())
+            same = all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
+            del grads
+            state = training.create_train_state(model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+            losses, first_stats = [], None
+            _reset_launch_counts()
+            events[0].record()
+            for i in range(steps):
+                state, metrics = training.train_step(state, data, dcl, config)
+                events[i + 1].record()
+                losses.append(metrics["loss"])
+                if i == 0:
+                    first_stats = {k: v.clone() for k, v in state.model.state_dict().items()
+                                   if "running" in k}
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+        runs[store] = {"loss0": loss, "cos": cos, "same_grads": same,
+                       "losses": torch.stack(losses).cpu(), "stats": first_stats,
+                       "launches": launches, "step_ms": step_ms,
+                       "median": float(np.median(step_ms[2:])),
+                       "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del state, model
+    # alternate the stores for a fairer time: five rounds of one step each
+    states = {}
+    for store in STORES:
+        with _bwd_mode(store):
+            states[store] = training.create_train_state(_store_model(store))
+    turns = {store: [] for store in STORES}
+    for r in range(5):
+        for store in (STORES if r % 2 == 0 else STORES[::-1]):
+            with _bwd_mode(store):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                training.train_step(states[store], data, dcl, config)
+                end.record()
+                torch.cuda.synchronize()
+                turns[store].append(start.elapsed_time(end))
+    del states
+
+    engine = runs["engine"]
+    for store, run in runs.items():
+        k4 = 88 if store in ("act8 replay", "remat") else 44
+        expected = {"dense_conv_fwd": 0, "warp_sample_fwd": steps, "warp_sample_bwd": steps,
+                    "block_engine_fwd": k4 * steps, "block_engine_dinput": 44 * steps,
+                    "block_engine_dweight": 44 * steps}
+        first_loss_same = bool(torch.equal(run["losses"][0], engine["losses"][0])
+                               and torch.equal(run["loss0"], engine["loss0"]))
+        stats_same = all(torch.equal(run["stats"][k], v) for k, v in engine["stats"].items())
+        print(f"  {store}: first step loss bitwise the engine's {first_loss_same}, new BN "
+              f"statistics bitwise {stats_same}; gradient cosine vs the engine's "
+              f"{run['cos']:.6f}, bitwise {run['same_grads']}; losses "
+              + " ".join(f"{v:.5f}" for v in run["losses"].tolist())
+              + f"; launches {run['launches']} (expected {expected})")
+        print(f"timing [{card}] train step bf16 b8 256x320, {store}: {run['median']:.4f} ms "
+              f"median of steps 3-{steps}, in turns {np.median(turns[store]):.4f} ms "
+              f"({[round(t, 3) for t in turns[store]]}); peak memory {run['peak']:.4f} GiB")
+        ok = (first_loss_same and stats_same and run["launches"] == expected
+              and torch.isfinite(run["losses"]).all() and run["losses"][-1] < run["losses"][0]
+              and (run["same_grads"] if store in ("engine", "remat") else run["cos"] > 0.99))
+        if store.startswith("act8"):  # the e4m3 store must lower the peak
+            ok = ok and run["peak"] < engine["peak"]
+        if not ok:
+            raise AssertionError(f"the {store} train step failed its checks")
+    launches = {k: sum(run["launches"][k] for run in runs.values()) for k in engine["launches"]}
+    return {"launches": launches,
+            "peak": {s: r["peak"] for s, r in runs.items()},
+            "ms": {s: float(np.median(turns[s])) for s in STORES}}
+
+
+def store_trainer_phase(card: str, data: Path, tmp: Path) -> dict:
+    """(17e) The trainer with ``--act8`` and with ``--remat``: epoch 0 (6
+    steps, 3 validation batches, boards), exit 0, K4 88 a step and 44 a
+    validation batch, and a checkpoint that loads back."""
+    steps, evals = 6, 3
+    launches = dict.fromkeys(_launch_counts(), 0)
+    for flag in ("--act8", "--remat"):
+        argv = _trainer_argv(data, tmp / flag.strip("-"), flag)
+        argv[argv.index("--number_epoch") + 1] = "0"
+        _reset_launch_counts()
+        run = trainer.main(argv)
+        torch.cuda.synchronize()
+        counted = _launch_counts()
+        expected = _trainer_expected(steps, evals)
+        expected["block_engine_fwd"] += 44 * steps
+        (path,) = run.checkpoints
+        loaded = _check_checkpoint(path)
+        print(f"  trainer {flag} [{card}]: launches {counted} (expected {expected}); losses "
+              f"{[round(v, 5) for v in run.losses]}; checkpoint loads back {loaded}; median "
+              f"step {np.median(run.step_ms):.4f} ms")
+        if (counted != expected or len(run.losses) != steps
+                or not np.isfinite(run.losses).all() or (loaded["epoch"], loaded["step"]) != (1, steps)):
+            raise AssertionError(f"the trainer with {flag} failed its checks")
+        for k, n in counted.items():
+            launches[k] += n
+    return {"launches": launches}
+
+
+def aux_phase(card: str, config, data: Path, checkpoints: list, tmp: Path) -> dict:
+    """(17) Distillation, the standalone validation and model selection,
+    act8 in both modes, remat and the trainer with each; the launches of
+    their main-path runs."""
+    t0 = time.perf_counter()
+    parts = [distill_phase(card, config),
+             validation_phase(card, data, checkpoints, tmp),
+             store_phase(card, config), store_trainer_phase(card, data, tmp)]
+    launches = {k: sum(p["launches"][k] for p in parts) for k in parts[0]["launches"]}
+    print(f"aux phase ok in {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "distill": parts[0], "validation": parts[1],
+            "stores": parts[2]}
+
 
 def _run(cmd) -> str:
     out = subprocess.run(cmd, capture_output=True, text=True, check=True)
@@ -2353,7 +2676,9 @@ def main() -> int:
         print(f"distributed phase, {card}:")
         spread = two_rank_phase(card, work)
         world1 = nccl_world1_phase(card, trained["data"], work)
-    for part in (trained, evaluated, unet, spread, world1):
+        print(f"aux phase, {card}:")
+        aux = aux_phase(card, config, trained["data"], trained["checkpoints"], work)
+    for part in (trained, evaluated, unet, spread, world1, aux):
         for name, n in part["launches"].items():
             launches[name] += n
 

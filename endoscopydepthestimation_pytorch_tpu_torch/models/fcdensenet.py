@@ -33,6 +33,18 @@ statistics to 0.9*r + 0.1*stat with that biased variance. In a process
 group (``parallel.distributed``) those statistics are the global batch's,
 as JAX's ``axis_name`` pmean makes them (:200-202).
 
+``act8=True`` and ``remat=True`` (JAX :600-602, :635-643, :672-675)
+change only what a train-mode step keeps between its forward and its
+backward; the forward is the same ops. With ``remat`` each dense block's
+backward replays its forward from the block's exact input
+(``ops.act8.ReplayBlock`` on the engine, a ``torch.utils.checkpoint``
+of the layer-by-layer block where the gate refuses it). With ``act8``
+(which takes precedence) each block saves an e4m3 copy instead
+(``ops.act8``), and the transitions and the final conv run through
+``ops.act8.compressed_call``. ``block_engine=True`` with ``act8`` keeps
+the blocks the engine's gate takes exact, as JAX's engine takes
+precedence over act8 (:367-372); alone it changes nothing.
+
 Attribute names follow the reference's state_dict (``firstconv``,
 ``denseBlocksDown.i.layers.j.{norm,conv}``, ``transDownBlocks.i.{norm,conv}``,
 ``bottleneck.bottleneck.layers.j``, ``transUpBlocks.i.convTrans.1``,
@@ -41,12 +53,15 @@ package's converted weights load with ``strict=True``.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from functools import partial
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..ops import act8
 from ..ops import block_engine as engine
 from ..ops.dense_conv import fused_dense_conv
 from ..parallel import distributed
@@ -127,6 +142,31 @@ def batch_fold(bn: nn.BatchNorm2d, x: torch.Tensor, stats=None) -> tuple:
     return _fold(bn, mean, update_running_stats(bn, mean, mean2))
 
 
+def _materialized_block(n_layers: int, x: torch.Tensor, *params) -> tuple:
+    """A train-mode dense block layer by layer from its parameters
+    (gammas, betas, HWIO conv weights, conv biases; JAX ``act8._mat_impl``):
+    K1 a layer on the growing concatenation, the BN statistics of each
+    segment once (``BatchMoments``). NCHW in; returns (buf, mu, m2). No
+    side effects, so a backward may replay it."""
+    gammas, betas, weights, biases = (params[i * n_layers:(i + 1) * n_layers]
+                                      for i in range(4))
+    x = x.contiguous(memory_format=torch.channels_last)
+    mean, mean2 = BatchMoments.apply(x)
+    mus, m2s = [mean], [mean2]
+    for j in range(n_layers):
+        mu, m2 = torch.cat(mus), torch.cat(m2s)
+        scale = gammas[j].float() * torch.rsqrt(m2 - mu.square() + engine.EPS)
+        shift = betas[j].float() - mu * scale
+        y = fused_dense_conv(x.permute(0, 2, 3, 1), scale, shift,
+                             weights[j].to(x.dtype).contiguous(),
+                             biases[j].float()).permute(0, 3, 1, 2)
+        x = torch.cat([x, y], 1)
+        mean, mean2 = BatchMoments.apply(y)
+        mus.append(mean)
+        m2s.append(mean2)
+    return x, torch.cat(mus), torch.cat(m2s)
+
+
 def center_crop(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     """Center-crop the spatial dims of an NCHW tensor (reference
     models.py:93-97)."""
@@ -158,41 +198,61 @@ class DenseBlock(nn.Module):
     In train mode, when ``ops.block_engine.supported`` takes the shape,
     the whole block runs through the engine (JAX
     ``DenseBlock._block_vjp_path`` :332-379 and ``__call__`` :381-394);
-    otherwise layer by layer, concatenating."""
+    otherwise layer by layer, concatenating.
+
+    ``store`` ("act8", "remat" or None) is what a train-mode block keeps
+    for its backward (see ``FCDenseNet``); ``exact_engine`` keeps the
+    blocks the gate takes exact under "act8" (``--act8 --block_engine``)."""
 
     def __init__(self, in_channels: int, growth_rate: int, n_layers: int,
-                 upsample: bool = False):
+                 upsample: bool = False, store: Optional[str] = None,
+                 exact_engine: bool = False):
         super().__init__()
         self.upsample = upsample
         self.growth_rate = growth_rate
+        self.store = store
+        self.exact_engine = exact_engine
         self.layers = nn.ModuleList(
             DenseLayer(in_channels + j * growth_rate, growth_rate)
             for j in range(n_layers))
 
-    def _engine(self, x: torch.Tensor) -> tuple:
-        """The block through the engine: (output NCHW in channels_last
-        memory, its (mean, mean of squares)); advances every layer's
-        running statistics from the engine's prefix statistics."""
+    def _whole(self, x: torch.Tensor, gate: bool) -> tuple:
+        """The block as one call: through the engine where ``gate``, else
+        (with a ``store``) the layer-by-layer block replayed in the
+        backward. Returns (output NCHW in channels_last memory, its (mean,
+        mean of squares)); advances every layer's running statistics once,
+        here, from the block's prefix statistics."""
         c0, g = x.shape[1], self.growth_rate
         layers = list(self.layers)
-        buf, mu, m2 = engine.block_engine_apply(
-            x.permute(0, 2, 3, 1),
-            [l.norm.weight for l in layers], [l.norm.bias for l in layers],
-            [l.conv.weight.permute(2, 3, 1, 0) for l in layers],
-            [l.conv.bias for l in layers])
+        params = ([l.norm.weight for l in layers], [l.norm.bias for l in layers],
+                  [l.conv.weight.permute(2, 3, 1, 0) for l in layers],
+                  [l.conv.bias for l in layers])
+        store = None if gate and self.exact_engine else self.store
+        if gate:
+            xh = x.permute(0, 2, 3, 1)
+            buf, mu, m2 = (engine.block_engine_apply(xh, *params) if store is None
+                           else act8.replay_block_apply(xh, *params, store=store))
+            out = buf.permute(0, 3, 1, 2)
+        else:
+            flat = [p for group in params for p in group]
+            block = partial(_materialized_block, len(layers))
+            if store == "act8":
+                out, mu, m2 = act8.compressed_call(block, x, *flat)
+            else:
+                out, mu, m2 = checkpoint(block, x, *flat, use_reentrant=False)
         for j, layer in enumerate(layers):
             c = c0 + j * g
             update_running_stats(layer.norm, mu[:c].detach(), m2[:c].detach())
-        out = buf.permute(0, 3, 1, 2)
         return (out[:, c0:] if self.upsample else out), (mu, m2)
 
     def forward(self, x: torch.Tensor, with_stats: bool = False):
         """The block's output; with ``with_stats`` also its per-channel
-        (mean, mean of squares) when the engine produced them, else None."""
+        (mean, mean of squares) when the block produced them as one call,
+        else None."""
         b, _, h, w = x.shape
-        if self.training and engine.supported(
-                b, h, w, len(self.layers), self.growth_rate):
-            out, stats = self._engine(x)
+        gate = engine.supported(b, h, w, len(self.layers), self.growth_rate)
+        if self.training and (gate or self.store is not None):
+            out, stats = self._whole(x, gate)
             return (out, stats) if with_stats else out
         # each layer's NHWC view must be contiguous: a no-op in eager, where
         # cuDNN, the pools and torch.cat keep channels_last, but a
@@ -209,10 +269,13 @@ class DenseBlock(nn.Module):
 
 class TransitionDown(nn.Module):
     """BN -> ReLU -> 1x1 conv (same channels) -> 2x2 maxpool
-    (reference models.py:56-67)."""
+    (reference models.py:56-67). ``act8``: in train mode, given the
+    block's statistics, through ``ops.act8.compressed_call`` (JAX
+    :496-504)."""
 
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, act8: bool = False):
         super().__init__()
+        self.act8 = act8
         self.norm = nn.BatchNorm2d(in_channels)
         self.conv = nn.Conv2d(in_channels, in_channels, 1)
 
@@ -220,17 +283,21 @@ class TransitionDown(nn.Module):
         """``stats``: the producing block's (mean, mean of squares) of x,
         reused in train mode instead of a second reduction."""
         scale, shift = batch_fold(self.norm, x, stats)
-        y = torch.relu(x * scale.to(x.dtype)[:, None, None]
-                       + shift.to(x.dtype)[:, None, None])
-        return F.max_pool2d(_conv(y, self.conv, 0), 2)
+        args = (x, scale, shift, self.conv.weight, self.conv.bias)
+        if self.act8 and self.training and stats is not None:
+            return act8.compressed_call(act8.td_apply, *args)
+        return act8.td_apply(*args)
 
 
 class TransitionUp(nn.Module):
     """Nearest x2 upsample -> 3x3 conv, center-crop to the skip's size,
-    concat [up, skip] (reference models.py:70-80)."""
+    concat [up, skip] (reference models.py:70-80). ``act8``: in train
+    mode the upsample and conv run through ``ops.act8.compressed_call``
+    (JAX :567-573)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, act8: bool = False):
         super().__init__()
+        self.act8 = act8
         # [0] has no parameters and is not called: it keeps the conv at the
         # reference's key convTrans.1
         self.convTrans = nn.Sequential(
@@ -238,14 +305,11 @@ class TransitionUp(nn.Module):
             nn.Conv2d(channels, channels, 3, padding=1))
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        # the nearest x2 upsample as one copy in NHWC, channels_last by
-        # construction: torch's upsample takes a 1x1 map (whose strides fit
-        # NCHW and channels_last alike) to NCHW, where a torch.export trace
-        # expects channels_last
-        n, c, h, w = x.shape
-        up = (x.permute(0, 2, 3, 1)[:, :, None, :, None]
-              .expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c).permute(0, 3, 1, 2))
-        up = _conv(up, self.convTrans[1], 1)
+        conv = self.convTrans[1]
+        if self.act8 and self.training:
+            up = act8.compressed_call(act8.tu_apply, x, conv.weight, conv.bias)
+        else:
+            up = act8.tu_apply(x, conv.weight, conv.bias)
         up = center_crop(up, skip.shape[2], skip.shape[3])
         return torch.cat([up, skip], 1)
 
@@ -254,10 +318,11 @@ class Bottleneck(nn.Module):
     """The bottleneck dense block, nested as in the reference so its keys
     read ``bottleneck.bottleneck.layers.j``."""
 
-    def __init__(self, in_channels: int, growth_rate: int, n_layers: int):
+    def __init__(self, in_channels: int, growth_rate: int, n_layers: int,
+                 **store):
         super().__init__()
         self.bottleneck = DenseBlock(in_channels, growth_rate, n_layers,
-                                     upsample=True)
+                                     upsample=True, **store)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bottleneck(x)
@@ -266,15 +331,20 @@ class Bottleneck(nn.Module):
 class FCDenseNet(nn.Module):
     """Fully-convolutional DenseNet encoder-decoder (reference
     models.py:100-187). (B, 3, H, W) -> (B, n_classes, H, W) float32
-    depth, nonnegative."""
+    depth, nonnegative. ``act8``, ``remat`` and ``block_engine``: see the
+    module docstring."""
 
     def __init__(self, down_blocks: Sequence[int] = (5, 5, 5, 5, 5),
                  up_blocks: Sequence[int] = (5, 5, 5, 5, 5),
                  bottleneck_layers: int = 5, growth_rate: int = 16,
                  out_chans_first_conv: int = 48, n_classes: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, act8: bool = False,
+                 remat: bool = False, block_engine: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.act8 = act8
+        store = dict(store="act8" if act8 else "remat" if remat else None,
+                     exact_engine=act8 and block_engine)
         cur = out_chans_first_conv
         self.firstconv = nn.Conv2d(3, cur, 3, padding=1)
 
@@ -282,22 +352,22 @@ class FCDenseNet(nn.Module):
         self.denseBlocksDown = nn.ModuleList()
         self.transDownBlocks = nn.ModuleList()
         for n in down_blocks:
-            self.denseBlocksDown.append(DenseBlock(cur, growth_rate, n))
+            self.denseBlocksDown.append(DenseBlock(cur, growth_rate, n, **store))
             cur += growth_rate * n
             skip_channels.insert(0, cur)
-            self.transDownBlocks.append(TransitionDown(cur))
+            self.transDownBlocks.append(TransitionDown(cur, act8))
 
-        self.bottleneck = Bottleneck(cur, growth_rate, bottleneck_layers)
+        self.bottleneck = Bottleneck(cur, growth_rate, bottleneck_layers, **store)
         prev = growth_rate * bottleneck_layers
 
         self.transUpBlocks = nn.ModuleList()
         self.denseBlocksUp = nn.ModuleList()
         for i, n in enumerate(up_blocks):
             last = i == len(up_blocks) - 1
-            self.transUpBlocks.append(TransitionUp(prev))
+            self.transUpBlocks.append(TransitionUp(prev, act8))
             cur = prev + skip_channels[i]
             self.denseBlocksUp.append(
-                DenseBlock(cur, growth_rate, n, upsample=not last))
+                DenseBlock(cur, growth_rate, n, upsample=not last, **store))
             prev = growth_rate * n
             cur += prev
 
@@ -314,26 +384,37 @@ class FCDenseNet(nn.Module):
         out = self.bottleneck(out)
         for up, block in zip(self.transUpBlocks, self.denseBlocksUp):
             out = block(up(out, skips.pop()))
-        return _conv(out, self.finalConv, 0).abs().float()
+        head = (out, self.finalConv.weight, self.finalConv.bias)
+        if self.act8 and self.training:  # JAX :737-745
+            out = act8.compressed_call(act8.conv1x1_apply, *head)
+        else:
+            out = act8.conv1x1_apply(*head)
+        return out.abs().float()
 
 
-def FCDenseNet57(n_classes: int = 1, dtype=torch.float32) -> FCDenseNet:
+def FCDenseNet57(n_classes: int = 1, dtype=torch.float32, act8: bool = False,
+                 remat: bool = False, **flags) -> FCDenseNet:
     """The configuration used by the reference drivers (models.py:190-194)."""
     return FCDenseNet(down_blocks=(4, 4, 4, 4, 4), up_blocks=(4, 4, 4, 4, 4),
                       bottleneck_layers=4, growth_rate=12,
-                      out_chans_first_conv=48, n_classes=n_classes, dtype=dtype)
+                      out_chans_first_conv=48, n_classes=n_classes, dtype=dtype,
+                      act8=act8, remat=remat, **flags)
 
 
-def FCDenseNet67(n_classes: int = 1, dtype=torch.float32) -> FCDenseNet:
+def FCDenseNet67(n_classes: int = 1, dtype=torch.float32, act8: bool = False,
+                 remat: bool = False, **flags) -> FCDenseNet:
     """Reference models.py:197-201."""
     return FCDenseNet(down_blocks=(5, 5, 5, 5, 5), up_blocks=(5, 5, 5, 5, 5),
                       bottleneck_layers=5, growth_rate=16,
-                      out_chans_first_conv=48, n_classes=n_classes, dtype=dtype)
+                      out_chans_first_conv=48, n_classes=n_classes, dtype=dtype,
+                      act8=act8, remat=remat, **flags)
 
 
-def FCDenseNet103(n_classes: int = 1, dtype=torch.float32) -> FCDenseNet:
+def FCDenseNet103(n_classes: int = 1, dtype=torch.float32, act8: bool = False,
+                  remat: bool = False, **flags) -> FCDenseNet:
     """Reference models.py:204-208."""
     return FCDenseNet(down_blocks=(4, 5, 7, 10, 12),
                       up_blocks=(12, 10, 7, 5, 4), bottleneck_layers=15,
                       growth_rate=16, out_chans_first_conv=48,
-                      n_classes=n_classes, dtype=dtype)
+                      n_classes=n_classes, dtype=dtype, act8=act8, remat=remat,
+                      **flags)

@@ -388,35 +388,92 @@ def _split(params, n_layers: int):
     return [params[i * n_layers:(i + 1) * n_layers] for i in range(4)]
 
 
+def engine_forward(x: torch.Tensor, n_layers: int, params
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The block's forward (JAX ``_engine_impl``): (buf, mu, m2) from the
+    NHWC block input and the flat parameter list (gammas, betas, kernels,
+    biases). K4 once per layer; in a process group the statistics are
+    the global batch's."""
+    gammas, betas, kernels, biases = _split(params, n_layers)
+    b, h, w, c0 = x.shape
+    growth = biases[0].shape[0]
+    n = b * h * w
+    buf = torch.empty((b, h, w, c0 + n_layers * growth), dtype=x.dtype,
+                      device=x.device)
+    buf[..., :c0] = x
+    xf = x.float()
+    mu_x, m2_x = xf.mean((0, 1, 2)), xf.square().mean((0, 1, 2))
+    if distributed.group() is not None:
+        mu_x, m2_x = distributed.all_mean_(torch.stack([mu_x, m2_x]))
+    mus, m2s = [mu_x], [m2_x]
+    for j in range(n_layers):
+        mu, m2 = torch.cat(mus), torch.cat(m2s)
+        scale, shift, _ = _fold(gammas[j], betas[j], mu, m2)
+        sums = layer_forward(buf, c0 + j * growth, scale, shift,
+                             kernels[j].to(x.dtype).contiguous(),
+                             biases[j].float().contiguous())
+        stats = distributed.all_mean_(sums / n)
+        mus.append(stats[0])
+        m2s.append(stats[1])
+    return buf, torch.cat(mus), torch.cat(m2s)
+
+
+def engine_backward(buf, mu, m2, n_layers: int, params, gbuf, gmu, gm2) -> tuple:
+    """The block's backward (JAX ``_engine_bwd``) at the block output
+    ``buf`` and its statistics (mu, m2): the gradients of x and of every
+    parameter, in ``params``' order, from the cotangents of (buf, mu,
+    m2). K5 and K6 once per layer."""
+    gammas, betas, kernels, biases = _split(params, n_layers)
+    b, h, w, ctot = buf.shape
+    growth = biases[0].shape[0]
+    c0 = ctot - n_layers * growth
+    n = b * h * w * distributed.world()  # the global pixel count
+    grad = torch.empty_like(buf)  # K5 accumulates into it in place
+    grad.copy_(gbuf)
+    # the statistics' cotangent, d buf += gmu/n + 2*buf*gm2/n, is affine
+    # in buf: kept as per-channel coefficients (C1, C2) and applied
+    # lazily (JAX :1195-1205); in a process group gmu and gm2 are the
+    # sums of every rank's
+    gmu, gm2 = gmu.float(), gm2.float()
+    if distributed.group() is not None:
+        gmu, gm2 = distributed.all_sum_(torch.stack([gmu, gm2]))
+    c1 = gmu / n
+    c2 = 2.0 * gm2 / n
+    dgammas, dbetas, dkernels, dbiases = ([None] * n_layers for _ in range(4))
+    for j in reversed(range(n_layers)):
+        c = c0 + j * growth
+        scale, shift, inv = _fold(gammas[j], betas[j], mu[:c], m2[:c])
+        c1j = c1[c:c + growth].contiguous()
+        c2j = c2[c:c + growth].contiguous()
+        dsx, dss, dbiases[j] = layer_dinput(
+            grad, buf, c, scale, shift, kernels[j].to(buf.dtype).contiguous(),
+            c1j, c2j)
+        dkernels[j] = layer_dweight(grad, buf, c, growth, scale, shift,
+                                    c1j, c2j)
+        # dgamma, dbeta, and layer j's BN-through-statistics gradient
+        # folded into the prefix's (C1, C2) (JAX :1262-1301); the
+        # updates take every rank's sums, the gradients this rank's
+        dgamma = inv * (dsx - mu[:c] * dss)
+        dgammas[j], dbetas[j] = dgamma, dss
+        if distributed.group() is not None:
+            dsx, dss = distributed.all_sum_(torch.stack([dsx, dss]))
+            dgamma = inv * (dsx - mu[:c] * dss)
+        gamma = gammas[j].float()
+        c2[:c] -= gamma * inv * inv * dgamma / n
+        c1[:c] += gamma * inv * (inv * mu[:c] * dgamma - dss) / n
+    x = buf[..., :c0].float()
+    dx = (grad[..., :c0].float() + c1[:c0] + c2[:c0] * x).to(buf.dtype)
+    return (dx.contiguous(), *dgammas, *dbetas, *dkernels, *dbiases)
+
+
 class BlockEngine(torch.autograd.Function):
-    """The block's forward (JAX ``_engine_impl``) and backward (JAX
-    ``_engine_bwd``) over the per-layer calls. Saves only ``buf`` and the
-    statistics (and the parameters)."""
+    """The block's forward (``engine_forward``) and backward
+    (``engine_backward``) over the per-layer calls. Saves only ``buf`` and
+    the statistics (and the parameters)."""
 
     @staticmethod
     def forward(ctx, x, n_layers, *params):
-        gammas, betas, kernels, biases = _split(params, n_layers)
-        b, h, w, c0 = x.shape
-        growth = biases[0].shape[0]
-        n = b * h * w
-        buf = torch.empty((b, h, w, c0 + n_layers * growth), dtype=x.dtype,
-                          device=x.device)
-        buf[..., :c0] = x
-        xf = x.float()
-        mu_x, m2_x = xf.mean((0, 1, 2)), xf.square().mean((0, 1, 2))
-        if distributed.group() is not None:
-            mu_x, m2_x = distributed.all_mean_(torch.stack([mu_x, m2_x]))
-        mus, m2s = [mu_x], [m2_x]
-        for j in range(n_layers):
-            mu, m2 = torch.cat(mus), torch.cat(m2s)
-            scale, shift, _ = _fold(gammas[j], betas[j], mu, m2)
-            sums = layer_forward(buf, c0 + j * growth, scale, shift,
-                                 kernels[j].to(x.dtype).contiguous(),
-                                 biases[j].float().contiguous())
-            stats = distributed.all_mean_(sums / n)
-            mus.append(stats[0])
-            m2s.append(stats[1])
-        mu, m2 = torch.cat(mus), torch.cat(m2s)
+        buf, mu, m2 = engine_forward(x, n_layers, params)
         ctx.save_for_backward(buf, mu, m2, *params)
         ctx.n_layers = n_layers
         return buf, mu, m2
@@ -424,48 +481,9 @@ class BlockEngine(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gbuf, gmu, gm2):
         buf, mu, m2, *params = ctx.saved_tensors
-        n_layers = ctx.n_layers
-        gammas, betas, kernels, biases = _split(params, n_layers)
-        b, h, w, ctot = buf.shape
-        growth = biases[0].shape[0]
-        c0 = ctot - n_layers * growth
-        n = b * h * w * distributed.world()  # the global pixel count
-        grad = torch.empty_like(buf)  # K5 accumulates into it in place
-        grad.copy_(gbuf)
-        # the statistics' cotangent, d buf += gmu/n + 2*buf*gm2/n, is affine
-        # in buf: kept as per-channel coefficients (C1, C2) and applied
-        # lazily (JAX :1195-1205); in a process group gmu and gm2 are the
-        # sums of every rank's
-        gmu, gm2 = gmu.float(), gm2.float()
-        if distributed.group() is not None:
-            gmu, gm2 = distributed.all_sum_(torch.stack([gmu, gm2]))
-        c1 = gmu / n
-        c2 = 2.0 * gm2 / n
-        dgammas, dbetas, dkernels, dbiases = ([None] * n_layers for _ in range(4))
-        for j in reversed(range(n_layers)):
-            c = c0 + j * growth
-            scale, shift, inv = _fold(gammas[j], betas[j], mu[:c], m2[:c])
-            c1j = c1[c:c + growth].contiguous()
-            c2j = c2[c:c + growth].contiguous()
-            dsx, dss, dbiases[j] = layer_dinput(
-                grad, buf, c, scale, shift, kernels[j].to(buf.dtype).contiguous(),
-                c1j, c2j)
-            dkernels[j] = layer_dweight(grad, buf, c, growth, scale, shift,
-                                        c1j, c2j)
-            # dgamma, dbeta, and layer j's BN-through-statistics gradient
-            # folded into the prefix's (C1, C2) (JAX :1262-1301); the
-            # updates take every rank's sums, the gradients this rank's
-            dgamma = inv * (dsx - mu[:c] * dss)
-            dgammas[j], dbetas[j] = dgamma, dss
-            if distributed.group() is not None:
-                dsx, dss = distributed.all_sum_(torch.stack([dsx, dss]))
-                dgamma = inv * (dsx - mu[:c] * dss)
-            gamma = gammas[j].float()
-            c2[:c] -= gamma * inv * inv * dgamma / n
-            c1[:c] += gamma * inv * (inv * mu[:c] * dgamma - dss) / n
-        x = buf[..., :c0].float()
-        dx = (grad[..., :c0].float() + c1[:c0] + c2[:c0] * x).to(buf.dtype)
-        return (dx.contiguous(), None, *dgammas, *dbetas, *dkernels, *dbiases)
+        dx, *dparams = engine_backward(buf, mu, m2, ctx.n_layers, params,
+                                       gbuf, gmu, gm2)
+        return (dx, None, *dparams)
 
 
 def block_engine_apply(x: torch.Tensor, gammas: Sequence[torch.Tensor],

@@ -60,9 +60,11 @@ from .utils import visualization as viz
 from .utils.profiling import StepTimer, device_trace
 
 
-def _unet(n_classes: int = 1, dtype=torch.float32) -> UNet:
+def _unet(n_classes: int = 1, dtype=torch.float32, **flags) -> UNet:
     """The default UNet (depth 6, wf 6), as the JAX trainer's ``_unet``
-    (root train.py:44-50) builds it."""
+    (root train.py:44-50) builds it; it ignores the FCDenseNet flags
+    (``act8``, ``remat``, ``block_engine``), as JAX's does."""
+    del flags
     return UNet(out_channels=n_classes, dtype=dtype)
 
 
@@ -79,13 +81,10 @@ NOT_PORTED = {
                    "block engine, and K1 where the engine's gate refuses a block; "
                    "there is no per-layer fused train path to select (ROADMAP, "
                    "north star: third slice)",
-    "remat": "rematerializing the dense blocks is not ported; it waits for the "
-             "512x576 train step's memory (ROADMAP §1 item 4)",
     "segmented_last_up": "an XLA-level variant of the same math that the port "
                          "does not carry (ROADMAP, north star: left out on purpose)",
     "split_last_skip": "an XLA-level variant of the same math that the port "
                        "does not carry (ROADMAP, north star: left out on purpose)",
-    "act8": "the fp8 activation store is not ported yet (ROADMAP §1 item 10)",
 }
 
 
@@ -138,19 +137,32 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the CUDA card unless 'cpu' is asked for")
-    p.add_argument("--remat", action="store_true", default=None,
-                   help="not ported: raises")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize the dense blocks: each block's backward "
+                        "replays its forward (K4 again) from the block's exact "
+                        "input instead of keeping its buffer; the same loss, "
+                        "gradients and statistics bit for bit, less memory")
     p.add_argument("--fused_convs", action="store_true", default=None,
                    help="not ported: raises")
     p.add_argument("--block_engine", action="store_true",
-                   help="accepted; the port's train path always runs the block "
-                        "engine (K4/K5/K6) wherever its gate takes a block")
+                   help="the port's train path always runs the block engine "
+                        "(K4/K5/K6) wherever its gate takes a block; with "
+                        "--act8 those blocks stay exact (the engine takes "
+                        "precedence over act8, as in the JAX trainer) and only "
+                        "the transitions, the final conv and the blocks the "
+                        "gate refuses keep fp8 copies; alone it changes nothing")
     p.add_argument("--segmented_last_up", action=argparse.BooleanOptionalAction,
                    default=None, help="not ported: raises when given")
     p.add_argument("--split_last_skip", action=argparse.BooleanOptionalAction,
                    default=None, help="not ported: raises when given")
-    p.add_argument("--act8", action="store_true", default=None,
-                   help="not ported: raises")
+    p.add_argument("--act8", action="store_true",
+                   help="fp8 (e4m3) activation store for the backward "
+                        "(ops/act8.py): the forward is exact; each dense block "
+                        "keeps only an e4m3 copy of its input and replays "
+                        "itself (K4 again) in the backward, and the transitions "
+                        "and the final conv replay from e4m3 copies of their "
+                        "inputs. Gradients deviate within a per-block "
+                        "quantization envelope. Takes precedence over --remat")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="gradient-accumulation microbatches per step: one "
                         "clipped SGD update on the mean gradient; BN "
@@ -299,8 +311,9 @@ def _train(args, device: torch.device, log_root: Optional[Path], writer) -> Trai
                              **partition)
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    model = init_weights(MODELS[args.architecture](n_classes=1, dtype=dtype),
-                         torch.Generator().manual_seed(SEED)).to(device)
+    model = init_weights(MODELS[args.architecture](
+        n_classes=1, dtype=dtype, act8=args.act8, remat=args.remat,
+        block_engine=args.block_engine), torch.Generator().manual_seed(SEED)).to(device)
     config = training.TrainConfig(
         sfl_weight=args.sfl_weight, dcl_weight=args.dcl_weight,
         max_lr=args.max_lr, min_lr=args.min_lr, lr_step_size=args.num_iter,

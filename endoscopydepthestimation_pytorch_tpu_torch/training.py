@@ -172,13 +172,13 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_gradients(state: TrainState, loss: torch.Tensor,
-                    grads: List[torch.Tensor], scalars: Dict[str, torch.Tensor],
-                    config: TrainConfig) -> Dict[str, torch.Tensor]:
-    """The optimizer of the JAX step (training.py:60-70, 182-211):
-    ``optax.apply_if_finite(chain(clip_by_global_norm(10),
-    sgd(cyclic schedule, momentum 0.9)))`` behind the loss gate. Updates
-    ``state`` in place and returns the step's metrics.
+def sgd_update(state: TrainState, loss: torch.Tensor, grads: List[torch.Tensor],
+               config: TrainConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The optimizer of the JAX step (training.py:60-70, 182-211) and of
+    its ``distill_step`` (distill.py:60-66): ``optax.apply_if_finite(chain(
+    clip_by_global_norm(10), sgd(cyclic schedule, momentum 0.9)))`` behind
+    the loss gate. Updates ``state`` in place; returns (isfinite(loss),
+    the gradients' global norm).
 
     - a non-finite loss poisons every gradient to NaN;
     - clip as optax does: g * 10/|g| only when |g| >= 10, as
@@ -203,6 +203,14 @@ def apply_gradients(state: TrainState, loss: torch.Tensor,
         p.copy_(torch.where(all_finite, p - lr * new_b, p))
     state.count += all_finite.to(torch.int32)
     state.step += finite.to(torch.int32)
+    return finite, grad_norm
+
+
+def apply_gradients(state: TrainState, loss: torch.Tensor,
+                    grads: List[torch.Tensor], scalars: Dict[str, torch.Tensor],
+                    config: TrainConfig) -> Dict[str, torch.Tensor]:
+    """``sgd_update`` of the train step; returns the step's metrics."""
+    finite, grad_norm = sgd_update(state, loss, grads, config)
     return {
         "loss": loss,
         "sparse_flow_loss": scalars["sparse_flow_loss"],

@@ -3,12 +3,14 @@ package's ``utils/visualization.py`` that the trainer and the evaluate
 CLI use (``make_grid`` :23, ``colorize_depth`` :35, ``flow_to_hsv`` :51,
 ``color_panel`` :69, ``training_panel`` :83, ``validation_panel`` :95,
 ``stack_panels`` :112, ``write_event`` :119, ``MetricWriter`` :145,
-``write_depth_outputs`` :213).
+``weight_histograms`` :183, ``flow_color_wheel`` :196,
+``write_depth_outputs`` :213, and the debug viewers :248-312).
 
 Re-creates the reference's diagnostic imagery (utils.py:707-1044): JET
 depth colormaps, HSV flow wheels, horizontal sample grids stacked into one
 panel. ``MetricWriter`` writes scalars as JSONL and images as PNG always,
-and to tensorboardX too where it is installed. Inputs are numpy arrays.
+and to tensorboardX too where it is installed. Inputs are numpy arrays
+or tensors (read back to the host).
 """
 from __future__ import annotations
 
@@ -18,11 +20,15 @@ from typing import Dict, List, Optional
 
 import cv2
 import numpy as np
+import torch
 
 from .pointcloud import point_cloud_from_depth, write_point_cloud
 
 
 def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)
 
 
@@ -216,3 +222,100 @@ def write_depth_outputs(results_root, colors, scaled_depths, boundaries,
                                        np.asarray(intrinsics)[j],
                                        point_cloud_downsampling)
         write_point_cloud(str(results_root / f"{prefix}point_cloud_{j}.ply"), cloud)
+
+
+def weight_histograms(model: torch.nn.Module, writer: MetricWriter, step: int,
+                      prefix: str = "Weights") -> None:
+    """A histogram per parameter, ``{prefix}/{name}``, to tensorboardX when
+    the writer has it (reference utils.py:1042-1044, over
+    ``named_parameters``); nothing without it."""
+    if writer._tb is None:
+        return
+    for name, p in model.named_parameters():
+        writer._tb.add_histogram(f"{prefix}/{name}", _to_numpy(p).ravel(), step)
+
+
+def flow_color_wheel(size: int = 1001) -> np.ndarray:
+    """The HSV flow-direction legend (reference utils.py:1900-1918,
+    vectorized): hue = direction, value = magnitude; RGB uint8."""
+    center = (size - 1) / 2.0
+    ys, xs = np.meshgrid(np.arange(size, dtype=np.float32),
+                         np.arange(size, dtype=np.float32), indexing="ij")
+    fy = (ys - center) / size
+    fx = (xs - center) / size
+    ang = np.arctan2(fy, fx) + np.pi
+    v = np.sqrt(fx * fx + fy * fy)
+    hsv = np.zeros((size, size, 3), np.uint8)
+    hsv[..., 0] = np.uint8(ang * (180.0 / np.pi / 2.0))
+    hsv[..., 1] = 255
+    hsv[..., 2] = np.uint8(np.minimum(v, 0.5) * 2.0 * 255)
+    return cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)
+
+
+# -- debug viewers (reference utils.py:707-781) --------------------------------
+
+
+def _show_or_save(name: str, bgr: np.ndarray, interactive: bool,
+                  save_dir: Optional[str]) -> None:
+    if interactive:  # needs a display server
+        cv2.imshow(name, bgr)
+        cv2.waitKey(1)
+    if save_dir is not None:
+        out = Path(save_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(out / f"{name}.png"), bgr)
+
+
+def visualize_color_image(title: str, images, rebias: bool = False,
+                          is_hsv: bool = False, idx_list=None,
+                          interactive: bool = False,
+                          save_dir: Optional[str] = None) -> None:
+    """Per-sample color viewer (reference utils.py:707-725) on NHWC colors
+    in [0, 1] (``rebias``: in [-1, 1]). Writes ``{title}{i}.png`` into
+    ``save_dir``; ``interactive=True`` shows them as the reference does."""
+    images = _to_numpy(images)
+    idx_list = range(images.shape[0]) if idx_list is None else idx_list
+    for i in idx_list:
+        img = images[i].astype(np.float32)
+        if rebias:
+            img = img * 0.5 + 0.5  # undo Normalize(mean=std=0.5)
+        img = np.uint8(np.clip(img * 255.0, 0, 255))
+        img = cv2.cvtColor(img, cv2.COLOR_HSV2BGR_FULL if is_hsv
+                           else cv2.COLOR_RGB2BGR)
+        _show_or_save(f"{title}{i}", img, interactive, save_dir)
+
+
+def visualize_depth_map(title: str, depths, min_value: Optional[float] = None,
+                        max_value: Optional[float] = None, idx_list=None,
+                        interactive: bool = False,
+                        save_dir: Optional[str] = None):
+    """Per-sample JET depth viewer (reference utils.py:728-770) on (B, H,
+    W) or (B, H, W, 1) depths; writes ``{title}{i}.png`` into ``save_dir``.
+    Returns the (min, max) used."""
+    depths = _to_numpy(depths).astype(np.float32)
+    if depths.ndim == 4:
+        depths = depths[..., 0]
+    if min_value is None:
+        min_value = float(depths.min())
+    if max_value is None:
+        max_value = float(depths.max())
+    idx_list = range(depths.shape[0]) if idx_list is None else idx_list
+    span = max(max_value - min_value, 1.0e-8)
+    for i in idx_list:
+        norm = np.uint8(np.clip((depths[i] - min_value) / span * 255.0, 0, 255))
+        _show_or_save(f"{title}{i}", cv2.applyColorMap(norm, cv2.COLORMAP_JET),
+                      interactive, save_dir)
+    return min_value, max_value
+
+
+def display_depth_map(depth_map, min_value: Optional[float] = None,
+                      max_value: Optional[float] = None) -> np.ndarray:
+    """One depth map in JET (reference utils.py:773-781), returned as BGR
+    uint8 rather than shown."""
+    d = _to_numpy(depth_map).astype(np.float32)
+    if d.ndim == 3:
+        d = d[..., 0]
+    lo = float(d.min()) if min_value is None else min_value
+    hi = float(d.max()) if max_value is None else max_value
+    norm = np.uint8(np.clip((d - lo) / max(hi - lo, 1.0e-8) * 255.0, 0, 255))
+    return cv2.applyColorMap(norm, cv2.COLORMAP_JET)

@@ -189,6 +189,27 @@ def test_train_step_at_two_ranks_matches_jax(inputs, session):
     assert session[0]["step"]["step"] == session[0]["step"]["count"] == 1
 
 
+def test_remat_and_act8_at_two_ranks(session):
+    """The engine step of (3) with ``remat`` and with ``act8`` at 2 rows a
+    rank, whose backward replays each block's forward and its statistics'
+    all-reduces: ``remat`` equals the engine step bit for bit; ``act8``'s
+    loss and new BN statistics equal it bit for bit (its forward is exact)
+    and its update, the first step's momentum (the clipped gradient), keeps
+    a cosine above 0.99 with the engine step's. Both ranks stay
+    bitwise equal."""
+    for r in session:
+        engine, remat, act8 = r["step"], r["remat"], r["act8"]
+        assert all(torch.equal(remat["metrics"][k], v) for k, v in engine["metrics"].items())
+        _assert_replicated(remat, engine)
+        assert torch.equal(act8["metrics"]["loss"], engine["metrics"]["loss"])
+        assert all(torch.equal(act8["model"][k], v) for k, v in engine["model"].items()
+                   if "running" in k)
+        got = torch.cat([b.flatten() for b in act8["momentum"]]).double()
+        want = torch.cat([b.flatten() for b in engine["momentum"]]).double()
+        assert float(got @ want / got.norm() / want.norm()) > 0.99
+    _assert_replicated(*(r["act8"] for r in session))
+
+
 def test_eval_step_at_two_ranks_matches_one_process(inputs, session):
     """``eval_step`` with the batch statistics at 2 rows a rank: BN over the
     global batch and the losses averaged, as one process at B = 4 (JAX

@@ -6,7 +6,8 @@ checkpoint. The resumed epoch 1 must end where the first run's epoch 1
 ended, bit for bit: the checkpoint restores the model, the momentum,
 ``count`` and ``step`` exactly, and each epoch's batches depend only on the
 seed and the epoch. The JAX package's ``load_any_checkpoint`` reads the
-port's ``.pt``; each flag the port does not carry raises.
+port's ``.pt``; ``--remat`` and ``--act8`` train an epoch; each flag the
+port does not carry raises.
 """
 import io
 import json
@@ -139,14 +140,36 @@ def test_jax_package_reads_the_ports_checkpoint(runs):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fused_convs"], ["--remat"], ["--act8"], ["--segmented_last_up"],
-    ["--no-segmented_last_up"], ["--split_last_skip"], ["--no-split_last_skip"]])
+    ["--fused_convs"], ["--segmented_last_up"],
+    ["--no-segmented_last_up"], ["--split_last_skip"], ["--no-split_last_skip"]],
+    ids=["flag0", "flag3", "flag4", "flag5", "flag6"])  # the ids before --remat/--act8 went
 def test_flags_not_ported_raise(tmp_path, flag):
     """Each flag for what the port does not carry raises, naming its
     ROADMAP item, before anything is read or written."""
     with pytest.raises(ValueError, match="ROADMAP"):
         train.main(_argv(tmp_path / "data", tmp_path / "out", *flag))
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("flag", ["--remat", "--act8"])
+def test_remat_and_act8_train_an_epoch(runs, tmp_path, flag):
+    """Epoch 0 (2 steps, validation, a checkpoint) from the first run's seed
+    and data with ``--remat`` or ``--act8``: remat's losses are the first
+    run's bit for bit; act8's first loss is (its forward is exact) and its
+    second is finite; the checkpoint loads back into a plain model."""
+    first, _ = runs
+    data = first.log_root.parents[1] / "data"
+    run = train.main(_argv(data, tmp_path / "out", flag, "--number_epoch", "0"))
+    assert len(run.losses) == 2 and np.isfinite(run.losses).all()
+    if flag == "--remat":
+        assert run.losses == first.losses[:2]
+    else:
+        assert run.losses[0] == first.losses[0]
+    (path,) = run.checkpoints
+    state, epoch, _ = ckpt.load_checkpoint(path, training.create_train_state(FCDenseNet57()))
+    assert epoch == 1 and int(state.step) == int(state.count) == 2
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, run.state.model.state_dict()[k]), k
 
 
 @pytest.mark.parametrize("flag", [

@@ -134,9 +134,10 @@ def _state(state) -> dict:
 def session(rank, world, inputs):
     """Every check of the data-parallel test file that runs on ranks, in
     one process group: ``BatchMoments``, ``block_engine_apply``, a
-    validation step with the batch statistics, one train step,
-    ``grad_accum=2``, and a step after which one rank's batch is made
-    non-finite."""
+    validation step with the batch statistics, one train step, the same
+    step with ``remat`` and with ``act8`` (whose backward replays the
+    blocks' forwards, and their collectives), ``grad_accum=2``, and a step
+    after which one rank's batch is made non-finite."""
     out = {}
     x, v, w = (rows(t, rank, world).clone() for t in inputs["moments"])
     x.requires_grad_()
@@ -155,6 +156,11 @@ def session(rank, world, inputs):
                                      use_batch_stats=True)
     state, metrics = _step(model, local_batch(batch, rank, world))
     out["step"] = {"metrics": metrics, **_state(state)}
+    for store in ("remat", "act8"):
+        model = FCDenseNet(**arch, **{store: True})
+        model.load_state_dict(state_dict)
+        state, metrics = _step(model, local_batch(batch, rank, world))
+        out[store] = {"metrics": metrics, **_state(state)}
 
     arch, state_dict, batch = inputs["grad_accum"]
     model = FCDenseNet(**arch)
