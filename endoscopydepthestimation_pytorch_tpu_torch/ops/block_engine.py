@@ -75,10 +75,14 @@ import torch.nn.functional as F
 
 from . import _build, conv3x3_mma
 from ..parallel import distributed
+from ..utils import profiling
 
 # kernel launches in this process, by kernel
 LAUNCHES = {"block_engine_fwd": 0, "block_engine_dinput": 0,
             "block_engine_dweight": 0}
+# each C entry's span (``utils.profiling``)
+_SPANS = {"block_engine_fwd": "engine_fwd", "block_engine_dinput": "engine_dinput",
+          "block_engine_dweight": "engine_dweight"}
 MAX_GROWTH = 16        # the kernels' compiled maximum of F
 EPS = 1e-5             # BatchNorm's, as torch's and the JAX package's
 TILE_H, TILE_W = 16, 32  # f32 K4's and K5's output tile
@@ -306,7 +310,7 @@ def dweight_vector_width(dtype: torch.dtype, c: int, f: int, ld: int,
 def _launch(name: str, buf, tensors, ints) -> None:
     """Launch ``name`` on buf's device and its current stream with buf's
     dtype code, the tensors' pointers and the ints."""
-    with torch.cuda.device(buf.device):
+    with profiling.span(_SPANS[name]), torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(_library(), name)(_DTYPES[buf.dtype],
                                        *(t.data_ptr() for t in tensors), *ints,

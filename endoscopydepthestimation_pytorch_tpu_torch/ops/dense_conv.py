@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, conv3x3_mma
+from ..utils import profiling
 
 LAUNCHES = 0  # kernel launches of fused_dense_conv in this process
 MAX_FEATURES = 16  # the kernel's compiled maximum of output channels
@@ -206,7 +207,7 @@ def _(x, scale, shift, w, bias, tile_h, tile_w, n_split):
                           conv3x3_mma.MMA_PIXELS, MAX_FEATURES),
                          dtype=torch.float32, device=x.device)
              if n_split > 1 else None)
-    with torch.cuda.device(x.device):
+    with profiling.span("dense_conv"), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().dense_conv_fwd(
             _DTYPES[x.dtype], x.data_ptr(), scale.data_ptr(), shift.data_ptr(),

@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils import profiling
 
 # kernel launches in this process, by kernel
 LAUNCHES = {"warp_sample_fwd": 0, "warp_sample_bwd": 0}
@@ -169,11 +170,15 @@ def _check(image, px, py) -> None:
         raise ValueError(f"no warp_sample kernel for device {image.device}")
 
 
+# each C entry's span (``utils.profiling``)
+_SPANS = {"warp_sample_fwd": "warp_fwd", "warp_sample_bwd": "warp_bwd"}
+
+
 def _cuda_call(fn: str, tensors, ints, shape) -> None:
     for t in tensors:
         if t.data_ptr() % 8:  # a texel's two channels are one 8-byte load
             raise ValueError("warp_sample's CUDA tensors must be 8-byte aligned")
-    with torch.cuda.device(tensors[0].device):
+    with profiling.span(_SPANS[fn]), torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(_library(), fn)(*(t.data_ptr() for t in tensors), *ints,
                                      stream)

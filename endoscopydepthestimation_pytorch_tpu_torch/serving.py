@@ -33,6 +33,7 @@ from .data.augment import normalize_color
 from .models import FCDenseNet57
 from .ops import _libtorch_build
 from .utils import checkpoint as ckpt
+from .utils import profiling
 
 
 def build_native_host() -> Path:
@@ -122,6 +123,10 @@ class DepthPredictor:
 
     def prepare(self, frame) -> np.ndarray:
         """Path or raw BGR frame -> normalized cropped float32 (H, W, 3)."""
+        with profiling.span("prepare"):
+            return self._prepare(frame)
+
+    def _prepare(self, frame) -> np.ndarray:
         sh, eh, sw, ew = self.sequence.crop_positions
         if isinstance(frame, (str, Path)):
             img = preprocess.load_color_image(frame, sh, eh, sw, ew,
@@ -142,18 +147,31 @@ class DepthPredictor:
 
     def _dispatch(self, colors: np.ndarray) -> torch.Tensor:
         """Enqueue one batch; returns its masked depth on the device."""
-        x = torch.from_numpy(np.ascontiguousarray(colors, np.float32))
-        depth = training.predict_step(self.model, x.to(self.device),
-                                      self._boundary)
-        return (depth * self._boundary)[..., 0]
+        with profiling.span("dispatch"):
+            x = torch.from_numpy(np.ascontiguousarray(colors, np.float32))
+            depth = training.predict_step(self.model, x.to(self.device),
+                                          self._boundary)
+            return (depth * self._boundary)[..., 0]
+
+    def _predict(self, colors: np.ndarray) -> np.ndarray:
+        depth = self._dispatch(colors)
+        with profiling.span("readback"):  # waits for the device
+            return depth.cpu().numpy()
 
     def predict_batch(self, colors: np.ndarray) -> np.ndarray:
-        """(B, H, W, 3) normalized colors -> (B, H, W) masked depth."""
-        return self._dispatch(colors).cpu().numpy()
+        """(B, H, W, 3) normalized colors -> (B, H, W) masked depth. Under
+        ``torch.profiler`` a root span with ``dispatch`` and ``readback``
+        (``utils.profiling``)."""
+        with profiling.root_span("predict_batch"):
+            return self._predict(colors)
 
     def predict_frame(self, frame) -> np.ndarray:
-        colors = np.repeat(self.prepare(frame)[None], self.batch_size, axis=0)
-        return self.predict_batch(colors)[0]
+        """A path or raw BGR frame -> (H, W) masked depth. Under
+        ``torch.profiler`` a root span with ``prepare``, ``dispatch`` and
+        ``readback``."""
+        with profiling.root_span("predict_frame"):
+            colors = np.repeat(self.prepare(frame)[None], self.batch_size, axis=0)
+            return self._predict(colors)[0]
 
     # -- deployment artifacts --------------------------------------------------
 

@@ -171,7 +171,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rgb_mode", type=str, default="rgb")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the first epoch's "
-                        "train loop here (trace.json, ops.txt)")
+                        "train loop here (trace.json, ops.txt, spans.json)")
     p.add_argument("--log_interval", type=int, default=10,
                    help="steps between metric readbacks (each waits for the "
                         "device); 1 gives the reference's per-iteration "

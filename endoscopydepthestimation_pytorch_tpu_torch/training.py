@@ -40,6 +40,7 @@ from . import losses
 from .ops import geometry
 from .parallel import distributed
 from .schedule import make_cyclic_schedule
+from .utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,7 +250,16 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     times (JAX training.py:231-243). In a process group each rank takes
     rows m::n of its own rows; their union over the ranks is the global
     batch's microbatch m, whose statistics BatchNorm uses.
+
+    Under ``torch.profiler`` the step is a root span with the phases
+    ``forward``, ``losses``, ``backward``, ``all_reduce`` (in a process
+    group) and ``optimizer`` (``utils.profiling``).
     """
+    with profiling.root_span("train_step"):
+        return _train_step(state, batch, dcl_weight, config, with_images, grad_accum)
+
+
+def _train_step(state, batch, dcl_weight, config, with_images, grad_accum):
     model = state.model
     _check_dtype(model, config)
     model.train()
@@ -261,10 +271,13 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     grad_sum, loss_sum, scalar_sum, images = None, None, None, []
     for m in range(n):
         mbatch = batch if n == 1 else {k: v[m::n] for k, v in batch.items()}
-        d1, d2 = _forward_pair(model, mbatch)
-        loss, aux = compute_losses(d1, d2, mbatch, config.sfl_weight,
-                                   dcl_weight, config.zero_division_epsilon)
-        grads = torch.autograd.grad(loss, params)
+        with profiling.span("forward"):
+            d1, d2 = _forward_pair(model, mbatch)
+        with profiling.span("losses"):
+            loss, aux = compute_losses(d1, d2, mbatch, config.sfl_weight,
+                                       dcl_weight, config.zero_division_epsilon)
+        with profiling.span("backward"):
+            grads = torch.autograd.grad(loss, params)
         if grad_sum is None:
             grad_sum, loss_sum = list(grads), loss.detach()
             scalar_sum = {k: aux[k].detach() for k in _SCALAR_KEYS}
@@ -279,10 +292,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         loss_sum = loss_sum * (1.0 / n)
         scalar_sum = {k: v * (1.0 / n) for k, v in scalar_sum.items()}
     if distributed.group() is not None:
-        grad_sum = distributed.average_gradients(grad_sum)
-        scalar_sum = _all_mean({"loss": loss_sum, **scalar_sum})
-        loss_sum = scalar_sum.pop("loss")
-    metrics = apply_gradients(state, loss_sum, grad_sum, scalar_sum, config)
+        with profiling.span("all_reduce"):
+            grad_sum = distributed.average_gradients(grad_sum)
+            scalar_sum = _all_mean({"loss": loss_sum, **scalar_sum})
+            loss_sum = scalar_sum.pop("loss")
+    with profiling.span("optimizer"):
+        metrics = apply_gradients(state, loss_sum, grad_sum, scalar_sum, config)
     if with_images:
         for k in _IMAGE_KEYS:
             # microbatch m holds rows m::n: interleave back to row order

@@ -1,0 +1,8 @@
+"""host_ms.prepare.live: the host's ms a frame inside
+``DepthPredictor.predict_frame``'s ``prepare`` span, the mean over the
+traced frames (``harness/port_spans.py``)."""
+from harness.port_spans import host_ms
+
+
+def read(ctx):
+    return host_ms(ctx, ["prepare"])

@@ -466,6 +466,51 @@ def test_tiny_train_step_bf16_launch_counts(device, monkeypatch, gate_open):
         assert n == before[name] + (3 * 10 if gate_open else 0), name
 
 
+def test_traced_step_spans_match_the_launch_counters(device):
+    """One bf16 FCDenseNet-57 step under ``torch.profiler`` recording the
+    device alone, as the benchmark's traced stretch does: one
+    ``engine_fwd``, ``engine_dinput`` and ``engine_dweight`` span per K4,
+    K5 and K6 launch (44 each), one ``warp_fwd`` and one ``warp_bwd``, no
+    ``dense_conv``; and on the profiler's clock every K5 kernel starts
+    after the step's ``backward`` span began."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from endoscopydepthestimation_pytorch_tpu_torch import training
+    from endoscopydepthestimation_pytorch_tpu_torch.utils import profiling
+    model = init_weights(FCDenseNet57(dtype=torch.bfloat16), torch.Generator().manual_seed(0))
+    state = training.create_train_state(model.to(device))
+    batch = _tiny_batch(device, h=128, w=160)
+    config = training.TrainConfig(compute_dtype=torch.bfloat16)
+    dcl = torch.tensor(0.1, device=device)
+    training.train_step(state, batch, dcl, config)  # builds; the profiler off
+    torch.cuda.synchronize()
+    k1, k23, k456 = (dense_conv.LAUNCHES, dict(warp_sample.LAUNCHES),
+                     dict(block_engine.LAUNCHES))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        training.train_step(state, batch, dcl, config)
+        torch.cuda.synchronize()
+    session = profiling.sessions()[-1]
+    count = {name: sum(r.name == name for r in session.records)
+             for name in ("dense_conv", "warp_fwd", "warp_bwd", "engine_fwd",
+                          "engine_dinput", "engine_dweight")}
+    assert count == {
+        "dense_conv": dense_conv.LAUNCHES - k1,
+        "warp_fwd": warp_sample.LAUNCHES["warp_sample_fwd"] - k23["warp_sample_fwd"],
+        "warp_bwd": warp_sample.LAUNCHES["warp_sample_bwd"] - k23["warp_sample_bwd"],
+        **{"engine_" + k.removeprefix("block_engine_"): n - k456[k]
+           for k, n in block_engine.LAUNCHES.items()}}
+    assert count == {"dense_conv": 0, "warp_fwd": 1, "warp_bwd": 1, "engine_fwd": 44,
+                     "engine_dinput": 44, "engine_dweight": 44}
+    parents = {r.parent for r in session.records if r.name.startswith("engine_d")}
+    assert parents == {"backward"}
+    (backward,) = [r for r in session.records if r.name == "backward"]
+    dinput = [e.start_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and "dinput_mma_kernel" in e.name()]
+    assert len(dinput) == 44
+    assert min(dinput) > backward.start_ns, (min(dinput) - backward.start_ns) * 1e-6
+
+
 # (B, H, W, C, F, extra channels after the layer's): a full-resolution
 # up-block layer, a ragged tile with F < 12 and a row stride (15) that is
 # not 16-byte aligned, a deep level whose f32 K5 splits its channel chunks
