@@ -9,9 +9,10 @@ to the CPU or to a kernel's plain version):
 
   1. environment: the card's name and power limit, torch, CUDA, nvcc and
      OpenCV versions;
-  2. build: ``csrc/dense_conv.cu`` (K1), ``csrc/warp_sample.cu`` (K2, K3)
-     and ``csrc/block_engine.cu`` (K4, K5, K6; K1 and K4 share the bf16
-     body in ``csrc/conv3x3_mma.cuh``), one nvcc each, started together,
+  2. build: ``csrc/dense_conv.cu`` (K1), ``csrc/warp_sample.cu`` (K2, K3),
+     ``csrc/block_engine.cu`` (K4, K5, K6; K1 and K4 share the bf16
+     body in ``csrc/conv3x3_mma.cuh``) and ``csrc/sgd_update.cu`` (the
+     optimizer), one nvcc each, started together,
      for sm_90a, with ptxas's register and spill report; then ``cuobjdump
      -sass``: the bf16 K1, K4, K5 and K6 must hold HMMA (tensor-core)
      instructions in every instantiation, and no bf16 instantiation of
@@ -40,7 +41,10 @@ to the CPU or to a kernel's plain version):
      each summed by level, through the wrapper and alone (CUDA graph
      replay); K4 at the levels <= 64x80 with its chunks split and in one
      pass, K5 at 64x80 and 32x40 in its narrow tile and in 8x32, K6 at
-     256x320 and 8x10 with its n_split, half and twice as many;
+     256x320 and 8x10 with its n_split, half and twice as many; then the
+     optimizer kernel against its plain loop on the gradients of one
+     FC-DenseNet-103 and one FCDenseNet-57 train step, and its time
+     through the wrapper and alone beside the loop's and its bytes bound;
   6. K1 backward: ``FusedDenseConv``'s output and five gradients against
      autograd of the plain version at four layer shapes of the train step
      (f32), the route of a train-mode block the engine's gate rejects;
@@ -167,10 +171,10 @@ from endoscopydepthestimation_pytorch_tpu_torch.data import (SequenceData, augme
                                                            native, preprocess, rasterizer,
                                                            readers)
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
-    FCDenseNet57, UNet, init_weights, save_reference_checkpoint)
+    FCDenseNet57, FCDenseNet103, UNet, init_weights, save_reference_checkpoint)
 from endoscopydepthestimation_pytorch_tpu_torch.ops import (_libtorch_build, act8, block_engine,
                                                           conv3x3_mma, dense_conv,
-                                                          warp_sample)
+                                                          sgd_update, warp_sample)
 from endoscopydepthestimation_pytorch_tpu_torch.serving import (DepthPredictor,
                                                                 build_native_host,
                                                                 load_exported)
@@ -531,16 +535,17 @@ def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def build_phase() -> None:
-    """Build the three kernel libraries (one nvcc each) and the host
+    """Build the four kernel libraries (one nvcc each) and the host
     rasterizer (g++), all started together."""
     t0 = time.perf_counter()
-    modules = (dense_conv, warp_sample, block_engine)
+    modules = (dense_conv, warp_sample, block_engine, sgd_update)
     with ThreadPoolExecutor(len(modules) + 1) as pool:
         host = pool.submit(native.build)
         reports = list(pool.map(lambda m: m.build_report(), modules))
         host.result()
-    print(f"built dense_conv.cu, warp_sample.cu and block_engine.cu for sm_90a and the "
-          f"host rasterizer (g++) in {time.perf_counter() - t0:.1f} s; ptxas report:")
+    print(f"built dense_conv.cu, warp_sample.cu, block_engine.cu and sgd_update.cu for "
+          f"sm_90a and the host rasterizer (g++) in {time.perf_counter() - t0:.1f} s; ptxas "
+          f"report:")
     for report in reports:
         # one line a kernel: its mangled name after the file's anonymous
         # namespace (kernel and template arguments), registers, stack
@@ -1078,6 +1083,75 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
     print(f"engine kernel phase ok: 11 blocks, 44 layers, f32 max|d|/max|ref| "
           f"{max_f32:.3e} <= 1e-4, bf16 mean rel {max_bf16:.3e} <= 1e-4")
     return result
+
+
+def optimizer_phase(card: str) -> dict:
+    """The multi-tensor optimizer (``ops/sgd_update``: one C call, three
+    launches) on the gradients of one bf16 train step (b2 128x160) of
+    FC-DenseNet-103 and of FCDenseNet-57, in the layouts the step gives
+    them, scaled to global norm 3 and 30 (both sides of the clip at 10):
+    the norm against the plain loop's (rtol 1e-6), momentum and
+    parameters bit for bit unclipped and within 1e-6 of their largest
+    clipped, count and step exact, no gradient copied; then its time
+    through the wrapper (events) and alone (CUDA graph replay) beside the
+    plain loop's and the bytes bound: 24 bytes an element (the norm reads
+    g; the step reads p, b and g and writes p and b)."""
+    results = {}
+    for name, build in (("fcdensenet103", FCDenseNet103), ("fcdensenet57", FCDenseNet57)):
+        model = conditioned(init_weights(build(dtype=torch.bfloat16),
+                                         torch.Generator().manual_seed(SEED))).cuda()
+        state = training.create_train_state(model)
+        config = training.TrainConfig(compute_dtype=torch.bfloat16)
+        captured, update, restrided = [], sgd_update.update, sgd_update.RESTRIDED
+        sgd_update.update = lambda *args: captured.append(args[2]) or update(*args)
+        try:
+            training.train_step(state, synthetic_batch(2, 128, 160, SEED + 4, "cuda"),
+                                torch.tensor(0.1, device="cuda"), config)
+        finally:
+            sgd_update.update = update
+        params = [p.detach() for p in state.params]
+        elements = sum(p.numel() for p in params)
+        permuted = sum(sgd_update._layout(tuple(p.shape), p.stride(), g.stride())
+                       not in (None, sgd_update._COPY)
+                       for p, g in zip(params, captured[0]) if p.stride() != g.stride())
+        norm0 = float(sgd_update.global_norm(captured[0]))
+        scalars = (torch.tensor(1.0, device="cuda"), torch.tensor(3e-3, device="cuda"))
+        for norm in (3.0, 30.0):
+            grads = [g * (norm / norm0) for g in captured[0]]  # keeps each layout
+            got = ([p.clone() for p in params], [b.clone() for b in state.momentum],
+                   state.count.clone(), state.step.clone())
+            want = ([p.clone() for p in params], [b.clone() for b in state.momentum],
+                    state.count.clone(), state.step.clone())
+            _, got_norm = sgd_update.update(got[0], got[1], grads, *scalars, got[2], got[3],
+                                            10.0, 0.9)
+            _, want_norm = sgd_update._sgd_update_plain(want[0], want[1], grads, *scalars,
+                                                        want[2], want[3], 10.0, 0.9)
+            rel = abs(float(got_norm) - float(want_norm)) / float(want_norm)
+            worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(got[0] + got[1], want[0] + want[1]))
+            print(f"  {name}, norm {norm:g}: kernel's global norm {float(got_norm):.9g} / "
+                  f"plain {float(want_norm):.9g} (rel {rel:.3e}, limit 1e-6); momentum "
+                  f"and parameters max|d|/max|ref| {worst:.3e} (limit 0 unclipped, 1e-6 "
+                  f"clipped); count {int(got[2])} / {int(want[2])}, step {int(got[3])} / "
+                  f"{int(want[3])}")
+            if not (rel <= 1e-6 and worst <= (0.0 if norm < 10 else 1e-6)
+                    and int(got[2]) == int(want[2]) and int(got[3]) == int(want[3])):
+                raise AssertionError(f"sgd_update disagrees with its plain loop ({name})")
+        if sgd_update.RESTRIDED != restrided:
+            raise AssertionError(f"{name}'s step copied a gradient into its parameter's layout")
+        work = ([p.clone() for p in params], [b.clone() for b in state.momentum],
+                grads, *scalars, state.count.clone(), state.step.clone(), 10.0, 0.9)
+        ms = {"wrapper": _cuda_ms(lambda: sgd_update.update(*work), iters=20),
+              "alone": _graph_ms(lambda: sgd_update.update(*work)),
+              "plain": _cuda_ms(lambda: sgd_update._sgd_update_plain(*work), iters=3,
+                                warmup=1),
+              "bound": 24 * elements / HBM_BYTES_PER_S * 1e3}
+        results[name] = {"tensors": len(params), "elements": elements,
+                         "gradients_read_through_strides": permuted,
+                         **{k: round(v, 4) for k, v in ms.items()}}
+        print(f"  {name}: {json.dumps(results[name])} ({card})")
+        del model, state, captured, work, grads, got, want
+    return results
 
 
 def dense_conv_backward_phase(batch: int = 16, height: int = 256,
@@ -2281,7 +2355,7 @@ def distill_phase(card: str, config, steps: int = 10) -> dict:
         student = training.create_train_state(conditioned(seeded_model(SEED + 1)).to(device))
         batch = synthetic_batch(2, 128, 160, SEED + 4, device)
         student, metrics = distill.distill_step(student, teacher, batch, f32)
-        results[device] = (float(metrics["loss"]), float(training.global_norm(student.momentum)))
+        results[device] = (float(metrics["loss"]), float(sgd_update.global_norm(student.momentum)))
     rel = [abs(a - b) / abs(b) for a, b in zip(results["cuda"], results["cpu"])]
     print(f"  distill f32 step b2 128x160, card vs CPU: loss {results['cuda'][0]:.6f} / "
           f"{results['cpu'][0]:.6f} rel {rel[0]:.3e}, clipped-gradient norm rel "
@@ -2600,6 +2674,8 @@ def main() -> int:
     print(f"sampler phase, {card}:")
     sampler = sampler_phase(card)
     engine = engine_kernel_phase(card)
+    print(f"optimizer phase, {card}:")
+    optimizer_phase(card)
     print(f"K1 backward phase, {card}:")
     dense_conv_backward_phase()
 

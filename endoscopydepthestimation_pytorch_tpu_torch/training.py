@@ -38,6 +38,7 @@ from torch import nn
 
 from . import losses
 from .ops import geometry
+from .ops import sgd_update as multi_tensor_sgd
 from .parallel import distributed
 from .schedule import make_cyclic_schedule
 from .utils import profiling
@@ -73,9 +74,14 @@ class TrainState:
     count: torch.Tensor
     step: torch.Tensor
 
+    def __post_init__(self):
+        # the parameters in ``momentum``'s order, listed once: a walk of the
+        # module tree costs ~0.4 ms of host time a FC-DenseNet-103 step
+        self._params = list(self.model.parameters())
+
     @property
     def params(self) -> List[torch.Tensor]:
-        return list(self.model.parameters())
+        return list(self._params)
 
 
 def create_train_state(model: nn.Module) -> TrainState:
@@ -166,12 +172,6 @@ def compute_losses(d1, d2, batch, sfl_weight, dcl_weight, epsilon: float):
     return sfl + dcl, aux
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum((t.float().square().sum() for t in tensors),
-                          torch.zeros((), device=tensors[0].device)))
-
-
 @torch.no_grad()
 def sgd_update(state: TrainState, loss: torch.Tensor, grads: List[torch.Tensor],
                config: TrainConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -187,24 +187,15 @@ def sgd_update(state: TrainState, loss: torch.Tensor, grads: List[torch.Tensor],
     - b = 0.9*b + g, then p -= lr*b, with lr the schedule at ``count``;
     - unless every gradient is finite, params, momentum and ``count``
       stay put; ``step`` advances by isfinite(loss) regardless.
+
+    On the card one C call of the multi-tensor kernel
+    (``ops.sgd_update``), on the CPU its plain loop; nothing is read back.
     """
-    finite = torch.isfinite(loss)
-    nan = torch.full((), float("nan"), device=loss.device)
-    grads = [torch.where(finite, g, nan) for g in grads]
-    grad_norm = global_norm(grads)
-    # optax's gate: every element of every gradient finite
-    all_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
     lr = make_cyclic_schedule(config.min_lr, config.max_lr,
                               config.lr_step_size)(state.count)
-    clip = config.grad_clip_norm
-    for p, b, g in zip(state.params, state.momentum, grads):
-        u = torch.where(grad_norm < clip, g, g / grad_norm * clip)
-        new_b = u + config.momentum * b
-        b.copy_(torch.where(all_finite, new_b, b))
-        p.copy_(torch.where(all_finite, p - lr * new_b, p))
-    state.count += all_finite.to(torch.int32)
-    state.step += finite.to(torch.int32)
-    return finite, grad_norm
+    return multi_tensor_sgd.update(state.params, state.momentum, grads, loss, lr,
+                                   state.count, state.step, config.grad_clip_norm,
+                                   config.momentum)
 
 
 def apply_gradients(state: TrainState, loss: torch.Tensor,

@@ -9,10 +9,10 @@ runs on a machine without it:
 import pytest
 import torch
 
-from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet57
+from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet57, FCDenseNet103
 from endoscopydepthestimation_pytorch_tpu_torch.models.init import init_weights
 from endoscopydepthestimation_pytorch_tpu_torch.ops import (block_engine, dense_conv,
-                                                          warp_sample)
+                                                          sgd_update, warp_sample)
 
 pytestmark = pytest.mark.cuda
 
@@ -428,7 +428,9 @@ def _tiny_batch(device, b=2, h=64, w=80):
 
 def _tiny_bf16_steps(device, steps=3):
     """``steps`` bf16 train steps of a tiny FCDenseNet (10 dense layers),
-    one K2 and one K3 launch each; returns the K1 launches they made."""
+    one K2 and one K3 launch and one optimizer call each, no gradient
+    copied into its parameter's layout; returns the K1 launches they
+    made."""
     from endoscopydepthestimation_pytorch_tpu_torch import training
     from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet
     model = FCDenseNet(down_blocks=(2, 2), up_blocks=(2, 2), bottleneck_layers=2,
@@ -439,6 +441,7 @@ def _tiny_bf16_steps(device, steps=3):
     batch = _tiny_batch(device)
     config = training.TrainConfig(lr_step_size=50, compute_dtype=torch.bfloat16)
     k1, k2 = dense_conv.LAUNCHES, dict(warp_sample.LAUNCHES)
+    sgd, restrided = sgd_update.LAUNCHES["sgd_update"], sgd_update.RESTRIDED
     losses = []
     for _ in range(steps):
         state, metrics = training.train_step(state, batch,
@@ -449,21 +452,30 @@ def _tiny_bf16_steps(device, steps=3):
     assert int(state.step) == steps and int(state.count) == steps
     for name in ("warp_sample_fwd", "warp_sample_bwd"):
         assert warp_sample.LAUNCHES[name] == k2[name] + steps, name
+    assert sgd_update.LAUNCHES["sgd_update"] == sgd + steps
+    assert sgd_update.RESTRIDED == restrided
     return dense_conv.LAUNCHES - k1
 
 
 @pytest.mark.parametrize("gate_open", [True, False])
 def test_tiny_train_step_bf16_launch_counts(device, monkeypatch, gate_open):
     """Three bf16 train steps of a tiny FCDenseNet, one K2 and one K3
-    launch per step: through the engine, every dense layer runs K4, K5 and
-    K6 once per step and K1 never; with the engine's gate closed (the
-    route of a block it rejects), K1 once per layer and step."""
+    launch and one ``sgd_update`` call per step: through the engine, every
+    dense layer runs K4, K5 and K6 once per step and K1 never; with the
+    engine's gate closed (the route of a block it rejects), K1 once per
+    layer and step."""
     if not gate_open:
         monkeypatch.setattr(block_engine, "supported", lambda *shape: False)
     before = dict(block_engine.LAUNCHES)
     assert _tiny_bf16_steps(device) == (0 if gate_open else 3 * 10)
     for name, n in block_engine.LAUNCHES.items():
         assert n == before[name] + (3 * 10 if gate_open else 0), name
+
+
+# the CUDA runtime's and driver's calls that put work on a stream, as the
+# profiler names them on the host
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset",
+                "cuMemcpy", "cuMemset")
 
 
 def test_traced_step_spans_match_the_launch_counters(device):
@@ -486,29 +498,193 @@ def test_traced_step_spans_match_the_launch_counters(device):
     torch.cuda.synchronize()
     k1, k23, k456 = (dense_conv.LAUNCHES, dict(warp_sample.LAUNCHES),
                      dict(block_engine.LAUNCHES))
+    sgd, restrided = sgd_update.LAUNCHES["sgd_update"], sgd_update.RESTRIDED
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         training.train_step(state, batch, dcl, config)
         torch.cuda.synchronize()
     session = profiling.sessions()[-1]
     count = {name: sum(r.name == name for r in session.records)
              for name in ("dense_conv", "warp_fwd", "warp_bwd", "engine_fwd",
-                          "engine_dinput", "engine_dweight")}
+                          "engine_dinput", "engine_dweight", "sgd_update")}
     assert count == {
         "dense_conv": dense_conv.LAUNCHES - k1,
         "warp_fwd": warp_sample.LAUNCHES["warp_sample_fwd"] - k23["warp_sample_fwd"],
         "warp_bwd": warp_sample.LAUNCHES["warp_sample_bwd"] - k23["warp_sample_bwd"],
         **{"engine_" + k.removeprefix("block_engine_"): n - k456[k]
-           for k, n in block_engine.LAUNCHES.items()}}
+           for k, n in block_engine.LAUNCHES.items()},
+        "sgd_update": sgd_update.LAUNCHES["sgd_update"] - sgd}
     assert count == {"dense_conv": 0, "warp_fwd": 1, "warp_bwd": 1, "engine_fwd": 44,
-                     "engine_dinput": 44, "engine_dweight": 44}
+                     "engine_dinput": 44, "engine_dweight": 44, "sgd_update": 1}
+    assert sgd_update.RESTRIDED == restrided
     parents = {r.parent for r in session.records if r.name.startswith("engine_d")}
     assert parents == {"backward"}
+    assert {r.parent for r in session.records if r.name == "sgd_update"} == {"optimizer"}
+    (optimizer,) = [r for r in session.records if r.name == "optimizer"]
+    launched = [e.name() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CPU
+                and e.name().startswith(LAUNCH_CALLS)
+                and optimizer.start_ns <= e.start_ns() <= optimizer.end_ns]
+    assert 3 <= len(launched) <= 20, launched
     (backward,) = [r for r in session.records if r.name == "backward"]
     dinput = [e.start_ns() for e in prof.profiler.kineto_results.events()
               if e.device_type() == torch.autograd.DeviceType.CUDA
               and "dinput_mma_kernel" in e.name()]
     assert len(dinput) == 44
     assert min(dinput) > backward.start_ns, (min(dinput) - backward.start_ns) * 1e-6
+
+
+# -- the multi-tensor optimizer (ops/sgd_update) ------------------------------
+
+# (shape, the parameter's layout, the gradient's): 1-d tensors of 1, 5,
+# 4097 and 65,537 elements, the block engine's dW beside an OIHW weight,
+# cuDNN's channels_last gradient beside an OIHW weight and the reverse, a
+# 1x1 head whose layouts differ only along dimensions of size 1
+OPT_TENSORS = [((1,), "contiguous", "contiguous"), ((5,), "contiguous", "contiguous"),
+               ((4097,), "contiguous", "contiguous"),
+               ((65537,), "contiguous", "contiguous"),
+               ((16, 48, 3, 3), "contiguous", "hwio"),
+               ((48, 3, 3, 3), "contiguous", "channels_last"),
+               ((32, 24, 3, 3), "channels_last", "contiguous"),
+               ((24, 24, 3, 3), "channels_last", "channels_last"),
+               ((1, 192, 1, 1), "contiguous", "channels_last")]
+
+
+def _laid_out(x, layout):
+    if layout == "channels_last":
+        return x.contiguous(memory_format=torch.channels_last)
+    if layout == "hwio":  # (3, 3, C, F) in memory
+        return x.permute(2, 3, 1, 0).contiguous().permute(3, 2, 0, 1)
+    return x.contiguous()
+
+
+def _optimizer_state(device, tensors, norm, seed=0):
+    """Parameters, momentum buffers (both random, in the parameters'
+    layouts) and gradients scaled to global norm ``norm``, on the card;
+    count 5, step 7."""
+    g = torch.Generator().manual_seed(seed)
+    params, momentum, grads = [], [], []
+    for shape, p_layout, g_layout in tensors:
+        params.append(_laid_out(torch.randn(shape, generator=g), p_layout).to(device))
+        momentum.append(_laid_out(torch.randn(shape, generator=g) * 0.01, p_layout).to(device))
+        grads.append(_laid_out(torch.randn(shape, generator=g), g_layout).to(device))
+    scale = norm / float(torch.sqrt(sum(x.double().square().sum() for x in grads)))
+    grads = [x * scale for x in grads]  # keeps each layout
+    count, step = (torch.tensor(v, dtype=torch.int32, device=device) for v in (5, 7))
+    return params, momentum, grads, count, step
+
+
+def _clone(tensors):
+    return [t.clone() for t in tensors]  # clone keeps a dense layout
+
+
+def _optimizer_pair(device, tensors, norm, loss, bad=None):
+    """The kernel's and the plain loop's step from one state, with the
+    gradient element 4321 of the fourth tensor set to ``bad`` if given:
+    the states after it ((params, momentum, count, step) each) and
+    (finite, norm) of each."""
+    params, momentum, grads, count, step = _optimizer_state(device, tensors, norm)
+    if bad is not None:
+        grads[3][4321] = bad
+    lr = torch.tensor(3e-3, device=device)
+    loss = torch.tensor(loss, device=device)
+    plain = (_clone(params), _clone(momentum), count.clone(), step.clone())
+    got = sgd_update._sgd_update_cuda(params, momentum, grads, loss, lr, count, step,
+                                      10.0, 0.9)
+    want = sgd_update._sgd_update_plain(plain[0], plain[1], grads, loss, lr, plain[2],
+                                        plain[3], 10.0, 0.9)
+    return (params, momentum, count, step), plain, got, want
+
+
+@pytest.mark.parametrize("norm", [3.0, 30.0])  # both sides of the clip at 10
+@pytest.mark.parametrize("loss,bad", [(1.25, None), (float("nan"), None),
+                                      (float("inf"), None), (1.25, float("nan")),
+                                      (1.25, float("inf"))])
+def test_sgd_update_kernel_matches_plain(device, norm, loss, bad):
+    """The kernel against the plain loop on mixed sizes and layouts: the
+    global norm to rtol 1e-6; momentum and parameters bitwise where the
+    gradient is not clipped, within rtol 1e-6 of their largest where it
+    is; count and step exact. A non-finite loss leaves everything as it
+    was (the norm NaN); a finite loss with a non-finite gradient element
+    leaves parameters, momentum and count, and advances step."""
+    restrided = sgd_update.RESTRIDED
+    (p, b, count, step), (pp, pb, pcount, pstep), got, want = _optimizer_pair(
+        device, OPT_TENSORS, norm, loss, bad)
+    assert sgd_update.RESTRIDED == restrided  # every layout read in place
+    finite = loss == 1.25
+    assert bool(got[0]) == bool(want[0]) == finite
+    updated = finite and bad is None
+    if updated:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    elif bad == float("inf") and finite:
+        assert float(got[1]) == float(want[1]) == float("inf")
+    else:
+        assert torch.isnan(got[1]) and torch.isnan(want[1])
+    assert (int(count), int(step)) == (int(pcount), int(pstep)) == (5 + updated, 7 + finite)
+    for name, a, ref in [*(("p", x, y) for x, y in zip(p, pp)),
+                         *(("b", x, y) for x, y in zip(b, pb))]:
+        assert a.stride() == ref.stride()
+        if norm < 10.0 or not updated:
+            assert torch.equal(a, ref), (name, tuple(a.shape))
+        else:
+            torch.testing.assert_close(a, ref, rtol=1e-6, atol=1e-6 * float(ref.abs().max()),
+                                       msg=f"{name} {tuple(a.shape)}")
+
+
+def test_sgd_update_kernel_is_deterministic(device):
+    """Two runs from one state give the same bits, clipped and not."""
+    for norm in (3.0, 30.0):
+        runs = []
+        for _ in range(2):
+            params, momentum, grads, count, step = _optimizer_state(device, OPT_TENSORS, norm)
+            _, got = sgd_update._sgd_update_cuda(
+                params, momentum, grads, torch.tensor(1.0, device=device),
+                torch.tensor(3e-3, device=device), count, step, 10.0, 0.9)
+            runs.append([got, *params, *momentum])
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_sgd_update_checks_a_parameter_again_once_its_storage_moves(device):
+    """The parameters and momentum buffers are checked once while they
+    stay where they are; a parameter moved to another layout (new storage)
+    is checked again, and its momentum buffer, left in the old layout, is
+    refused."""
+    params, momentum, grads, count, step = _optimizer_state(device, OPT_TENSORS, 3.0)
+    args = (torch.tensor(1.0, device=device), torch.tensor(3e-3, device=device), count,
+            step, 10.0, 0.9)
+    for _ in range(2):
+        sgd_update._sgd_update_cuda(params, momentum, grads, *args)
+    params[4].data = params[4].data.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="lie in memory as its parameter"):
+        sgd_update._sgd_update_cuda(params, momentum, grads, *args)
+    assert (int(count), int(step)) == (7, 9)
+
+
+def test_sgd_update_at_fcdensenet103_shapes_is_one_call_of_few_launches(device):
+    """FC-DenseNet-103's 398 parameter tensors (9,319,521 elements), the
+    dense layers' gradients laid out as the engine's dW: one C call, at most
+    four device operations, and the plain loop's parameters and momentum
+    bit for bit (unclipped)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.device("meta"):
+        shapes = [tuple(p.shape) for p in FCDenseNet103().parameters()]
+    assert len(shapes) == 398 and sum(torch.Size(s).numel() for s in shapes) == 9319521
+    tensors = [(s, "contiguous", "hwio" if len(s) == 4 and s[2] == 3 else "contiguous")
+               for s in shapes]
+    params, momentum, grads, count, step = _optimizer_state(device, tensors, 3.0)
+    plain = (_clone(params), _clone(momentum), count.clone(), step.clone())
+    scalars = (torch.tensor(1.0, device=device), torch.tensor(3e-3, device=device))
+    calls = sgd_update.LAUNCHES["sgd_update"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sgd_update._sgd_update_cuda(params, momentum, grads, *scalars, count, step, 10.0, 0.9)
+        torch.cuda.synchronize()
+    assert sgd_update.LAUNCHES["sgd_update"] == calls + 1
+    device_ops = [e.name() for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert 3 <= len(device_ops) <= 4, device_ops
+    sgd_update._sgd_update_plain(plain[0], plain[1], grads, *scalars, plain[2], plain[3],
+                                 10.0, 0.9)
+    assert all(torch.equal(a, b) for a, b in zip(params + momentum, plain[0] + plain[1]))
 
 
 # (B, H, W, C, F, extra channels after the layer's): a full-resolution
