@@ -135,7 +135,17 @@ to the CPU or to a kernel's plain version):
      step where the backward replays the blocks, peak memory and the
      median step, then the stores in turns; (e) the trainer with
      ``--act8`` and with ``--remat``, one epoch each, and their
-     checkpoints loaded back.
+     checkpoints loaded back;
+ 18. Depth Anything V2-Large (``--architecture depth_anything_v2_vitl``,
+     ``depth_anything_phase``; also alone: ``python3 -c "import
+     chip_smoke as c; c.depth_anything_phase(c.card_name())"``): the bf16
+     train step at b8 518x644 (2B = 16), per step 24 attention calls, K2
+     and K3 once, no K1 or K4-K6, one ``sgd_update`` C call over 402
+     tensors and nothing restrided; the optimizer kernel against its
+     plain loop on that step's gradients; ten steps by CUDA events, the
+     loss finite, the peak memory; a torch.profiler table of two steps:
+     device ms by kernel, the attention kernels by name and the fused
+     SDPA op the step ran.
 Only the main paths' launches (7, 9, 10, 13, 14's counted runs, 15b,
 16a's bf16 steps on both ranks, 16b's NCCL run and 17's runs) enter the
 ``kernels`` line.
@@ -171,7 +181,9 @@ from endoscopydepthestimation_pytorch_tpu_torch.data import (SequenceData, augme
                                                            native, preprocess, rasterizer,
                                                            readers)
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
-    FCDenseNet57, FCDenseNet103, UNet, init_weights, save_reference_checkpoint)
+    DepthAnythingV2Large, FCDenseNet57, FCDenseNet103, UNet, init_weights,
+    save_reference_checkpoint)
+from endoscopydepthestimation_pytorch_tpu_torch.models import depth_anything
 from endoscopydepthestimation_pytorch_tpu_torch.ops import (_libtorch_build, act8, block_engine,
                                                           conv3x3_mma, dense_conv,
                                                           sgd_update, warp_sample)
@@ -2648,6 +2660,112 @@ def _run(cmd) -> str:
     return out.stdout.strip()
 
 
+def card_name() -> str:
+    return _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"]).splitlines()[0]
+
+
+def depth_anything_phase(card: str, batch: int = 8, steps: int = 10) -> dict:
+    """(18) Depth Anything V2-Large's bf16 train step at b8 518x644 (see the
+    module docstring)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w = 518, 644
+    model = init_weights(DepthAnythingV2Large(dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        head = model.depth_head.scratch.output_conv2[2]
+        head.weight.mul_(0.1)
+        head.bias.mul_(0.1).add_(3.0)
+    state = training.create_train_state(model.cuda())
+    config = training.TrainConfig(compute_dtype=torch.bfloat16)
+    data = synthetic_batch(batch, h, w, SEED + 30, "cuda")
+    dcl = torch.tensor(5.0, device="cuda")
+    _reset_launch_counts()
+    before = (sgd_update.LAUNCHES["sgd_update"], sgd_update.RESTRIDED,
+              depth_anything.LAUNCHES["attention"])
+    captured, update = [], sgd_update.update
+    sgd_update.update = lambda *args: captured.append(args[2]) or update(*args)
+    try:
+        _, metrics = training.train_step(state, data, dcl, config)
+    finally:
+        sgd_update.update = update
+    torch.cuda.synchronize()
+    launches = {**_launch_counts(), "sgd_update": sgd_update.LAUNCHES["sgd_update"] - before[0],
+                "restrided": sgd_update.RESTRIDED - before[1],
+                "attention": depth_anything.LAUNCHES["attention"] - before[2]}
+    params = state.params
+    print(f"  one step [{card}]: loss {float(metrics['loss']):.6f}, launches {launches}, "
+          f"{len(params)} tensors, {sum(p.numel() for p in params):,} parameters")
+    want = {"dense_conv_fwd": 0, "warp_sample_fwd": 1, "warp_sample_bwd": 1,
+            "block_engine_fwd": 0, "block_engine_dinput": 0, "block_engine_dweight": 0,
+            "sgd_update": 1, "restrided": 0, "attention": 24}
+    if launches != want or len(params) != 402 or not torch.isfinite(metrics["loss"]):
+        raise AssertionError(f"the Depth Anything V2 step left its path: {launches}")
+    grads = captured[0]
+    norm0 = float(sgd_update.global_norm(grads))
+    scalars = (torch.tensor(1.0, device="cuda"), torch.tensor(3e-4, device="cuda"))
+    for norm in (3.0, 30.0):
+        scaled = [g * (norm / norm0) for g in grads]
+        got = ([p.detach().clone() for p in params], [b.clone() for b in state.momentum],
+               state.count.clone(), state.step.clone())
+        ref = ([p.detach().clone() for p in params], [b.clone() for b in state.momentum],
+               state.count.clone(), state.step.clone())
+        _, got_norm = sgd_update.update(got[0], got[1], scaled, *scalars, got[2], got[3],
+                                        10.0, 0.9)
+        _, ref_norm = sgd_update._sgd_update_plain(ref[0], ref[1], scaled, *scalars, ref[2],
+                                                   ref[3], 10.0, 0.9)
+        rel = abs(float(got_norm) - float(ref_norm)) / float(ref_norm)
+        worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(got[0] + got[1], ref[0] + ref[1]))
+        print(f"  sgd_update at norm {norm:g} against its plain loop: norm rel {rel:.3e} "
+              f"(limit 1e-6), momentum and parameters max|d|/max|ref| {worst:.3e} "
+              f"(limit 0 unclipped, 1e-6 clipped)")
+        if not (rel <= 1e-6 and worst <= (0.0 if norm < 10 else 1e-6)):
+            raise AssertionError("sgd_update disagrees with its plain loop on Depth Anything V2")
+        del got, ref, scaled
+    del captured, grads
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    ms = _cuda_ms(lambda: losses.append(training.train_step(state, data, dcl, config)[1]["loss"]),
+                  iters=steps, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    print(f"  {steps} steps [{card}]: {ms:.2f} ms a step (CUDA events), "
+          f"{batch / ms * 1e3:.2f} samples/s, peak {peak / 2**30:.3f} GiB; losses "
+          f"{losses[0]:.6f} .. {losses[-1]:.6f}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            training.train_step(state, data, dcl, config)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 2e3
+    attention = {k: v for k, v in kernels.items()
+                 if re.search(r"flash_fwd|flash_bwd|fmha|sdpa", k)}
+    ops = {e.key for e in prof.key_averages()}
+    fused = sorted(o for o in ops if "scaled_dot_product" in o)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
+    print(f"  profiler, ms a step by kernel [{card}]: total {sum(kernels.values()):.2f}, "
+          f"attention {sum(attention.values()):.2f}; SDPA ops {fused}")
+    for name, v in top:
+        print(f"    {v:9.3f}  {name[:160]}")
+    print("  attention kernels: " + json.dumps({k[:200]: round(v, 4)
+                                                for k, v in attention.items()}))
+    if "aten::_scaled_dot_product_attention_math" in ops or not attention:
+        raise AssertionError(f"the attention did not run a fused kernel: {fused}")
+    result = {"ms": ms, "peak_bytes": peak, "attention_ms": sum(attention.values()),
+              "device_ms": sum(kernels.values())}
+    del state, model, data
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2754,6 +2872,8 @@ def main() -> int:
         world1 = nccl_world1_phase(card, trained["data"], work)
         print(f"aux phase, {card}:")
         aux = aux_phase(card, config, trained["data"], trained["checkpoints"], work)
+    print(f"Depth Anything V2 phase, {card}:")
+    depth_anything_phase(card)
     for part in (trained, evaluated, unet, spread, world1, aux):
         for name, n in part["launches"].items():
             launches[name] += n

@@ -8,8 +8,11 @@
         --trained_model_path <checkpoint .pt> --sequence_root <sequence> \\
         --evaluation_result_root /tmp/eval --evaluation_data_root <data root>
 
-FCDenseNet-57 from a reference-format ``.pt`` (the port's trainer writes
-one per epoch), in eval mode with the running statistics. Two phases:
+FCDenseNet-57 (or the ``--architecture`` the trainer took, a key of
+``models.ARCHITECTURES``; ``depth_anything_v2_vitl`` needs
+``--network_downsampling 14``) from a reference-format ``.pt`` (the port's
+trainer writes one per epoch), in eval mode with the running statistics.
+Two phases:
 
   validation: frame pairs with the whole objective (``training.eval_step``
       with images); per batch a 12-panel ``{batch}.png`` (two
@@ -46,7 +49,7 @@ import torch
 from . import losses, training
 from .data import readers
 from .data.dataset import BatchLoader, SfMDataset
-from .models import FCDenseNet57
+from .models import ARCHITECTURES, check_crop
 from .parallel import pad_batch_to, to_device
 from .utils import checkpoint as ckpt
 from .utils import visualization as viz
@@ -103,20 +106,23 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None, help="not ported: raises when given")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the CUDA card unless 'cpu' is asked for")
+    p.add_argument("--architecture", type=str, default="fcdensenet57",
+                   choices=sorted(ARCHITECTURES), help="the network the checkpoint holds")
     return p
 
 
 def _make_state(args, height: int, width: int, device: torch.device):
-    """FCDenseNet-57 in ``--compute_dtype`` with the checkpoint's weights,
-    in eval mode on ``device``, as a ``TrainState`` for ``eval_step``."""
+    """``--architecture`` in ``--compute_dtype`` with the checkpoint's
+    weights, in eval mode on ``device``, as a ``TrainState`` for
+    ``eval_step``."""
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    model = FCDenseNet57(n_classes=1, dtype=dtype)
+    model = ARCHITECTURES[args.architecture](n_classes=1, dtype=dtype)
     if args.architecture_summary:
         # the reference prints torchsummary in both phases (its
         # evaluate.py:142, 302)
         print(model)
         n_params = sum(p.numel() for p in model.parameters())
-        print(f"FCDenseNet57: {n_params:,} parameters, input {height}x{width}, "
+        print(f"{args.architecture}: {n_params:,} parameters, input {height}x{width}, "
               f"dtype {args.compute_dtype}, device {device}")
     if not Path(args.trained_model_path).exists():
         raise OSError("Trained model could not be found")
@@ -264,6 +270,7 @@ def main(argv=None) -> EvalRun:
     args = build_parser().parse_args(argv)
     if args.packed_conv is not None:
         raise ValueError(f"--packed_conv is not supported by the port: {PACKED_CONV}")
+    check_crop(args.architecture, args.network_downsampling, args.input_size)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; --device cpu asks for "

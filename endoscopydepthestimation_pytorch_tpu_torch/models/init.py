@@ -6,11 +6,19 @@ with zero biases; BatchNorm gets weight 1 and bias 0, running mean 0 and
 running variance 1. A transposed conv's fan-in is taken over its input
 channels, as flax's ``ConvTranspose`` kernel (kh, kw, in, out) takes it:
 torch stores that weight as (in, out, kh, kw), where this is its fan-out.
+
+The transformer's parts follow DINOv2's ``init_weights_vit_timm`` and
+``init_weights`` (Depth Anything V2's ``dinov2.py``): Linear weights
+truncated normal with std 0.02 (cut at +-2), zero biases; LayerNorm
+weight 1 and bias 0; LayerScale at its ``init_values``; the position
+embedding truncated normal 0.02 and the class token normal with std 1e-6.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from .depth_anything import DinoVisionTransformer, LayerScale
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -27,4 +35,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
                 m.reset_running_stats()
+            elif isinstance(m, nn.Linear):
+                nn.init.trunc_normal_(m.weight, std=0.02, generator=generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, LayerScale):
+                m.gamma.fill_(m.init_values)
+            elif isinstance(m, DinoVisionTransformer):
+                nn.init.trunc_normal_(m.pos_embed, std=0.02, generator=generator)
+                nn.init.normal_(m.cls_token, std=1e-6, generator=generator)
     return model

@@ -1,7 +1,9 @@
 """Streaming depth inference (JAX package ``serving.py``, ``DepthPredictor``
 :54-240) and its two deployment artifacts.
 
-A trained FCDenseNet-57 (reference-format ``.pt``) behind a double-buffered
+A trained network (reference-format ``.pt``; FCDenseNet-57 unless
+``architecture`` names another of ``models.ARCHITECTURES``, such as
+``depth_anything_v2_vitl``) behind a double-buffered
 pipeline: a host thread decodes and normalizes frame t+1 while the device
 runs frame t, and results are read back one batch late, after the next
 batch has been dispatched. Same faces as the JAX predictor: (B, H, W, 3)
@@ -13,7 +15,7 @@ with its weights, running BN statistics and boundary baked in, as a
 ``export`` and ``load_exported``) or as a bundle for the Python-free
 libtorch host ``csrc/serve_host.cpp`` (``export_native_bundle`` and
 ``build_native_host``; JAX ``export_pjrt_bundle`` and ``build_pjrt_host``).
-In both the dense layers stay K1, as the opaque op
+In both an FC-DenseNet's dense layers stay K1, as the opaque op
 ``endodepth::fused_dense_conv`` (``ops/dense_conv``).
 """
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from . import training
 from .data import preprocess
 from .data.augment import normalize_color
-from .models import FCDenseNet57
+from .models import ARCHITECTURES
 from .ops import _libtorch_build
 from .utils import checkpoint as ckpt
 from .utils import profiling
@@ -95,14 +97,17 @@ class DepthPredictor:
     """Checkpoint-backed depth inference on one sequence's calibration.
 
     ``sequence`` supplies the crop box and the boundary mask (a
-    ``SequenceData``). Parameters and BN statistics stay float32 on
-    ``device`` (the CUDA card unless the caller asks for another, such as
-    ``"cpu"``); activations run in ``dtype``.
+    ``SequenceData``). ``architecture`` is a key of
+    ``models.ARCHITECTURES``, the network the checkpoint holds. Parameters
+    and BN statistics stay float32 on ``device`` (the CUDA card unless the
+    caller asks for another, such as ``"cpu"``); activations run in
+    ``dtype``.
     """
 
     def __init__(self, checkpoint_path, sequence: preprocess.SequenceData,
                  batch_size: int = 1, downsampling: float = 4.0, *,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16):
+                 device="cuda", dtype: torch.dtype = torch.bfloat16,
+                 architecture: str = "fcdensenet57"):
         self.sequence = sequence
         self.batch_size = batch_size
         self.downsampling = downsampling
@@ -110,7 +115,7 @@ class DepthPredictor:
         sh, eh, sw, ew = sequence.crop_positions
         self.height, self.width = eh - sh, ew - sw
 
-        model = FCDenseNet57(n_classes=1, dtype=dtype)
+        model = ARCHITECTURES[architecture](n_classes=1, dtype=dtype)
         ckpt.load_any_checkpoint(checkpoint_path, model)
         self.model = model.to(self.device).eval()
 

@@ -15,8 +15,11 @@ reference never leaves train mode there, its train.py:234, 380), and per
 epoch a reference-format ``.pt`` checkpoint and ``all_scalars_<epoch>.json``.
 The train step is ``training.train_step``, every FCDenseNet dense block
 through the block engine (``--architecture unet`` runs PyTorch's convs and
-the warp sampler's kernels only); batches reach the card through
-``parallel.device_prefetch``.
+the warp sampler's kernels only; ``--architecture depth_anything_v2_vitl``,
+Depth Anything V2-Large, PyTorch's convs and matmuls and fused attention,
+and needs ``--network_downsampling 14`` or a multiple, so that the crop's
+sides are multiples of its 14-pixel patches); batches reach the card
+through ``parallel.device_prefetch``.
 
 It runs on the CUDA card unless ``--device cpu`` asks for the CPU, and
 raises without a card. Flags for what the port does not carry, or has not
@@ -53,23 +56,12 @@ from . import training
 from .data import readers
 from .data.augment import TrainingAugmentation
 from .data.dataset import BatchLoader, SfMDataset
-from .models import FCDenseNet57, FCDenseNet67, FCDenseNet103, UNet, init_weights
+from .models import ARCHITECTURES, check_crop, init_weights
 from .parallel import device_prefetch, distributed
 from .utils import checkpoint as ckpt
 from .utils import visualization as viz
 from .utils.profiling import StepTimer, device_trace
 
-
-def _unet(n_classes: int = 1, dtype=torch.float32, **flags) -> UNet:
-    """The default UNet (depth 6, wf 6), as the JAX trainer's ``_unet``
-    (root train.py:44-50) builds it; it ignores the FCDenseNet flags
-    (``act8``, ``remat``, ``block_engine``), as JAX's does."""
-    del flags
-    return UNet(out_channels=n_classes, dtype=dtype)
-
-
-MODELS = {"fcdensenet57": FCDenseNet57, "fcdensenet67": FCDenseNet67,
-          "fcdensenet103": FCDenseNet103, "unet": _unet}
 SEED = 10085
 _IMAGE_KEYS = ("scaled_depth_1", "scaled_depth_2",
                "flows_from_depth_1", "flows_from_depth_2")
@@ -132,7 +124,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--architecture_summary", action="store_true")
     p.add_argument("--trained_model_path", type=str, default=None)
     p.add_argument("--architecture", type=str, default="fcdensenet57",
-                   choices=sorted(MODELS))
+                   choices=sorted(ARCHITECTURES))
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", type=str, default="cuda",
@@ -207,6 +199,16 @@ def _refuse_unported(args) -> None:
             raise ValueError(f"--{flag} is not supported by the port: {why}")
 
 
+def _check_architecture(args) -> None:
+    """The architecture's own refusals, before any data is read: its
+    builder, run on the meta device, refuses flags it has no use for, and
+    the crops must be whole multiples of its ``crop_multiple``."""
+    with torch.device("meta"):
+        ARCHITECTURES[args.architecture](n_classes=1, act8=args.act8, remat=args.remat,
+                                         block_engine=args.block_engine)
+    check_crop(args.architecture, args.network_downsampling, args.input_size)
+
+
 def _distributed(args) -> bool:
     """Whether the flags ask for a process group: all three of them, or
     none."""
@@ -239,6 +241,7 @@ def _board(batch, metrics, is_hsv: bool) -> np.ndarray:
 def main(argv=None) -> TrainRun:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    _check_architecture(args)
     multi = _distributed(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -311,7 +314,7 @@ def _train(args, device: torch.device, log_root: Optional[Path], writer) -> Trai
                              **partition)
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    model = init_weights(MODELS[args.architecture](
+    model = init_weights(ARCHITECTURES[args.architecture](
         n_classes=1, dtype=dtype, act8=args.act8, remat=args.remat,
         block_engine=args.block_engine), torch.Generator().manual_seed(SEED)).to(device)
     config = training.TrainConfig(
