@@ -77,7 +77,10 @@ to the CPU or to a kernel's plain version):
  12. for comparison, the same with the engine's gate closed, so every
      block takes the materialized route (44 K1 launches per step and no
      K4-K6), then ten pairs of one step on each route, alternating which
-     runs first;
+     runs first; then ``graph_phase`` (also alone: ``python3 -c "import
+     chip_smoke as c; c.graph_phase(c.card_name())"``): 20 eager and 20
+     graphed FC-DenseNet-103 bf16 steps at b8 256x320 (``step_graph``),
+     ms a step and the peak of each, the two states bitwise equal;
  13. the trainer (``train.main``, the CLI's entry point) on a
      synthetic SfM data root written by ``tests/torch_sfm_sequence.py``:
      two sequences of 15 raw 1024x1280 frames (a 256x320 crop). The
@@ -174,8 +177,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from endoscopydepthestimation_pytorch_tpu_torch import (distill, evaluate, failure, training,
-                                                        validation)
+from endoscopydepthestimation_pytorch_tpu_torch import (distill, evaluate, failure, step_graph,
+                                                        training, validation)
 from endoscopydepthestimation_pytorch_tpu_torch import train as trainer
 from endoscopydepthestimation_pytorch_tpu_torch.data import (SequenceData, augment, dataset,
                                                            native, preprocess, rasterizer,
@@ -1367,6 +1370,77 @@ def train_phase(card: str, config, steps: int = 10, batch: int = 8,
             int(state.step), int(state.count)) != (steps, steps):
         raise AssertionError("the non-finite guard failed")
     return {"launches": launches, "ms": steady, "state": state, "data": data}
+
+
+class _EagerSteps(step_graph.CudaGraphs):
+    """The card's capture backend, engaging nowhere: every train step runs
+    eagerly, as before ``step_graph``. For comparison only."""
+
+    def engages(self, device) -> bool:
+        return False
+
+
+def graph_phase(card: str, steps: int = 20, batch: int = 8, height: int = 256,
+                width: int = 320) -> dict:
+    """``steps`` eager and ``steps`` graphed FC-DenseNet-103 bf16 train steps
+    on one batch (``step_graph``), each run from the same weights after two
+    warm-up steps (eager: two eager steps; graphed: the eager step and the
+    capture): ms a step by CUDA events over the ``steps`` back to back, so
+    the host's launch time counts as in training, and the allocator's peak
+    over each run above what was allocated before it. The two states after
+    their runs are bitwise equal."""
+    dev = torch.device("cuda")
+    config = training.TrainConfig(lr_step_size=50, compute_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(SEED)
+    start = conditioned(init_weights(FCDenseNet103(dtype=torch.bfloat16), g))
+    data = synthetic_batch(batch, height, width, SEED + 5, dev)
+    dcl = torch.tensor(0.1, device=dev)
+    out, states = {}, {}
+    backend = step_graph.BACKEND
+    for label, steps_backend in (("eager", _EagerSteps()), ("graphed", backend)):
+        state = training.create_train_state(copy.deepcopy(start).to(dev))
+        step_graph.BACKEND = steps_backend
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            for _ in range(2):
+                training.train_step(state, data, dcl, config)
+            torch.cuda.synchronize()
+            begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            graphed = dict(step_graph.GRAPHED)
+            begin.record()
+            for _ in range(steps):
+                _, metrics = training.train_step(state, data, dcl, config)
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            step_graph.BACKEND = backend
+        ms = begin.elapsed_time(end) / steps
+        moved = {k: v - graphed[k] for k, v in step_graph.GRAPHED.items()}
+        out[label] = {"ms": ms, "samples_per_s": batch * 1000 / ms,
+                      "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                      "loss": float(metrics["loss"]), "graphed": moved}
+        states[label] = state
+    same = all(torch.equal(a, b) for a, b in zip(
+        [*states["eager"].model.state_dict().values(), *states["eager"].momentum],
+        [*states["graphed"].model.state_dict().values(), *states["graphed"].momentum]))
+    static = sum(v.nbytes for v in data.values())
+    print(f"timing [{card}] graph phase, FC-DenseNet-103 bf16 b{batch} {height}x{width}, "
+          f"{steps} steps each: eager {out['eager']['ms']:.4f} ms a step "
+          f"({out['eager']['samples_per_s']:.2f} samples/s), graphed "
+          f"{out['graphed']['ms']:.4f} ms ({out['graphed']['samples_per_s']:.2f} "
+          f"samples/s), x{out['eager']['ms'] / out['graphed']['ms']:.3f}; peak above the "
+          f"state: eager {out['eager']['peak_gib']:.4f} GiB, graphed "
+          f"{out['graphed']['peak_gib']:.4f} GiB (static inputs {static / 2 ** 30:.4f}); "
+          f"states bitwise equal {same}; {json.dumps(out)}")
+    if out["eager"]["graphed"] != {"eager": steps, "captures": 0, "replays": 0} or out[
+            "graphed"]["graphed"] != {"eager": 0, "captures": 0, "replays": steps}:
+        raise AssertionError(f"the runs took other paths: {out}")
+    if not same:
+        raise AssertionError("graphed FC-DenseNet-103 steps differ from eager ones")
+    return out
 
 
 def _profile_tables(prof, n: int, card: str, label: str) -> tuple:
@@ -2856,6 +2930,8 @@ def main() -> int:
                            materialized["ms"], "materialized-route ")
     paired_steps_phase(card, config, train["state"], materialized["state"],
                        train["data"])
+    print(f"graph phase, {card}:")
+    graph_phase(card)
     synthetic_ms = train["ms"]
     del train, materialized
     with tempfile.TemporaryDirectory() as work:

@@ -36,7 +36,7 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from . import losses
+from . import losses, step_graph
 from .ops import geometry
 from .ops import sgd_update as multi_tensor_sgd
 from .parallel import distributed
@@ -78,6 +78,7 @@ class TrainState:
         # the parameters in ``momentum``'s order, listed once: a walk of the
         # module tree costs ~0.4 ms of host time a FC-DenseNet-103 step
         self._params = list(self.model.parameters())
+        self.graphs = step_graph.StepGraphs()  # the step's CUDA graphs
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -242,12 +243,18 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     rows m::n of its own rows; their union over the ranks is the global
     batch's microbatch m, whose statistics BatchNorm uses.
 
+    On a card a step is captured as one CUDA graph the second time its
+    signature comes, and replayed from then on (``step_graph``), unless
+    it has ``with_images``, ``grad_accum`` > 1 or a process group.
+
     Under ``torch.profiler`` the step is a root span with the phases
     ``forward``, ``losses``, ``backward``, ``all_reduce`` (in a process
-    group) and ``optimizer`` (``utils.profiling``).
+    group) and ``optimizer`` (``utils.profiling``); a graphed step has the
+    one phase ``replay``.
     """
     with profiling.root_span("train_step"):
-        return _train_step(state, batch, dcl_weight, config, with_images, grad_accum)
+        return step_graph.run(state, batch, dcl_weight, config, with_images, grad_accum,
+                              _train_step)
 
 
 def _train_step(state, batch, dcl_weight, config, with_images, grad_accum):

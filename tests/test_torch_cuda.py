@@ -430,8 +430,10 @@ def _tiny_bf16_steps(device, steps=3):
     """``steps`` bf16 train steps of a tiny FCDenseNet (10 dense layers),
     one K2 and one K3 launch and one optimizer call each, no gradient
     copied into its parameter's layout; returns the K1 launches they
-    made."""
-    from endoscopydepthestimation_pytorch_tpu_torch import training
+    made. The first step runs eagerly, the second is captured as a CUDA
+    graph and replayed, the rest replay (``step_graph``): the counters
+    read one step's launches a step all the same."""
+    from endoscopydepthestimation_pytorch_tpu_torch import step_graph, training
     from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet
     model = FCDenseNet(down_blocks=(2, 2), up_blocks=(2, 2), bottleneck_layers=2,
                        growth_rate=12, out_chans_first_conv=24,
@@ -442,6 +444,7 @@ def _tiny_bf16_steps(device, steps=3):
     config = training.TrainConfig(lr_step_size=50, compute_dtype=torch.bfloat16)
     k1, k2 = dense_conv.LAUNCHES, dict(warp_sample.LAUNCHES)
     sgd, restrided = sgd_update.LAUNCHES["sgd_update"], sgd_update.RESTRIDED
+    graphed = dict(step_graph.GRAPHED)
     losses = []
     for _ in range(steps):
         state, metrics = training.train_step(state, batch,
@@ -454,6 +457,8 @@ def _tiny_bf16_steps(device, steps=3):
         assert warp_sample.LAUNCHES[name] == k2[name] + steps, name
     assert sgd_update.LAUNCHES["sgd_update"] == sgd + steps
     assert sgd_update.RESTRIDED == restrided
+    assert {k: v - graphed[k] for k, v in step_graph.GRAPHED.items()} == {
+        "eager": 1, "captures": 1, "replays": steps - 1}
     return dense_conv.LAUNCHES - k1
 
 
@@ -478,17 +483,24 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset"
                 "cuMemcpy", "cuMemset")
 
 
-def test_traced_step_spans_match_the_launch_counters(device):
-    """One bf16 FCDenseNet-57 step under ``torch.profiler`` recording the
-    device alone, as the benchmark's traced stretch does: one
-    ``engine_fwd``, ``engine_dinput`` and ``engine_dweight`` span per K4,
-    K5 and K6 launch (44 each), one ``warp_fwd`` and one ``warp_bwd``, no
-    ``dense_conv``; and on the profiler's clock every K5 kernel starts
-    after the step's ``backward`` span began."""
+def test_traced_step_spans_match_the_launch_counters(device, monkeypatch):
+    """One eager bf16 FCDenseNet-57 step under ``torch.profiler``
+    recording the device alone, as the benchmark's traced stretch does:
+    one ``engine_fwd``, ``engine_dinput`` and ``engine_dweight`` span per
+    K4, K5 and K6 launch (44 each), one ``warp_fwd`` and one ``warp_bwd``,
+    no ``dense_conv``; and on the profiler's clock every K5 kernel starts
+    after the step's ``backward`` span began. (A replayed step has no
+    such span: ``tests/test_torch_cuda_step_graph.py``.)"""
     from torch.profiler import ProfilerActivity, profile
 
-    from endoscopydepthestimation_pytorch_tpu_torch import training
+    from endoscopydepthestimation_pytorch_tpu_torch import step_graph, training
     from endoscopydepthestimation_pytorch_tpu_torch.utils import profiling
+
+    class Eager(step_graph.CudaGraphs):
+        def engages(self, device):
+            return False
+
+    monkeypatch.setattr(step_graph, "BACKEND", Eager())
     model = init_weights(FCDenseNet57(dtype=torch.bfloat16), torch.Generator().manual_seed(0))
     state = training.create_train_state(model.to(device))
     batch = _tiny_batch(device, h=128, w=160)
