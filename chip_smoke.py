@@ -45,43 +45,37 @@ to the CPU or to a kernel's plain version):
      optimizer kernel against its plain loop on the gradients of one
      FC-DenseNet-103 and one FCDenseNet-57 train step, and its time
      through the wrapper and alone beside the loop's and its bytes bound;
-  6. K1 backward: ``FusedDenseConv``'s output and five gradients against
-     autograd of the plain version at four layer shapes of the train step
-     (f32), the route of a train-mode block the engine's gate rejects;
-  7. serving: ``DepthPredictor`` on a seeded reference-format ``.pt`` and
+  6. serving: ``DepthPredictor`` on a seeded reference-format ``.pt`` and
      synthetic frames, in bf16: ``predict_batch`` and ``stream`` at
      256x320 batch 8, ``predict_frame`` at the real 512x576 crop batch 1.
      Every forward must launch K1 44 times, and the depth must match the
      port's own CPU float32 forward inside the boundary mask;
-  8. timing: forward latencies with CUDA events; a torch.profiler table
+  7. timing: forward latencies with CUDA events; a torch.profiler table
      of the b1 256x320 forward (device busy, idle share, launches per
      forward, the host's enqueue time) on a ``DepthPredictor`` built with
      its default device;
-  9. serving export, bf16 256x320: the ``torch.export`` artifact of a b8
+  8. serving export, bf16 256x320: the ``torch.export`` artifact of a b8
      predictor loaded by ``load_exported`` against ``predict_batch``; the
      op library and the libtorch host (``csrc/dense_conv_op.cpp``,
      ``csrc/serve_host.cpp``) built with g++ and nvcc; the b1 AOTInductor
      bundle; the host's timed run and ``--stream`` over 24 frames against
      the eager predictor. 44 K1 a forward everywhere, the host's counted
      by the op library; the host's ms/batch beside the Python forward's;
- 10. training, FCDenseNet-57 at full width on a synthetic, geometrically
+  9. training, FCDenseNet-57 at full width on a synthetic, geometrically
      consistent batch, every dense block through the engine: (a) one f32
      step on the card against the same step on the CPU (b2 128x160);
      (b) ten bf16 steps at b8 256x320 with finite, decreasing loss and 44
      K4, K5 and K6, 1 K2, 1 K3 and no K1 launches per step, timed with
      CUDA events; (c) a step with an empty depth mask, which must leave
      params, momentum, count and step and advance the BN statistics;
- 11. profile: torch.profiler over three more bf16 train steps, the device
+ 10. profile: torch.profiler over three more bf16 train steps, the device
      time by op and by kernel and the device's idle share, of the profiled
      window and of the median step of (b);
- 12. for comparison, the same with the engine's gate closed, so every
-     block takes the materialized route (44 K1 launches per step and no
-     K4-K6), then ten pairs of one step on each route, alternating which
-     runs first; then ``graph_phase`` (also alone: ``python3 -c "import
-     chip_smoke as c; c.graph_phase(c.card_name())"``): 20 eager and 20
-     graphed FC-DenseNet-103 bf16 steps at b8 256x320 (``step_graph``),
-     ms a step and the peak of each, the two states bitwise equal;
- 13. the trainer (``train.main``, the CLI's entry point) on a
+ 11. ``graph_phase`` (also alone: ``python3 -c "import chip_smoke as c;
+     c.graph_phase(c.card_name())"``): 20 eager and 20 graphed
+     FC-DenseNet-103 bf16 steps at b8 256x320 (``step_graph``), ms a step
+     and the peak of each, the two states bitwise equal;
+ 12. the trainer (``train.main``, the CLI's entry point) on a
      synthetic SfM data root written by ``tests/torch_sfm_sequence.py``:
      two sequences of 15 raw 1024x1280 frames (a 256x320 crop). The
      precompute in spawned workers, the native host rasterizer bit for
@@ -89,10 +83,10 @@ to the CPU or to a kernel's plain version):
      b8 bf16 for epochs 0 and 1 (6 steps each, validation, a checkpoint
      each) and a resume from the epoch-0 checkpoint for epoch 1 under
      ``--profile_dir``: each run's launches (K2-K6, no K1), finite losses,
-     every checkpoint loaded back, the median step against (10)'s, and the
+     every checkpoint loaded back, the median step against (9)'s, and the
      device's idle share of the profiled epoch;
- 14. evaluation (``evaluate.main``, the evaluate CLI's entry point) on
-     (13)'s epoch-1 checkpoint and data root, FCDenseNet-57 at 256x320:
+ 13. evaluation (``evaluate.main``, the evaluate CLI's entry point) on
+     (12)'s epoch-1 checkpoint and data root, FCDenseNet-57 at 256x320:
      the f32 validation phase on the card against ``--device cpu`` on 4
      frame pairs (``metrics.json`` at rtol 1e-3), then the validation
      phase over 15 frames at b8 (a ragged last batch) and the test phase
@@ -100,16 +94,16 @@ to the CPU or to a kernel's plain version):
      written, finite metrics, every PLY parsed back with finite z >= 0,
      44 K1 a forward and one K2 a validation batch, ms a frame, and the
      host's time to write one PLY and one PNG;
- 15. UNet (depth 6, wf 6), which runs PyTorch's convs and K2/K3: one f32
+ 14. UNet (depth 6, wf 6), which runs PyTorch's convs and K2/K3: one f32
      step on the card against the CPU at b2 128x160, then the trainer
      with ``--architecture unet`` at b8 256x320 bf16 for 12 steps and its
      validation (K2 and K3 every step, no K1 or K4-K6), finite losses, the
      checkpoint loaded back, the median step;
- 16. data parallel across processes (``parallel.distributed``): (a) K2-K6
+ 15. data parallel across processes (``parallel.distributed``): (a) K2-K6
      against their plain versions at a rank's shapes (2B = 8, as (4) and
      (5) without the times); two
      ranks spawned on the one card over gloo, FCDenseNet-57 at b8 256x320
-     split 2 x b4 from (10)'s conditioned weights and batch: their f32
+     split 2 x b4 from (9)'s conditioned weights and batch: their f32
      step against one process's b8 step (the scalars, the step's update
      and the BN statistics), the same step with a planted fault (the
      engine's BN gradients twice too large) that the update's limit must
@@ -122,12 +116,12 @@ to the CPU or to a kernel's plain version):
      beside the same run without the flags: both exit 0, launch what a
      run without a process group launches, and write a checkpoint that
      loads back;
- 17. the aux paths and the activation stores, FCDenseNet-57 at full
+ 16. the aux paths and the activation stores, FCDenseNet-57 at full
      width: (a) ``distill.distill_step``, one f32 step on the card against
      the CPU at b2 128x160, then ten bf16 steps at b8 256x320 (finite,
      falling; 44 K1 for the teacher and 44 K4, K5, K6 for the student a
      step; the teacher unchanged); (b) ``validation.network_validation``
-     over (13)'s validation frames from its epoch-0 and epoch-1
+     over (12)'s validation frames from its epoch-0 and epoch-1
      checkpoints, f32 on the card against the CPU, then bf16 (44 K1 and 1
      K2 a batch), and ``failure.save_if_best`` over the two vectors; (c)
      the train step at b8 256x320 bf16 with act8 in ``replay`` and
@@ -139,7 +133,7 @@ to the CPU or to a kernel's plain version):
      median step, then the stores in turns; (e) the trainer with
      ``--act8`` and with ``--remat``, one epoch each, and their
      checkpoints loaded back;
- 18. Depth Anything V2-Large (``--architecture depth_anything_v2_vitl``,
+ 17. Depth Anything V2-Large (``--architecture depth_anything_v2_vitl``,
      ``depth_anything_phase``; also alone: ``python3 -c "import
      chip_smoke as c; c.depth_anything_phase(c.card_name())"``): the bf16
      train step at b8 518x644 (2B = 16), per step 24 attention calls, K2
@@ -149,8 +143,8 @@ to the CPU or to a kernel's plain version):
      loss finite, the peak memory; a torch.profiler table of two steps:
      device ms by kernel, the attention kernels by name and the fused
      SDPA op the step ran.
-Only the main paths' launches (7, 9, 10, 13, 14's counted runs, 15b,
-16a's bf16 steps on both ranks, 16b's NCCL run and 17's runs) enter the
+Only the main paths' launches (6, 8, 9, 12, 13's counted runs, 14b,
+15a's bf16 steps on both ranks, 15b's NCCL run and 16's runs) enter the
 ``kernels`` line.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -1169,36 +1163,6 @@ def optimizer_phase(card: str) -> dict:
     return results
 
 
-def dense_conv_backward_phase(batch: int = 16, height: int = 256,
-                              width: int = 320) -> None:
-    """FusedDenseConv (kernel forward, hand-written backward over cuDNN's
-    adjoints) against autograd of the plain version, f32 with TF32 off, at
-    one layer shape of each level group of the train step (2B = 16): the
-    output and all five gradients."""
-    shapes = dense_layer_shapes(height, width)
-    g = torch.Generator().manual_seed(SEED + 11)
-    for i in (0, 9, 21, 43):  # full-res down, 64x80, the bottleneck, full-res up
-        h, w, c = shapes[i]
-        args = [torch.randn(batch, h, w, c, generator=g),
-                torch.rand(c, generator=g) + 0.5, torch.randn(c, generator=g) * 0.3,
-                torch.randn(3, 3, c, 12, generator=g) * (2.0 / (9 * c)) ** 0.5,
-                torch.randn(12, generator=g) * 0.1]
-        args = [a.cuda() for a in args]
-        cot = torch.randn(batch, h, w, 12, generator=g).cuda()
-        out, got = _value_and_grads(dense_conv.fused_dense_conv,
-                                    [a.clone().requires_grad_() for a in args], cot)
-        ref_out, ref = _value_and_grads(dense_conv.fused_dense_conv_reference,
-                                        [a.clone().requires_grad_() for a in args], cot)
-        rel = {"out": _rel(out, ref_out)}
-        rel.update({n: _rel(a, r) for n, a, r in
-                    zip(("dx", "dscale", "dshift", "dw", "dbias"), got, ref)})
-        print(f"  K1 backward at ({batch}, {h}, {w}, {c}): max|d|/max|ref| "
-              + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + " (limit 1e-4)")
-        if not all(v <= 1e-4 for v in rel.values()) or not got[0].is_contiguous():
-            raise AssertionError(f"K1 backward mismatch at {(h, w, c)}: {rel}")
-        del out, ref_out, got, ref, args, cot
-
-
 def synthetic_batch(batch: int, height: int, width: int, seed: int,
                     device) -> dict:
     """A geometrically consistent batch, built as tests/test_training.py
@@ -1292,30 +1256,15 @@ def _reset_launch_counts() -> None:
     block_engine.LAUNCHES.update(dict.fromkeys(block_engine.LAUNCHES, 0))
 
 
-@contextlib.contextmanager
-def materialized_route():
-    """Close the engine's gate: every train-mode dense block then takes the
-    route of a block the gate rejects (K1's forward, ``FusedDenseConv``'s
-    backward, ``BatchMoments``, ``torch.cat``). For comparison only."""
-    supported = block_engine.supported
-    block_engine.supported = lambda *shape: False
-    try:
-        yield
-    finally:
-        block_engine.supported = supported
-
-
 def train_phase(card: str, config, steps: int = 10, batch: int = 8,
-                height: int = 256, width: int = 320, engine: bool = True) -> dict:
+                height: int = 256, width: int = 320) -> dict:
     """(b) ``steps`` bf16 train steps on one fixed batch, counted and timed;
     (c) one step with an empty depth mask. From the conditioned weights:
     at 256x320 the raw random init puts some depths on the objective's
     1/z pole, and even in f32 its loss then jumps from step to step with
-    gradient norms of 1e4-1e7 (measured on the card). ``engine``: every
-    dense layer runs K4, K5 and K6 once per step and K1 never; without
-    (under ``materialized_route``), K1 once per layer."""
+    gradient norms of 1e4-1e7 (measured on the card). Every dense layer
+    runs K4, K5 and K6 once per step and K1 never."""
     dev = torch.device("cuda")
-    label = "" if engine else "materialized-route "
     state = training.create_train_state(
         conditioned(seeded_model(SEED, torch.bfloat16)).to(dev))
     data = synthetic_batch(batch, height, width, SEED + 5, dev)
@@ -1336,13 +1285,12 @@ def train_phase(card: str, config, steps: int = 10, batch: int = 8,
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
     steady = sorted(step_ms[2:])[len(step_ms[2:]) // 2]  # median after 2 warm-ups
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {"dense_conv_fwd": 0 if engine else 44 * steps,
-                "warp_sample_fwd": steps, "warp_sample_bwd": steps,
-                **dict.fromkeys(block_engine.LAUNCHES, 44 * steps if engine else 0)}
-    print(f"{label}train phase: {steps} bf16 steps, b{batch} {height}x{width}: losses "
+    expected = {"dense_conv_fwd": 0, "warp_sample_fwd": steps, "warp_sample_bwd": steps,
+                **dict.fromkeys(block_engine.LAUNCHES, 44 * steps)}
+    print(f"train phase: {steps} bf16 steps, b{batch} {height}x{width}: losses "
           + " ".join(f"{v:.5f}" for v in losses.tolist()))
     print(f"  launches: {launches} (expected {expected})")
-    print(f"timing [{card}] {label}train step bf16 b{batch} {height}x{width}: "
+    print(f"timing [{card}] train step bf16 b{batch} {height}x{width}: "
           f"{steady:.4f} ms median of steps 3-{steps} ({batch * 1000 / steady:.2f} "
           f"samples/s); steps ms {[round(t, 3) for t in step_ms]}; "
           f"peak memory {peak:.2f} GiB")
@@ -1467,8 +1415,7 @@ def _profile_tables(prof, n: int, card: str, label: str) -> tuple:
     return busy, launches
 
 
-def profile_train_step(state, data, config, card: str, steady_ms: float,
-                       label: str = "") -> None:
+def profile_train_step(state, data, config, card: str, steady_ms: float) -> None:
     """torch.profiler over 3 bf16 train steps after the timed ones: the
     device time per step by op and by kernel, and the device's idle share
     of the window (the profiler's own host cost included) and of
@@ -1483,8 +1430,8 @@ def profile_train_step(state, data, config, card: str, steady_ms: float,
         end.record()
         torch.cuda.synchronize()
     window = start.elapsed_time(end) / 3
-    busy, _ = _profile_tables(prof, 3, card, f"{label}bf16 train step b8 256x320, ")
-    print(f"profile [{card}] {label}bf16 train step b8 256x320, 3 steps: window "
+    busy, _ = _profile_tables(prof, 3, card, "bf16 train step b8 256x320, ")
+    print(f"profile [{card}] bf16 train step b8 256x320, 3 steps: window "
           f"{window:.3f} ms/step, device busy {busy:.3f} ms/step, idle share "
           f"{1 - busy / window:.4f} under the profiler, {1 - busy / steady_ms:.4f} "
           f"of the unprofiled median step {steady_ms:.4f} ms")
@@ -1644,43 +1591,6 @@ def export_phase(checkpoint, card: str, tmp: Path, python_b1_ms: float) -> dict:
           f"{stats['first_batch_ms']:.4f}); "
           f"host vs eager b1 mean|d|/mean|ref| in the mask {rel_host:.3e} (limit 1e-2)")
     return {"launches": report["k1_launches"] + stats["k1_launches"]}
-
-
-def paired_steps_phase(card: str, config, engine_state, materialized_state, data,
-                       pairs: int = 10) -> None:
-    """``pairs`` pairs of one bf16 train step through the engine and one
-    through the materialized route, on the states the train phases left
-    and one batch, alternating which runs first; each step timed with CUDA
-    events from an idle card, so the host's launch time counts as it does
-    in training."""
-    dcl = torch.tensor(0.1, device="cuda")
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-    def step_ms(state, engine: bool) -> float:
-        torch.cuda.synchronize()
-        with contextlib.nullcontext() if engine else materialized_route():
-            start.record()
-            training.train_step(state, data, dcl, config)
-            end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
-
-    ms = {True: [], False: []}
-    for i in range(pairs):
-        for engine in ((True, False) if i % 2 == 0 else (False, True)):
-            ms[engine].append(step_ms(engine_state if engine else materialized_state,
-                                      engine))
-    wins = sum(e < m for e, m in zip(ms[True], ms[False]))
-
-    def quartiles(v):
-        q = np.percentile(v, [25, 50, 75])
-        return f"median {q[1]:.4f} ms (quartiles {q[0]:.4f}-{q[2]:.4f})"
-
-    print(f"timing [{card}] paired bf16 train steps b8 256x320, {pairs} pairs, "
-          f"alternating first: engine {quartiles(ms[True])}, materialized route "
-          f"{quartiles(ms[False])}; engine faster in {wins} of {pairs}; engine ms "
-          f"{[round(t, 3) for t in ms[True]]}, materialized ms "
-          f"{[round(t, 3) for t in ms[False]]}")
 
 
 TRAINER_FRAMES, TRAINER_RAW = 15, (1024, 1280)  # per sequence; two sequences
@@ -2189,7 +2099,7 @@ def _free_port() -> int:
 
 
 def _dist_rank(rank: int, world: int, port: int, out: str) -> None:
-    """(16a) One of two ranks on the one card over gloo (NCCL refuses two
+    """(15a) One of two ranks on the one card over gloo (NCCL refuses two
     ranks on one device; gloo stages CUDA tensors through the host): one
     f32 step and DIST_STEPS bf16 steps on its rows of the train phase's
     synthetic b8 batch, from the train phase's conditioned weights. Saves
@@ -2299,7 +2209,7 @@ def _trainer_process(argv: list) -> dict:
 
 
 def two_rank_phase(card: str, tmp: Path) -> dict:
-    """(16a) Data parallel across processes (``parallel.distributed``):
+    """(15a) Data parallel across processes (``parallel.distributed``):
     K2-K6 against their plain versions at a rank's shapes (2B = 8); two
     ranks on the one card over gloo, each with 4 rows of the b8 batch:
     their f32 step against one process's b8 f32 step (losses and grad norm
@@ -2394,7 +2304,7 @@ def two_rank_phase(card: str, tmp: Path) -> dict:
 
 
 def nccl_world1_phase(card: str, data: Path, tmp: Path) -> dict:
-    """(16b) The trainer over NCCL at world size 1 through its flags, one
+    """(15b) The trainer over NCCL at world size 1 through its flags, one
     epoch with validation, against the same trainer run without them: both
     exit 0 with a checkpoint that loads back and the launches of a run
     without a process group."""
@@ -2424,15 +2334,15 @@ def nccl_world1_phase(card: str, data: Path, tmp: Path) -> dict:
           f" and {[round(t, 3) for t in runs['plain']['step_ms']]}")
     return {"launches": runs["nccl"]["launches"]}
 
-# -- (17) the aux paths, act8 and remat -------------------------------------------
+# -- (16) the aux paths, act8 and remat -------------------------------------------
 
 
 def distill_phase(card: str, config, steps: int = 10) -> dict:
-    """(17a) ``distill.distill_step``: one f32 step on the card against the
+    """(16a) ``distill.distill_step``: one f32 step on the card against the
     CPU at b2 128x160 (the loss and the momentum's norm, i.e. the clipped
     gradient's, rel <= 1e-3, the train-parity limit), then ``steps`` bf16
     steps at b8 256x320: finite, falling, 44 K1 (the teacher) and 44 K4,
-    K5 and K6 (the student) a step, no K2 or K3. Teacher: (10)'s
+    K5 and K6 (the student) a step, no K2 or K3. Teacher: (9)'s
     conditioned weights; student: the same from seed SEED + 1."""
     f32 = dataclasses.replace(config, compute_dtype=torch.float32)
     results = {}
@@ -2486,7 +2396,7 @@ def distill_phase(card: str, config, steps: int = 10) -> dict:
 
 
 def _validation_loader(data: Path):
-    """(13)'s validation frames as the trainer loads them: 30 frames, 3
+    """(12)'s validation frames as the trainer loads them: 30 frames, 3
     batches of 8 at 256x320."""
     _, val_files, _ = readers.get_color_file_names_by_bag(data, ["1"], ["1"], ["1"])
     val_set = dataset.SfMDataset(
@@ -2497,7 +2407,7 @@ def _validation_loader(data: Path):
 
 
 def validation_phase(card: str, data: Path, checkpoints: list, tmp: Path) -> dict:
-    """(17b) ``validation.network_validation`` over (13)'s validation
+    """(16b) ``validation.network_validation`` over (12)'s validation
     frames from its epoch-0 and epoch-1 checkpoints: f32 on the card
     against ``device="cpu"`` (the per-batch vector at rtol 1e-3), then bf16
     on the card (44 K1 and 1 K2 a batch, ms a batch), and
@@ -2591,7 +2501,7 @@ def _bwd_mode(store: str):
 
 
 def store_phase(card: str, config, steps: int = 10) -> dict:
-    """(17c, d) The train step at b8 256x320 bf16 from (10)'s conditioned
+    """(16c, d) The train step at b8 256x320 bf16 from (9)'s conditioned
     weights and batch, through the engine and with act8 (replay and
     saved_buf) and remat, in one call: each store's first step's loss and
     new BN statistics bitwise equal to the engine route's; act8's gradient
@@ -2688,7 +2598,7 @@ def store_phase(card: str, config, steps: int = 10) -> dict:
 
 
 def store_trainer_phase(card: str, data: Path, tmp: Path) -> dict:
-    """(17e) The trainer with ``--act8`` and with ``--remat``: epoch 0 (6
+    """(16e) The trainer with ``--act8`` and with ``--remat``: epoch 0 (6
     steps, 3 validation batches, boards), exit 0, K4 88 a step and 44 a
     validation batch, and a checkpoint that loads back."""
     steps, evals = 6, 3
@@ -2716,7 +2626,7 @@ def store_trainer_phase(card: str, data: Path, tmp: Path) -> dict:
 
 
 def aux_phase(card: str, config, data: Path, checkpoints: list, tmp: Path) -> dict:
-    """(17) Distillation, the standalone validation and model selection,
+    """(16) Distillation, the standalone validation and model selection,
     act8 in both modes, remat and the trainer with each; the launches of
     their main-path runs."""
     t0 = time.perf_counter()
@@ -2740,7 +2650,7 @@ def card_name() -> str:
 
 
 def depth_anything_phase(card: str, batch: int = 8, steps: int = 10) -> dict:
-    """(18) Depth Anything V2-Large's bf16 train step at b8 518x644 (see the
+    """(17) Depth Anything V2-Large's bf16 train step at b8 518x644 (see the
     module docstring)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2868,8 +2778,6 @@ def main() -> int:
     engine = engine_kernel_phase(card)
     print(f"optimizer phase, {card}:")
     optimizer_phase(card)
-    print(f"K1 backward phase, {card}:")
-    dense_conv_backward_phase()
 
     with tempfile.TemporaryDirectory() as tmp:
         checkpoint = Path(tmp) / "seeded_fcdensenet57.pt"
@@ -2921,19 +2829,10 @@ def main() -> int:
     profile_train_step(train["state"], train["data"], config, card, train["ms"])
     launches = dict(train["launches"])
     launches["dense_conv_fwd"] += serving_launches + export_launches
-
-    print(f"materialized-route comparison (the engine's gate closed), {card}:")
-    with materialized_route():
-        train_parity_phase(base)
-        materialized = train_phase(card, config, engine=False)
-        profile_train_step(materialized["state"], materialized["data"], config, card,
-                           materialized["ms"], "materialized-route ")
-    paired_steps_phase(card, config, train["state"], materialized["state"],
-                       train["data"])
     print(f"graph phase, {card}:")
     graph_phase(card)
     synthetic_ms = train["ms"]
-    del train, materialized
+    del train
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
         print(f"trainer phase, {card}:")

@@ -1,49 +1,54 @@
 """FC-DenseNet depth networks in PyTorch.
 
-Port of the JAX package's ``models/fcdensenet.py`` (materialized path:
-``DenseLayer`` :230, ``DenseBlock`` :292, ``TransitionDown`` :481,
-``TransitionUp`` :546, ``FCDenseNet`` :587), itself a port of the
-reference's models.py:19-208: pre-activation BN -> ReLU -> 3x3 conv dense
-layers, 1x1 conv + 2x2 maxpool transitions down, nearest x2 upsample +
-3x3 conv transitions up, and an ``|1x1 conv|`` head giving nonnegative
-depth.
+Port of the JAX package's ``models/fcdensenet.py`` (``DenseLayer`` :230,
+``DenseBlock`` :292, ``TransitionDown`` :481, ``TransitionUp`` :546,
+``FCDenseNet`` :587), itself a port of the reference's models.py:19-208:
+pre-activation BN -> ReLU -> 3x3 conv dense layers, 1x1 conv + 2x2
+maxpool transitions down, nearest x2 upsample + 3x3 conv transitions up,
+and an ``|1x1 conv|`` head giving nonnegative depth.
 
 The module takes NCHW like the reference's torch model and keeps its
-activations in ``torch.channels_last`` memory. Each dense layer folds its
-BatchNorm into a per-channel (scale, shift) and runs BN + ReLU + conv3x3
-as one ``ops.dense_conv.fused_dense_conv`` call; the other convolutions,
-the maxpool, the upsample, the crop and the head are plain PyTorch.
-Parameters and BN statistics stay float32; activations run in ``dtype``.
+activations in ``torch.channels_last`` memory. The convolutions outside
+the dense blocks, the maxpool, the upsample, the crop and the head are
+plain PyTorch. Parameters and BN statistics stay float32; activations run
+in ``dtype``.
 
-In train mode each dense block runs through the whole-block engine
-``ops.block_engine`` (JAX ``FCDenseNet(block_engine=True)``, :622-666):
-one buffer per block, no concatenation, the BN statistics from the
-forward kernel, and a hand-written backward. The down blocks then hand
-their output's statistics to ``TransitionDown`` (JAX :690-698). A block
-whose shape the engine's gate (``ops.block_engine.supported``) rejects,
-and every block in eval mode, runs the per-layer kernel, as JAX's eval
-mode does (:337). The parameters are the same either way.
+A dense block runs one route in each mode, with the same parameters:
+
+- train mode: the whole block as one call through the engine
+  ``ops.block_engine`` (JAX ``FCDenseNet(block_engine=True)``, :622-666):
+  one buffer per block, no concatenation, the BN statistics from the
+  forward kernel, and a hand-written backward. The down blocks hand
+  their output's statistics to ``TransitionDown`` (JAX :690-698).
+- eval mode: layer by layer, concatenating, as JAX's eval mode (:337).
+  Each dense layer folds its BatchNorm into a per-channel (scale, shift)
+  and runs BN + ReLU + conv3x3 as one forward-only
+  ``ops.dense_conv.fused_dense_conv`` call (K1). This is the serving
+  path, the one ``torch.export`` traces.
+
+Both kernels take a growth of at most 16; the model refuses a larger one
+when it is built.
 
 BatchNorm follows the JAX package's ``BNFold`` (fcdensenet.py:195-211),
-not torch's defaults. In eval mode it folds the running statistics. In
-train mode it folds the batch statistics mu = mean(x) and
-var = mean(x^2) - mu^2 (the biased variance), taken in f32 with the
-gradient flowing through mu and mean(x^2), and moves the running
-statistics to 0.9*r + 0.1*stat with that biased variance. In a process
-group (``parallel.distributed``) those statistics are the global batch's,
-as JAX's ``axis_name`` pmean makes them (:200-202).
+not torch's defaults, and folds with the engine's ``block_engine.fold``.
+In eval mode it folds the running statistics. In train mode it folds the
+batch statistics mu = mean(x) and var = mean(x^2) - mu^2 (the biased
+variance), which the engine takes in f32 with the gradient flowing
+through mu and mean(x^2), and moves the running statistics to
+0.9*r + 0.1*stat with that biased variance. In a process group
+(``parallel.distributed``) those statistics are the global batch's, as
+JAX's ``axis_name`` pmean makes them (:200-202).
 
 ``act8=True`` and ``remat=True`` (JAX :600-602, :635-643, :672-675)
 change only what a train-mode step keeps between its forward and its
 backward; the forward is the same ops. With ``remat`` each dense block's
-backward replays its forward from the block's exact input
-(``ops.act8.ReplayBlock`` on the engine, a ``torch.utils.checkpoint``
-of the layer-by-layer block where the gate refuses it). With ``act8``
-(which takes precedence) each block saves an e4m3 copy instead
-(``ops.act8``), and the transitions and the final conv run through
-``ops.act8.compressed_call``. ``block_engine=True`` with ``act8`` keeps
-the blocks the engine's gate takes exact, as JAX's engine takes
-precedence over act8 (:367-372); alone it changes nothing.
+backward replays the engine's forward from the block's exact input
+(``ops.act8.ReplayBlock``). With ``act8`` (which takes precedence) each
+block saves an e4m3 copy instead (``ops.act8``), and the transitions and
+the final conv run through ``ops.act8.compressed_call``.
+``block_engine=True`` with ``act8`` keeps the dense blocks exact, as
+JAX's engine takes precedence over act8 (:367-372); alone it changes
+nothing.
 
 Attribute names follow the reference's state_dict (``firstconv``,
 ``denseBlocksDown.i.layers.j.{norm,conv}``, ``transDownBlocks.i.{norm,conv}``,
@@ -53,18 +58,15 @@ package's converted weights load with ``strict=True``.
 """
 from __future__ import annotations
 
-from functools import partial
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..ops import act8
 from ..ops import block_engine as engine
-from ..ops.dense_conv import fused_dense_conv
-from ..parallel import distributed
+from ..ops.dense_conv import MAX_FEATURES, fused_dense_conv
 
 MOMENTUM = 0.9  # running statistics keep 0.9 of their value (torch's 0.1)
 
@@ -72,48 +74,6 @@ MOMENTUM = 0.9  # running statistics keep 0.9 of their value (torch's 0.1)
 def _conv(x: torch.Tensor, conv: nn.Conv2d, padding: int) -> torch.Tensor:
     return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
                     padding=padding)
-
-
-def _fold(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> tuple:
-    scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
-    return scale, bn.bias.float() - mean * scale
-
-
-def fold_batchnorm(bn: nn.BatchNorm2d) -> tuple:
-    """Running statistics -> float32 (scale, shift) with
-    relu(bn(x)) == relu(x*scale + shift) (JAX fcdensenet.py:209-211)."""
-    return _fold(bn, bn.running_mean.float(), bn.running_var.float())
-
-
-class BatchMoments(torch.autograd.Function):
-    """Per-channel mean and mean of squares of an NCHW tensor over
-    (N, H, W), in f32 (JAX ``segment_stats``, fcdensenet.py:152-159).
-    Saves only ``x`` itself, which the layer that consumes ``x`` saves
-    anyway, instead of an f32 copy.
-
-    In a process group the moments are the global batch's: the forward
-    averages the packed (mean, mean of squares) over the ranks, and the
-    backward sums their cotangents over the ranks and divides by the
-    global count (``parallel.distributed``, convention 2)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        xf = x.float()
-        mean, mean2 = xf.mean((0, 2, 3)), xf.square().mean((0, 2, 3))
-        if distributed.group() is not None:
-            mean, mean2 = distributed.all_mean_(torch.stack([mean, mean2]))
-        return mean, mean2
-
-    @staticmethod
-    def backward(ctx, dmean, dmean2):
-        (x,) = ctx.saved_tensors
-        n = x.numel() // x.shape[1]
-        if distributed.group() is not None:
-            dmean, dmean2 = distributed.all_sum_(torch.stack([dmean, dmean2]).float())
-            n *= distributed.world()
-        dx = (dmean[:, None, None] + 2.0 * x.float() * dmean2[:, None, None]) / n
-        return dx.to(x.dtype)
 
 
 def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
@@ -128,43 +88,22 @@ def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
     return var
 
 
-def batch_fold(bn: nn.BatchNorm2d, x: torch.Tensor, stats=None) -> tuple:
-    """``bn`` folded into float32 (scale, shift) for the NCHW input ``x``:
-    in eval mode from the running statistics; in train mode from the
-    batch statistics (``stats`` = (mean, mean of squares) when the
-    producer already has them), advancing the running ones (JAX
-    ``BNFold``). In a process group the batch statistics are the global
-    batch's (``BatchMoments``; the engine's ``stats`` already are), so the
-    running ones advance identically on every rank."""
+def batch_fold(bn: nn.BatchNorm2d, stats=None) -> tuple:
+    """``bn`` folded into float32 (scale, shift) with relu(bn(x)) ==
+    relu(x*scale + shift) (JAX ``BNFold``, fcdensenet.py:195-211): in eval
+    mode from the running statistics; in train mode from ``stats``, the
+    producer's batch (mean, mean of squares), advancing the running ones.
+    The engine's statistics are the global batch's in a process group, so
+    the running ones advance identically on every rank."""
     if not bn.training:
-        return fold_batchnorm(bn)
-    mean, mean2 = BatchMoments.apply(x) if stats is None else stats
-    return _fold(bn, mean, update_running_stats(bn, mean, mean2))
-
-
-def _materialized_block(n_layers: int, x: torch.Tensor, *params) -> tuple:
-    """A train-mode dense block layer by layer from its parameters
-    (gammas, betas, HWIO conv weights, conv biases; JAX ``act8._mat_impl``):
-    K1 a layer on the growing concatenation, the BN statistics of each
-    segment once (``BatchMoments``). NCHW in; returns (buf, mu, m2). No
-    side effects, so a backward may replay it."""
-    gammas, betas, weights, biases = (params[i * n_layers:(i + 1) * n_layers]
-                                      for i in range(4))
-    x = x.contiguous(memory_format=torch.channels_last)
-    mean, mean2 = BatchMoments.apply(x)
-    mus, m2s = [mean], [mean2]
-    for j in range(n_layers):
-        mu, m2 = torch.cat(mus), torch.cat(m2s)
-        scale = gammas[j].float() * torch.rsqrt(m2 - mu.square() + engine.EPS)
-        shift = betas[j].float() - mu * scale
-        y = fused_dense_conv(x.permute(0, 2, 3, 1), scale, shift,
-                             weights[j].to(x.dtype).contiguous(),
-                             biases[j].float()).permute(0, 3, 1, 2)
-        x = torch.cat([x, y], 1)
-        mean, mean2 = BatchMoments.apply(y)
-        mus.append(mean)
-        m2s.append(mean2)
-    return x, torch.cat(mus), torch.cat(m2s)
+        mean, var = bn.running_mean.float(), bn.running_var.float()
+    elif stats is None:
+        raise ValueError("a train-mode BatchNorm folds its producer's batch "
+                         "statistics, and none were given")
+    else:
+        mean, var = stats[0], update_running_stats(bn, *stats)
+    scale, shift, _ = engine.fold(bn.weight, bn.bias, mean, var)
+    return scale, shift
 
 
 def center_crop(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
@@ -176,7 +115,9 @@ def center_crop(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
 
 
 class DenseLayer(nn.Module):
-    """BN -> ReLU -> 3x3 conv(growth_rate), one fused kernel call."""
+    """BN -> ReLU -> 3x3 conv(growth_rate), one fused kernel call. Called in
+    eval mode only: a train-mode block runs its layers through the engine
+    (``DenseBlock``)."""
 
     def __init__(self, in_channels: int, growth_rate: int):
         super().__init__()
@@ -184,7 +125,7 @@ class DenseLayer(nn.Module):
         self.conv = nn.Conv2d(in_channels, growth_rate, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale, shift = batch_fold(self.norm, x)
+        scale, shift = batch_fold(self.norm)
         w = self.conv.weight.permute(2, 3, 1, 0).to(x.dtype).contiguous()
         y = fused_dense_conv(x.permute(0, 2, 3, 1), scale, shift, w,
                              self.conv.bias.float())  # the kernel adds an f32 bias
@@ -195,51 +136,38 @@ class DenseBlock(nn.Module):
     """Iterative concat of dense layers. With ``upsample=True`` only the
     new features are returned (reference models.py:31-53).
 
-    In train mode, when ``ops.block_engine.supported`` takes the shape,
-    the whole block runs through the engine (JAX
-    ``DenseBlock._block_vjp_path`` :332-379 and ``__call__`` :381-394);
-    otherwise layer by layer, concatenating.
+    In train mode the whole block runs as one call through the engine (JAX
+    ``DenseBlock._block_vjp_path`` :332-379 and ``__call__`` :381-394); in
+    eval mode layer by layer, concatenating.
 
     ``store`` ("act8", "remat" or None) is what a train-mode block keeps
-    for its backward (see ``FCDenseNet``); ``exact_engine`` keeps the
-    blocks the gate takes exact under "act8" (``--act8 --block_engine``)."""
+    for its backward (see ``FCDenseNet``)."""
 
     def __init__(self, in_channels: int, growth_rate: int, n_layers: int,
-                 upsample: bool = False, store: Optional[str] = None,
-                 exact_engine: bool = False):
+                 upsample: bool = False, store: Optional[str] = None):
         super().__init__()
         self.upsample = upsample
         self.growth_rate = growth_rate
         self.store = store
-        self.exact_engine = exact_engine
         self.layers = nn.ModuleList(
             DenseLayer(in_channels + j * growth_rate, growth_rate)
             for j in range(n_layers))
 
-    def _whole(self, x: torch.Tensor, gate: bool) -> tuple:
-        """The block as one call: through the engine where ``gate``, else
-        (with a ``store``) the layer-by-layer block replayed in the
-        backward. Returns (output NCHW in channels_last memory, its (mean,
-        mean of squares)); advances every layer's running statistics once,
-        here, from the block's prefix statistics."""
+    def _whole(self, x: torch.Tensor) -> tuple:
+        """The block through the engine: ``block_engine_apply``, or with a
+        ``store`` ``act8.replay_block_apply``. Returns (output NCHW in
+        channels_last memory, its (mean, mean of squares)); advances every
+        layer's running statistics once, here, from the block's prefix
+        statistics."""
         c0, g = x.shape[1], self.growth_rate
         layers = list(self.layers)
         params = ([l.norm.weight for l in layers], [l.norm.bias for l in layers],
                   [l.conv.weight.permute(2, 3, 1, 0) for l in layers],
                   [l.conv.bias for l in layers])
-        store = None if gate and self.exact_engine else self.store
-        if gate:
-            xh = x.permute(0, 2, 3, 1)
-            buf, mu, m2 = (engine.block_engine_apply(xh, *params) if store is None
-                           else act8.replay_block_apply(xh, *params, store=store))
-            out = buf.permute(0, 3, 1, 2)
-        else:
-            flat = [p for group in params for p in group]
-            block = partial(_materialized_block, len(layers))
-            if store == "act8":
-                out, mu, m2 = act8.compressed_call(block, x, *flat)
-            else:
-                out, mu, m2 = checkpoint(block, x, *flat, use_reentrant=False)
+        xh = x.permute(0, 2, 3, 1)
+        buf, mu, m2 = (engine.block_engine_apply(xh, *params) if self.store is None
+                       else act8.replay_block_apply(xh, *params, store=self.store))
+        out = buf.permute(0, 3, 1, 2)
         for j, layer in enumerate(layers):
             c = c0 + j * g
             update_running_stats(layer.norm, mu[:c].detach(), m2[:c].detach())
@@ -247,12 +175,9 @@ class DenseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, with_stats: bool = False):
         """The block's output; with ``with_stats`` also its per-channel
-        (mean, mean of squares) when the block produced them as one call,
-        else None."""
-        b, _, h, w = x.shape
-        gate = engine.supported(b, h, w, len(self.layers), self.growth_rate)
-        if self.training and (gate or self.store is not None):
-            out, stats = self._whole(x, gate)
+        (mean, mean of squares) in train mode, None in eval mode."""
+        if self.training:
+            out, stats = self._whole(x)
             return (out, stats) if with_stats else out
         # each layer's NHWC view must be contiguous: a no-op in eager, where
         # cuDNN, the pools and torch.cat keep channels_last, but a
@@ -269,9 +194,8 @@ class DenseBlock(nn.Module):
 
 class TransitionDown(nn.Module):
     """BN -> ReLU -> 1x1 conv (same channels) -> 2x2 maxpool
-    (reference models.py:56-67). ``act8``: in train mode, given the
-    block's statistics, through ``ops.act8.compressed_call`` (JAX
-    :496-504)."""
+    (reference models.py:56-67). ``act8``: in train mode through
+    ``ops.act8.compressed_call`` (JAX :496-504)."""
 
     def __init__(self, in_channels: int, act8: bool = False):
         super().__init__()
@@ -281,10 +205,10 @@ class TransitionDown(nn.Module):
 
     def forward(self, x: torch.Tensor, stats=None) -> torch.Tensor:
         """``stats``: the producing block's (mean, mean of squares) of x,
-        reused in train mode instead of a second reduction."""
-        scale, shift = batch_fold(self.norm, x, stats)
+        which train mode normalizes with."""
+        scale, shift = batch_fold(self.norm, stats)
         args = (x, scale, shift, self.conv.weight, self.conv.bias)
-        if self.act8 and self.training and stats is not None:
+        if self.act8 and self.training:
             return act8.compressed_call(act8.td_apply, *args)
         return act8.td_apply(*args)
 
@@ -319,10 +243,10 @@ class Bottleneck(nn.Module):
     read ``bottleneck.bottleneck.layers.j``."""
 
     def __init__(self, in_channels: int, growth_rate: int, n_layers: int,
-                 **store):
+                 store: Optional[str] = None):
         super().__init__()
         self.bottleneck = DenseBlock(in_channels, growth_rate, n_layers,
-                                     upsample=True, **store)
+                                     upsample=True, store=store)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bottleneck(x)
@@ -341,10 +265,16 @@ class FCDenseNet(nn.Module):
                  dtype: torch.dtype = torch.float32, act8: bool = False,
                  remat: bool = False, block_engine: bool = False):
         super().__init__()
+        max_growth = min(engine.MAX_GROWTH, MAX_FEATURES)
+        if growth_rate > max_growth:
+            raise ValueError(f"growth_rate {growth_rate} exceeds the dense "
+                             f"kernels' maximum {max_growth}")
         self.dtype = dtype
         self.act8 = act8
-        store = dict(store="act8" if act8 else "remat" if remat else None,
-                     exact_engine=act8 and block_engine)
+        # what the dense blocks keep for their backward: under act8,
+        # block_engine keeps them exact
+        store = (None if act8 and block_engine else "act8" if act8
+                 else "remat" if remat else None)
         cur = out_chans_first_conv
         self.firstconv = nn.Conv2d(3, cur, 3, padding=1)
 
@@ -352,12 +282,12 @@ class FCDenseNet(nn.Module):
         self.denseBlocksDown = nn.ModuleList()
         self.transDownBlocks = nn.ModuleList()
         for n in down_blocks:
-            self.denseBlocksDown.append(DenseBlock(cur, growth_rate, n, **store))
+            self.denseBlocksDown.append(DenseBlock(cur, growth_rate, n, store=store))
             cur += growth_rate * n
             skip_channels.insert(0, cur)
             self.transDownBlocks.append(TransitionDown(cur, act8))
 
-        self.bottleneck = Bottleneck(cur, growth_rate, bottleneck_layers, **store)
+        self.bottleneck = Bottleneck(cur, growth_rate, bottleneck_layers, store)
         prev = growth_rate * bottleneck_layers
 
         self.transUpBlocks = nn.ModuleList()
@@ -367,7 +297,7 @@ class FCDenseNet(nn.Module):
             self.transUpBlocks.append(TransitionUp(prev, act8))
             cur = prev + skip_channels[i]
             self.denseBlocksUp.append(
-                DenseBlock(cur, growth_rate, n, upsample=not last, **store))
+                DenseBlock(cur, growth_rate, n, upsample=not last, store=store))
             prev = growth_rate * n
             cur += prev
 

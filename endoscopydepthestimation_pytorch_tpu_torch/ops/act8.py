@@ -24,14 +24,17 @@ shrinks (``ReplayBlock``):
 
 The replay runs inside the autograd Function's backward, below the
 module: the model advances the BN running statistics once, in the
-forward, from the statistics the Function returns.
+forward, from the statistics the Function returns. ``--act8
+--block_engine`` keeps the dense blocks exact: they skip ``ReplayBlock``
+and run ``block_engine.block_engine_apply``.
 
-``compressed_call(fn, x, *args)`` is the same store for any function:
-``fn`` runs exactly in the forward, an e4m3 copy of ``x`` and the small
-``args`` are saved, and the backward replays ``fn`` from the copy under
-autograd. The model runs its transitions and final conv through it
-(``td_apply``, ``tu_apply``, ``conv1x1_apply``), which its exact route
-calls too, so both routes' forwards are the same ops.
+``compressed_call(fn, x, *args)`` is the same store for any other
+function: ``fn`` runs exactly in the forward, an e4m3 copy of ``x`` and
+the small ``args`` are saved, and the backward replays ``fn`` from the
+copy under autograd. Under ``act8`` the model runs its transitions and
+final conv through it (``td_apply``, ``tu_apply``, ``conv1x1_apply``),
+and calls the same bodies directly otherwise, so the forwards are the
+same ops either way; no dense block goes through it.
 
 Scales target +-240, IEEE e4m3's maximum, not e4m3fn's 448, as in JAX
 (whose docstring says why: a round trip through an IEEE e4m3 format maps

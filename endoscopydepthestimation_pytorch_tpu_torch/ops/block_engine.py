@@ -47,8 +47,9 @@ caller holds is modified.
 On CUDA tensors each per-layer call launches its kernel or raises; on CPU
 tensors it runs its plain PyTorch twin (``*_reference``). The
 orchestration (``BlockEngine``) is the same on both, so the CPU tests
-exercise the (C1, C2) bookkeeping that runs on the card. Callers gate on
-``supported``, by shape, before any launch.
+exercise the (C1, C2) bookkeeping that runs on the card. The entry
+points check the shape against ``supported`` before any launch and raise
+outside it.
 
 In a process group (``parallel.distributed``) the block normalizes with
 the global batch's statistics, as JAX's ``axis_name`` makes it (its
@@ -138,11 +139,12 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _fold(gamma, beta, mu, m2):
+def fold(gamma, beta, mu, var):
     """Folded BN in f32 (JAX ``_fold`` :129-134): relu(v*scale + shift) ==
-    relu(bn(v)) with the biased variance m2 - mu^2. Returns (scale, shift,
-    1/sqrt(var + EPS))."""
-    inv = torch.rsqrt(m2 - mu.square() + EPS)
+    relu(bn(v)) for the mean ``mu`` and the variance ``var`` (the biased
+    m2 - mu^2 of batch statistics). Returns (scale, shift,
+    1/sqrt(var + EPS)). The model folds every other BatchNorm with it."""
+    inv = torch.rsqrt(var + EPS)
     scale = gamma.float() * inv
     return scale, beta.float() - mu * scale, inv
 
@@ -412,7 +414,7 @@ def engine_forward(x: torch.Tensor, n_layers: int, params
     mus, m2s = [mu_x], [m2_x]
     for j in range(n_layers):
         mu, m2 = torch.cat(mus), torch.cat(m2s)
-        scale, shift, _ = _fold(gammas[j], betas[j], mu, m2)
+        scale, shift, _ = fold(gammas[j], betas[j], mu, m2 - mu.square())
         sums = layer_forward(buf, c0 + j * growth, scale, shift,
                              kernels[j].to(x.dtype).contiguous(),
                              biases[j].float().contiguous())
@@ -446,7 +448,7 @@ def engine_backward(buf, mu, m2, n_layers: int, params, gbuf, gmu, gm2) -> tuple
     dgammas, dbetas, dkernels, dbiases = ([None] * n_layers for _ in range(4))
     for j in reversed(range(n_layers)):
         c = c0 + j * growth
-        scale, shift, inv = _fold(gammas[j], betas[j], mu[:c], m2[:c])
+        scale, shift, inv = fold(gammas[j], betas[j], mu[:c], m2[:c] - mu[:c].square())
         c1j = c1[c:c + growth].contiguous()
         c2j = c2[c:c + growth].contiguous()
         dsx, dss, dbiases[j] = layer_dinput(
@@ -503,7 +505,7 @@ def block_engine_apply(x: torch.Tensor, gammas: Sequence[torch.Tensor],
     (buf (B, H, W, C0 + L*F) in x's dtype, mu, m2 (C0 + L*F,) float32): the
     block output [x, y_0 .. y_{L-1}] and its per-channel mean and mean of
     squares. Differentiable in x and every parameter, through mu and m2
-    too. Callers gate on ``supported``.
+    too. Raises ``ValueError`` outside ``supported``.
     """
     n_layers = len(kernels)
     if not (len(gammas) == len(betas) == len(biases) == n_layers):

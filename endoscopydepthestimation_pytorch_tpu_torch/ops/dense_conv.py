@@ -20,11 +20,13 @@ and chunk split that ``forward_tiling`` picks from the shape (passed to
 the op as ints) and the vector width ``vector_width`` picks from the
 pointers; in f32 a direct convolution on FFMAs. On a CPU tensor it runs
 the plain PyTorch version ``fused_dense_conv_reference``. It takes x only
-as contiguous NHWC and never copies. The op is differentiable through
-``FusedDenseConv``, whose backward mirrors the JAX package's
-``_fused_bwd`` (dense_conv.py:288-302): it recomputes the activation from
-the saved ``x`` and takes the conv adjoints from PyTorch (cuDNN on the
-card), as JAX leaves them to XLA.
+as contiguous NHWC and never copies.
+
+K1 is forward only: it runs the dense layers of an eval-mode model (the
+serving path), and a train-mode dense block runs through the block
+engine (``ops.block_engine``), which has its own backward. The op
+registers no autograd formula, so a gradient through it raises PyTorch's
+own "no autograd formula was registered" error.
 """
 from __future__ import annotations
 
@@ -223,44 +225,6 @@ def _(x, scale, shift, w, bias, tile_h, tile_w, n_split):
     return y
 
 
-class FusedDenseConv(torch.autograd.Function):
-    """The fused dense layer with its backward.
-
-    Saves x (not the activation, as the JAX package does) and recomputes
-    a = relu(x*scale + shift) in f32, rounded to x's dtype. With the conv
-    adjoints da and dw of y = conv3x3(a, w) + bias and the mask a > 0:
-    dx = da*mask*scale, dscale = sum(da*mask*x), dshift = sum(da*mask),
-    dw, and dbias = sum(gy), the last three sums in f32.
-    """
-
-    @staticmethod
-    def forward(ctx, x, scale, shift, w, bias, tile_h, tile_w, n_split):
-        ctx.save_for_backward(x, scale, shift, w)
-        ctx.has_bias = bias is not None
-        return torch.ops.endodepth.fused_dense_conv(x, scale, shift, w, bias,
-                                                    tile_h, tile_w, n_split)
-
-    @staticmethod
-    def backward(ctx, gy):
-        x, scale, shift, w = ctx.saved_tensors
-        xf = x.float()
-        a = torch.relu(xf * scale + shift).to(x.dtype)
-        gy = gy.to(x.dtype)
-        # NHWC tensors seen as NCHW in channels_last memory: the adjoints
-        # come back channels_last, so dx stays a contiguous NHWC tensor
-        da, dw, _ = torch.ops.aten.convolution_backward(
-            gy.permute(0, 3, 1, 2), a.permute(0, 3, 1, 2),
-            w.permute(3, 2, 0, 1), None, [1, 1], [1, 1], [1, 1], False,
-            [0, 0], 1, (True, True, False))
-        da_m = da.permute(0, 2, 3, 1).float() * (a > 0)
-        dx = (da_m * scale).to(x.dtype)
-        dscale = (da_m * xf).sum((0, 1, 2))
-        dshift = da_m.sum((0, 1, 2))
-        dbias = gy.float().sum((0, 1, 2)) if ctx.has_bias else None
-        return (dx, dscale, dshift, dw.permute(2, 3, 1, 0).to(w.dtype), dbias,
-                None, None, None)
-
-
 def fused_dense_conv(x: torch.Tensor, scale: torch.Tensor,
                      shift: torch.Tensor, w: torch.Tensor,
                      bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -268,10 +232,10 @@ def fused_dense_conv(x: torch.Tensor, scale: torch.Tensor,
 
     x (B, H, W, C) contiguous, float32 or bfloat16; scale, shift (C,) and
     bias (F,) float32; w (3, 3, C, F) in x's dtype with F <= MAX_FEATURES.
-    Returns y (B, H, W, F) contiguous, in x's dtype. Differentiable in all
-    five inputs (``FusedDenseConv``).
+    Returns y (B, H, W, F) contiguous, in x's dtype. Forward only (see the
+    module docstring).
     """
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got shape {tuple(x.shape)}")
     tiling = forward_tiling(x.dtype, *x.shape)
-    return FusedDenseConv.apply(x, scale, shift, w, bias, *tiling)
+    return torch.ops.endodepth.fused_dense_conv(x, scale, shift, w, bias, *tiling)

@@ -18,14 +18,14 @@ convention they follow:
    (``average_gradients``: SUM, then / world). The result is the gradient
    of the mean of the ranks' losses, which is the global batch's loss
    (JAX's pmean'd loss, mesh.py:218-229).
-2. Statistics. Every BatchNorm statistic (mean and mean of squares) is
-   averaged over the ranks in the forward (``models.fcdensenet
-   .BatchMoments``, ``ops.block_engine.BlockEngine``), so BN normalizes
-   with the global batch's statistics and the running statistics advance
+2. Statistics. Every train-mode BatchNorm statistic (mean and mean of
+   squares) comes from the block engine (``ops.block_engine``), which
+   averages it over the ranks in the forward, so BN normalizes with the
+   global batch's statistics and the running statistics advance
    identically on every rank. In the backward, a statistic's cotangent is
    summed over the ranks and divided by the global pixel count.
-3. Parameter gradients inside the engine and ``BatchMoments`` stay each
-   rank's own contribution: dgamma and dbeta come from the local sums
+3. Parameter gradients inside the engine stay each rank's own
+   contribution: dgamma and dbeta come from the local sums
    (sum dpre*x, sum dpre), dW from the local K6, the bias from the local
    K5. The all-reduced copies of those sums feed only the (C1, C2)
    BN-through-statistics updates. (JAX psums the parameter cotangents

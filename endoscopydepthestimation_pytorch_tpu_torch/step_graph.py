@@ -25,9 +25,8 @@ and the warm-up); the second captures, then replays; every later one
 replays. The graphs live on the ``TrainState`` (``TrainState.graphs``)
 and go with it; a step whose state's data pointers moved drops them. What
 the step's Python reads besides (a process-wide switch such as
-``ops.act8.BWD_MODE`` or a patched ``block_engine.supported``, the
-backends' TF32 flags) is baked in at the capture: change it only with a
-new ``TrainState``.
+``ops.act8.BWD_MODE``, the backends' TF32 flags) is baked in at the
+capture: change it only with a new ``TrainState``.
 
 **Streams and memory.** Eager steps and replays run on the caller's
 stream. The capture runs on a stream of the device's own, which waits for

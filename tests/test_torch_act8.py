@@ -316,6 +316,57 @@ def test_model_act8_saves_fp8_activations(model_case):
     assert counts[False][0] == 0 and counts[False][1]
 
 
+def test_act8_with_block_engine_keeps_the_dense_blocks_exact(model_case, monkeypatch):
+    """``FCDenseNet57(act8=True, block_engine=True)`` in train mode sends
+    all 11 dense blocks through ``block_engine_apply`` and none through
+    ``act8.ReplayBlock``, while the 5 transitions down, the 5 up and the
+    head still go through ``compressed_call`` (without ``block_engine``,
+    the blocks replay); its depths, loss and new BN statistics equal the
+    exact model's bit for bit, and its backward runs."""
+    calls = {"engine": 0, "replay": 0, "compressed": []}
+    engine_apply, replay_apply = block_engine.block_engine_apply, act8.replay_block_apply
+    compressed_call = act8.compressed_call
+
+    def counting_engine(*args):
+        calls["engine"] += 1
+        return engine_apply(*args)
+
+    def counting_replay(*args, **kwargs):
+        calls["replay"] += 1
+        return replay_apply(*args, **kwargs)
+
+    def counting_compressed(fn, *args):
+        calls["compressed"].append(fn.__name__)
+        return compressed_call(fn, *args)
+
+    monkeypatch.setattr(block_engine, "block_engine_apply", counting_engine)
+    monkeypatch.setattr(act8, "replay_block_apply", counting_replay)
+    monkeypatch.setattr(act8, "compressed_call", counting_compressed)
+    jstate, batch, _, _ = model_case
+    exact = copy.deepcopy(_port_model(jstate, FCDenseNet57())).train()
+    with torch.no_grad():
+        d_e = training._forward_pair(exact, batch)
+        l_e, _ = training.compute_losses(*d_e, batch, CONFIG.sfl_weight, torch.tensor(DCL),
+                                         CONFIG.zero_division_epsilon)
+    s_e = {k: v for k, v in exact.state_dict().items() if "running" in k}
+    heads = sorted(["td_apply"] * 5 + ["tu_apply"] * 5 + ["conv1x1_apply"])
+    calls.update(engine=0, replay=0, compressed=[])
+    l_q, d_q, g_q, s_q = _model_grads(
+        _port_model(jstate, FCDenseNet57(act8=True, block_engine=True)), batch)
+    assert (calls["engine"], calls["replay"]) == (11, 0)
+    assert sorted(calls["compressed"]) == heads
+    assert torch.equal(l_e, l_q)
+    assert all(torch.equal(a, b) for a, b in zip(d_e, d_q))
+    assert all(torch.equal(s_e[k], s_q[k]) for k in s_e)
+    assert all(torch.isfinite(g).all() for g in g_q.values())
+    calls.update(engine=0, replay=0, compressed=[])
+    with torch.no_grad():
+        training._forward_pair(
+            _port_model(jstate, FCDenseNet57(act8=True)).train(), batch)
+    assert (calls["engine"], calls["replay"]) == (0, 11)
+    assert sorted(calls["compressed"]) == heads
+
+
 def test_model_act8_train_step_matches_jax(model_case):
     """One train step of the act8 model: its loss against JAX's act8 train
     step's at rtol 1e-3; finite, one step taken."""

@@ -1,6 +1,6 @@
 """The port's whole-dense-block engine (ops/block_engine.py) against the
-JAX package's engine and against the port's own materialized dense block,
-on the CPU in f32 (TF32 off).
+JAX package's engine and against a plain layer-by-layer dense block under
+autograd, on the CPU in f32 (TF32 off).
 
 On CPU tensors the engine's per-layer calls run their plain twins, so
 these tests hold the orchestration that the card runs around K4, K5 and
@@ -22,8 +22,7 @@ import pytest
 import torch
 
 from endoscopydepthestimation_pytorch_tpu.ops import block_engine as jax_engine
-from endoscopydepthestimation_pytorch_tpu_torch.models.fcdensenet import (
-    BatchMoments, DenseBlock)
+from endoscopydepthestimation_pytorch_tpu_torch.models.fcdensenet import DenseBlock
 from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine, conv3x3_mma, dense_conv
 
 import torch_port_cases  # noqa: F401  (TF32 off, two threads)
@@ -95,14 +94,40 @@ def _seeded_block(c0, growth, n_layers, upsample, seed):
     return block.train()
 
 
-@pytest.mark.parametrize("upsample,with_stats", [(False, False), (True, False),
-                                                 (False, True)])
-def test_engine_block_matches_materialized(monkeypatch, upsample, with_stats):
-    """The port's train-mode ``DenseBlock`` (the engine) against its own
-    materialized route, the one a block the gate rejects takes (autograd
-    through the K1 path's plain version), at a shape the TPU engine's gate
-    rejects (B = 2, 5x7): output, its statistics when asked for, every
-    gradient, and the running statistics."""
+def _plain_block(block, x):
+    """A train-mode dense block layer by layer from ``block``'s parameters,
+    in plain PyTorch under autograd: BN on the batch statistics of the
+    growing concatenation (biased variance, eps 1e-5, the gradient through
+    them), then K1's plain version; the running statistics advanced once a
+    layer. Returns (the output, the whole block's (mean, mean of
+    squares))."""
+    c0 = x.shape[1]
+    for layer in block.layers:
+        mu = x.mean((0, 2, 3))
+        var = x.square().mean((0, 2, 3)) - mu.square()
+        with torch.no_grad():
+            layer.norm.running_mean.mul_(0.9).add_(0.1 * mu)
+            layer.norm.running_var.mul_(0.9).add_(0.1 * var)
+        scale = layer.norm.weight * torch.rsqrt(var + 1e-5)
+        shift = layer.norm.bias - mu * scale
+        y = dense_conv.fused_dense_conv_reference(
+            x.permute(0, 2, 3, 1), scale, shift, layer.conv.weight.permute(2, 3, 1, 0),
+            layer.conv.bias).permute(0, 3, 1, 2)
+        x = torch.cat([x, y], 1)
+    stats = (x.mean((0, 2, 3)), x.square().mean((0, 2, 3)))
+    return (x[:, c0:] if block.upsample else x), stats
+
+
+@pytest.mark.parametrize("upsample,with_stats,growth,n_layers", [
+    (False, False, 12, 4), (True, False, 12, 4), (False, True, 12, 4), (True, True, 12, 4),
+    (False, True, 16, 5),  # FCDenseNet-67's and -103's growth
+])
+def test_engine_block_matches_plain_autograd(monkeypatch, upsample, with_stats, growth,
+                                             n_layers):
+    """The port's train-mode ``DenseBlock`` (the engine) against a plain
+    layer-by-layer block (``_plain_block``) at a shape the TPU engine's
+    gate rejects (B = 2, 5x7): output, its statistics when asked for,
+    every gradient, and the running statistics."""
     calls = []
     original = block_engine.layer_forward
 
@@ -112,33 +137,30 @@ def test_engine_block_matches_materialized(monkeypatch, upsample, with_stats):
 
     monkeypatch.setattr(block_engine, "layer_forward", counting)
     rng = np.random.RandomState(1)
-    x = torch.from_numpy(rng.randn(2, 20, 5, 7).astype(np.float32))
+    c0 = 20
+    x = torch.from_numpy(rng.randn(2, c0, 5, 7).astype(np.float32))
     x = x.contiguous(memory_format=torch.channels_last)
-    ref_block = _seeded_block(20, 12, 4, upsample, seed=2)
-    eng_block = copy.deepcopy(ref_block)
-    cot = torch.from_numpy(rng.randn(2, 48 if upsample else 68, 5, 7)
-                           .astype(np.float32))
+    eng_block = _seeded_block(c0, growth, n_layers, upsample, seed=2)
+    ref_block = copy.deepcopy(eng_block)
+    c_out = n_layers * growth + (0 if upsample else c0)
+    cot = torch.from_numpy(rng.randn(2, c_out, 5, 7).astype(np.float32))
     results = []
-    for block in (ref_block, eng_block):
-        with monkeypatch.context() as gate:
-            if block is ref_block:
-                gate.setattr(block_engine, "supported", lambda *shape: False)
-            leaf = x.clone().requires_grad_()
-            out, stats = block(leaf, with_stats=True)
-        if stats is None:  # the materialized block leaves them to its consumer
-            stats = BatchMoments.apply(out)
+    for block, run in ((ref_block, lambda leaf: _plain_block(ref_block, leaf)),
+                       (eng_block, lambda leaf: eng_block(leaf, with_stats=True))):
+        leaf = x.clone().requires_grad_()
+        out, stats = run(leaf)
         loss = (out * cot).sum()
         if with_stats:
             loss = loss + torch.cos(3 * stats[0]).sum() + torch.sin(2 * stats[1]).sum()
         grads = torch.autograd.grad(loss, [leaf] + list(block.parameters()))
         results.append((out.detach(), [s.detach() for s in stats], grads,
                         copy.deepcopy(block.state_dict())))
-    assert calls == [20, 32, 44, 56]  # the engine ran, once per layer
+    assert calls == [c0 + j * growth for j in range(n_layers)]  # the engine, a layer once
     (out0, st0, g0, sd0), (out1, st1, g1, sd1) = results
+    assert out1.shape == (2, c_out, 5, 7)
     np.testing.assert_allclose(out1.numpy(), out0.numpy(), rtol=1e-5, atol=1e-5)
-    if with_stats:
-        for a, r in zip(st1, st0):
-            np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=1e-5, atol=1e-6)
+    for a, r in zip(st1, st0):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=1e-5, atol=1e-6)
     for i, (a, r) in enumerate(zip(g1, g0)):
         np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=2e-4, atol=2e-4,
                                    err_msg=str(i))

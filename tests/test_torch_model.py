@@ -16,8 +16,8 @@ from endoscopydepthestimation_pytorch_tpu.ops import dense_conv as jax_dense_con
 from endoscopydepthestimation_pytorch_tpu_torch import training
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
     FCDenseNet, FCDenseNet57, load_reference_checkpoint)
-from endoscopydepthestimation_pytorch_tpu_torch.models.fcdensenet import DenseLayer
-from endoscopydepthestimation_pytorch_tpu_torch.ops import dense_conv
+from endoscopydepthestimation_pytorch_tpu_torch.models.fcdensenet import DenseBlock
+from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine, dense_conv
 from endoscopydepthestimation_pytorch_tpu_torch.utils import load_any_checkpoint
 
 from torch_port_cases import (jax_numpy_variables, jax_predict,
@@ -111,13 +111,10 @@ def test_jax_block_engine_variables_load_strict():
 
 
 def test_train_mode_runs_the_engine_where_the_gate_takes_the_block(monkeypatch):
-    """In train mode every block the engine's gate takes runs the engine; a
-    block it rejects (here every 16x16 block) runs the per-layer kernel,
-    layer by layer, and so does every block in eval mode."""
-    from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine
+    """In train mode every dense block runs the engine, K4 once a layer,
+    and no K1; in eval mode every dense layer runs K1, layer by layer."""
     engine_calls, layer_calls = [], []
     forward, reference = block_engine.layer_forward, dense_conv.fused_dense_conv_reference
-    supported = block_engine.supported
 
     def engine_layer(*args):
         engine_calls.append(args[1])
@@ -129,20 +126,27 @@ def test_train_mode_runs_the_engine_where_the_gate_takes_the_block(monkeypatch):
 
     monkeypatch.setattr(block_engine, "layer_forward", engine_layer)
     monkeypatch.setattr(dense_conv, "fused_dense_conv_reference", kernel_layer)
-    monkeypatch.setattr(block_engine, "supported",
-                        lambda b, h, w, *rest: h != 16 and supported(b, h, w, *rest))
     model = FCDenseNet(growth_rate=12, out_chans_first_conv=24, **TINY)
     x = torch.zeros(2, 3, 32, 32)
+    # down 0, down 1, the bottleneck, up 0, up 1: each layer's input channels
+    channels = [24, 36, 48, 60, 72, 84, 96, 108, 72, 84]
     with torch.no_grad():
         model.eval()(x)
         assert engine_calls == []
-        assert layer_calls == [24, 36, 48, 60, 72, 84, 96, 108, 72, 84]
+        assert layer_calls == channels
         layer_calls.clear()
         model.train()(x)
-    # down 0 (32x32), the bottleneck (8x8), up 1 (32x32) through the engine;
-    # down 1 and up 0 (16x16) layer by layer
-    assert engine_calls == [24, 36, 72, 84, 72, 84]
-    assert layer_calls == [48, 60, 96, 108]
+    assert engine_calls == channels
+    assert layer_calls == []
+
+
+def test_growth_above_the_kernels_maximum_is_refused_at_construction():
+    """K1 and the engine take a growth of at most 16: a larger one fails
+    when the model is built, not at its first forward."""
+    assert min(block_engine.MAX_GROWTH, dense_conv.MAX_FEATURES) == 16
+    with pytest.raises(ValueError, match="growth_rate 17"):
+        FCDenseNet(growth_rate=17, out_chans_first_conv=24, **TINY)
+    FCDenseNet(growth_rate=16, out_chans_first_conv=24, **TINY)
 
 
 def test_jax_written_pt_loads_strict(jax57, port57, tmp_path):
@@ -198,16 +202,27 @@ def test_train_mode_forward_and_statistics_match_jax(jax57, port57):
                                        atol=1e-5, err_msg=k)
 
 
-def test_dense_layer_input_gradient_takes_both_routes():
-    """In train mode x reaches the loss through the kernel's input and
-    through the batch statistics folded into (scale, shift); the layer's
-    dx must carry both (against autograd of the plain formula)."""
+def test_dense_layer_input_gradient_takes_both_routes(monkeypatch):
+    """In train mode x reaches the loss through the conv's input and
+    through the batch statistics folded into (scale, shift); the dx of a
+    one-layer block through the engine must carry both (against autograd
+    of the plain formula)."""
     rng = np.random.RandomState(13)
-    layer = DenseLayer(10, 12).train()
+    block = DenseBlock(10, 12, 1, upsample=True).train()
+    layer = block.layers[0]
     x = torch.from_numpy(rng.randn(3, 10, 6, 7).astype(np.float32))
     x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
     cot = torch.from_numpy(rng.randn(3, 12, 6, 7).astype(np.float32))
-    (got,) = torch.autograd.grad(layer(x), x, cot)
+    calls = []
+    engine_apply = block_engine.block_engine_apply
+
+    def counting(*args):
+        calls.append(args[0].shape)
+        return engine_apply(*args)
+
+    monkeypatch.setattr(block_engine, "block_engine_apply", counting)
+    (got,) = torch.autograd.grad(block(x), x, cot)
+    assert calls == [(3, 6, 7, 10)]
 
     def plain(xx, stats_grad=True):
         xs = xx if stats_grad else xx.detach()

@@ -13,8 +13,7 @@ parameter gradient. The train step averages them (the global batch's mean
 loss). A BN gradient summed inside the engine as well would come out
 world-size times too large here.
 
-Tolerances: ``BatchMoments`` at 1e-5 (f32 means in another order); the
-engine at the JAX engine test's own (values rtol 1e-5, input gradient
+Tolerances: the engine at the JAX engine test's own (values rtol 1e-5, input gradient
 rtol 1e-3 / atol 2e-4, parameter gradients rtol 1e-3 / atol 1e-3); the
 train steps at tests/test_torch_training.py's (losses and the grad norm
 rtol 1e-3 against JAX and 1e-4 between the port's runs, new parameters
@@ -61,9 +60,6 @@ def _engine_inputs():
 @pytest.fixture(scope="module")
 def inputs():
     """The global inputs of every check, and the JAX states they start from."""
-    rng = np.random.RandomState(3)
-    moments = [torch.from_numpy(rng.randn(4, 5, 3, 7).astype(np.float32))
-               for _ in range(3)]
     x, params, weights = _engine_inputs()
     engine = (torch.from_numpy(x),
               [[torch.from_numpy(p) for p in group] for group in params],
@@ -80,7 +76,7 @@ def inputs():
     sd = {name: _port_model(j, FCDenseNet(**TINY_ARCH), **TINY).state_dict()
           for name, j in (("step", jstep), ("grad_accum", jaccum))}
     return {
-        "moments": moments, "engine": engine,
+        "engine": engine,
         "step": (TINY_ARCH, sd["step"], _to_torch(step_batch)),
         "grad_accum": (TINY_ARCH, sd["grad_accum"], _to_torch(accum_batch)),
         "jax": {"step": (jstep, step_batch), "params": params, "x": x, "weights": weights},
@@ -99,22 +95,6 @@ def session(inputs, tmp_path_factory):
 
 def _rows_cat(results, part, key):
     return torch.cat([r[part][key] for r in results]).numpy()
-
-
-def test_batch_moments_match_one_process(inputs, session):
-    """(1) Global (mean, mean of squares) on every rank, and each rank's
-    input gradient = the global one's rows."""
-    x, v, w = (t.clone() for t in inputs["moments"])
-    x.requires_grad_()
-    loss, mean, mean2 = ranks.moments_objective(x, v, w)
-    (dx,) = torch.autograd.grad(loss, x)
-    for r in session:
-        np.testing.assert_allclose(r["moments"]["mean"].numpy(), mean.detach().numpy(),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(r["moments"]["mean2"].numpy(), mean2.detach().numpy(),
-                                   rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(_rows_cat(session, "moments", "dx"), dx.numpy(),
-                               rtol=1e-5, atol=1e-6)
 
 
 def test_engine_at_two_ranks_matches_jax(inputs, session):

@@ -1,7 +1,6 @@
 """``FCDenseNet(remat=True)`` / ``train.py --remat`` on the CPU in f32:
-each train-mode dense block's backward replays its forward from the
-block's exact input (``ops.act8.ReplayBlock`` without quantization on the
-engine, ``torch.utils.checkpoint`` where the gate refuses a block).
+each train-mode dense block's backward replays the engine's forward from
+the block's exact input (``ops.act8.ReplayBlock`` without quantization).
 
 The replay runs below the module, so the running statistics advance once
 a step. K4's plain twin is deterministic, so the remat step is the engine
@@ -15,7 +14,6 @@ import torch
 from endoscopydepthestimation_pytorch_tpu.models import FCDenseNet57 as JaxFCDenseNet57
 from endoscopydepthestimation_pytorch_tpu_torch import training
 from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet, FCDenseNet57
-from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine
 
 from test_torch_training import (CONFIG, DCL, TINY_ARCH, _check_step, _conditioned,  # noqa: F401
                                  _jax_step,
@@ -50,25 +48,6 @@ def test_remat_step_is_the_engine_step_bit_for_bit(tiny):
     moved = [k for k, v in model.state_dict().items() if "running" in k
              and not torch.equal(sd_r[k], v)]
     assert len(moved) == sum("running" in k for k in sd_e)
-
-
-def test_remat_checkpoints_the_blocks_the_gate_refuses(tiny, monkeypatch):
-    """With the engine's gate closed, remat's checkpointed blocks give the
-    layer-by-layer route's step: the loss and grad norm at rel 1e-5, the
-    running statistics advanced once (rel 1e-5; twice would differ by
-    ~10%)."""
-    monkeypatch.setattr(block_engine, "supported", lambda *shape: False)
-    _, model = tiny
-    batch = _to_torch(_synthetic_batch(seed=9, batch=4, h=32, w=40))
-    remat = FCDenseNet(**TINY_ARCH, remat=True)
-    remat.load_state_dict(model.state_dict())
-    _, m_e, s_e = _step(model, batch)
-    _, m_r, s_r = _step(remat, batch)
-    for key in ("loss", "grad_norm"):
-        torch.testing.assert_close(m_r[key], m_e[key], rtol=1e-5, atol=0)
-    sd_e, sd_r = s_e.model.state_dict(), s_r.model.state_dict()
-    for k in (k for k in sd_e if "running" in k):
-        torch.testing.assert_close(sd_r[k], sd_e[k], rtol=1e-5, atol=1e-6)
 
 
 def test_remat_step_matches_jax():

@@ -493,38 +493,6 @@ def test_dcl_weight_for_epoch():
     assert training.dcl_weight_for_epoch(21, CONFIG) == 5.0
 
 
-def test_engine_model_runs_every_step_kind(tiny, monkeypatch):
-    """train_step with grad_accum, and eval_step with batch statistics
-    (a no-grad train-mode forward), through the engine agree with the same
-    steps through the materialized route (the gate closed)."""
-    _, model = tiny
-    batch = _to_torch(_synthetic_batch(seed=7, batch=4, h=32, w=40))
-    results = []
-    for gate_open in (False, True):
-        with monkeypatch.context() as gate:
-            if not gate_open:
-                gate.setattr(block_engine, "supported", lambda *shape: False)
-            ev = training.eval_step(training.create_train_state(model), batch,
-                                    torch.tensor(DCL), CONFIG, use_batch_stats=True)
-            state = training.create_train_state(copy.deepcopy(model))
-            state, metrics = training.train_step(state, batch, torch.tensor(DCL),
-                                                 CONFIG, grad_accum=2)
-        results.append((ev, metrics, state.model.state_dict()))
-    (ev0, m0, sd0), (ev1, m1, sd1) = results
-    for key in ("loss", "sparse_flow_loss", "depth_consistency_loss"):
-        np.testing.assert_allclose(float(ev1[key]), float(ev0[key]), rtol=1e-4,
-                                   err_msg=key)
-    for key in ("loss", "grad_norm"):
-        np.testing.assert_allclose(float(m1[key]), float(m0[key]), rtol=1e-3,
-                                   err_msg=key)
-    _assert_tensors_close({k: v for k, v in sd1.items()},
-                          {k: v for k, v in sd0.items() if "running" not in k},
-                          1e-5, "param")
-    for k in (k for k in sd0 if "running" in k):
-        np.testing.assert_allclose(sd1[k].numpy(), sd0[k].numpy(), rtol=1e-4,
-                                   atol=1e-5, err_msg=k)
-
-
 def test_cpu_step_launches_no_kernel(tiny):
     _, model = tiny
     k1, k23 = dense_conv.LAUNCHES, dict(warp_sample.LAUNCHES)

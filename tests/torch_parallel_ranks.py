@@ -15,7 +15,6 @@ import torch
 
 from endoscopydepthestimation_pytorch_tpu_torch import training
 from endoscopydepthestimation_pytorch_tpu_torch.models import FCDenseNet
-from endoscopydepthestimation_pytorch_tpu_torch.models.fcdensenet import BatchMoments
 from endoscopydepthestimation_pytorch_tpu_torch.ops import block_engine
 from endoscopydepthestimation_pytorch_tpu_torch.parallel import distributed
 
@@ -88,16 +87,6 @@ def local_batch(batch: dict, rank: int, world: int) -> dict:
 # -- the objectives: each rank's, summing over the ranks to the global one ----
 
 
-def moments_objective(x, v, w):
-    """sum_c mean_c * S_c + mean2_c * T_c with S = sum x*v and T = sum x*w
-    over this process's rows: the statistics' cotangents S and T differ
-    from rank to rank, and the ranks' objectives sum to the one of the
-    whole batch."""
-    mean, mean2 = BatchMoments.apply(x)
-    s, t = (x * v).sum((0, 2, 3)), (x * w).sum((0, 2, 3))
-    return (mean * s + mean2 * t).sum(), mean, mean2
-
-
 def engine_objective(buf, mu, m2, w_buf, w_mu, w_m2):
     """The objective of the JAX package's engine test under shard_map
     (tests/test_block_engine.py::test_engine_grad_parity_under_shardmap)
@@ -133,19 +122,12 @@ def _state(state) -> dict:
 
 def session(rank, world, inputs):
     """Every check of the data-parallel test file that runs on ranks, in
-    one process group: ``BatchMoments``, ``block_engine_apply``, a
+    one process group: ``block_engine_apply``, a
     validation step with the batch statistics, one train step, the same
     step with ``remat`` and with ``act8`` (whose backward replays the
     blocks' forwards, and their collectives), ``grad_accum=2``, and a step
     after which one rank's batch is made non-finite."""
-    out = {}
-    x, v, w = (rows(t, rank, world).clone() for t in inputs["moments"])
-    x.requires_grad_()
-    loss, mean, mean2 = moments_objective(x, v, w)
-    out["moments"] = {"mean": mean.detach(), "mean2": mean2.detach(),
-                      "dx": torch.autograd.grad(loss, x)[0]}
-
-    out["engine"] = _engine(rank, world, *inputs["engine"])
+    out = {"engine": _engine(rank, world, *inputs["engine"])}
 
     arch, state_dict, batch = inputs["step"]
     model = FCDenseNet(**arch)
