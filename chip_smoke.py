@@ -42,7 +42,13 @@ to the CPU or to a kernel's plain version):
      replay); K4 at the levels <= 64x80 with its chunks split and in one
      pass, K5 at 64x80 and 32x40 in its narrow tile and in 8x32, K6 at
      256x320 and 8x10 with its n_split, half and twice as many; then the
-     optimizer kernel against its plain loop on the gradients of one
+     block's boundary (``boundary_phase``; also alone: ``python3 -c
+     "import chip_smoke as c; c.boundary_phase(c.card_name())"``) at
+     FC-DenseNet-103's and -57's last up block, bf16 2B = 16 256x320: the
+     entry's copy bitwise x and its moments within 2e-6 of an f64 mean,
+     dx bitwise its plain version's, repeats bitwise, and each kernel's
+     time alone beside the PyTorch chain it replaced and its bytes bound;
+     then the optimizer kernel against its plain loop on the gradients of one
      FC-DenseNet-103 and one FCDenseNet-57 train step, and its time
      through the wrapper and alone beside the loop's and its bytes bound;
   6. serving: ``DepthPredictor`` on a seeded reference-format ``.pt`` and
@@ -81,7 +87,8 @@ to the CPU or to a kernel's plain version):
      precompute in spawned workers, the native host rasterizer bit for
      bit against its numpy version, the loader alone, then the trainer at
      b8 bf16 for epochs 0 and 1 (6 steps each, validation, a checkpoint
-     each) and a resume from the epoch-0 checkpoint for epoch 1 under
+     each) from its own init with the head conditioned as (9)'s, and a
+     resume from the epoch-0 checkpoint for epoch 1 under
      ``--profile_dir``: each run's launches (K2-K6, no K1), finite losses,
      every checkpoint loaded back, the median step against (9)'s, and the
      device's idle share of the profiled epoch;
@@ -235,6 +242,16 @@ def dense_block_shapes(height: int, width: int) -> list:
     layers of growth 12 each): the layer shapes of ``dense_layer_shapes``
     in groups of four."""
     return [dense_layer_shapes(height, width)[i] for i in range(0, 44, 4)]
+
+
+def engine_launches(forwards: int, backwards: int, layers: int = 44, blocks: int = 11) -> dict:
+    """``block_engine.LAUNCHES`` moved by ``forwards`` train-mode forwards
+    and ``backwards`` backwards of a network of ``layers`` dense layers in
+    ``blocks`` blocks (FCDenseNet-57 by default): K4 a layer and the entry
+    a block a forward, K5 and K6 a layer and the exit a block a backward."""
+    return {"block_engine_fwd": layers * forwards, "block_engine_dinput": layers * backwards,
+            "block_engine_dweight": layers * backwards, "block_engine_entry": blocks * forwards,
+            "block_engine_exit": blocks * backwards}
 
 
 def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
@@ -1094,6 +1111,58 @@ def engine_kernel_phase(card: str, batch: int = 16, height: int = 256,
     return result
 
 
+# the blocks whose boundary ``boundary_phase`` takes: (C0, ld) of
+# FC-DenseNet-103's and FCDenseNet-57's last up block, the largest prefixes
+BOUNDARY_CASES = {"fcdensenet103_up5": (192, 256), "fcdensenet57_up5": (144, 192)}
+
+
+def boundary_phase(card: str, batch: int = 16, height: int = 256, width: int = 320) -> dict:
+    """The block's boundary kernels in bf16 at ``BOUNDARY_CASES``: the
+    entry's copy bitwise x and its moments within 2e-6 (relative) of x's f64
+    mean and mean of squares; dx bitwise ``block_exit_reference``'s; both
+    bitwise on a repeat. Then each kernel's device time alone (CUDA graph
+    replay) beside its plain version's, the PyTorch chain it replaced, and
+    its bytes bound: the entry reads x and writes the prefix (4 bytes an
+    element), the exit reads g and x and writes dx (6)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    results = {}
+    for name, (c0, ld) in BOUNDARY_CASES.items():
+        shape = (batch, height, width)
+        x = (torch.randn(*shape, c0, generator=g, device="cuda") + 1).bfloat16()
+        buf = torch.randn(*shape, ld, generator=g, device="cuda").bfloat16()
+        grad = torch.randn(*shape, ld, generator=g, device="cuda").bfloat16()
+        c1, c2 = (torch.randn(ld, generator=g, device="cuda") * 0.1 for _ in range(2))
+        stats = block_engine.block_entry(x, buf)
+        again = block_engine.block_entry(x, buf.clone())
+        x64 = x.double()
+        want = torch.stack([x64.mean((0, 1, 2)), x64.square().mean((0, 1, 2))])
+        moments = float(((stats.double() - want).abs() / want.abs()).max())
+        dx = block_engine.block_exit(grad, buf, c1, c2, c0)
+        checks = {"copy": torch.equal(buf[..., :c0], x), "moments_rel": moments,
+                  "dx_bitwise": torch.equal(dx, block_engine.block_exit_reference(
+                      grad, buf, c1, c2, c0)),
+                  "repeats_bitwise": torch.equal(stats, again) and torch.equal(
+                      dx, block_engine.block_exit(grad, buf, c1, c2, c0))}
+        del x64, want, dx
+        elements = batch * height * width * c0
+        ms = {"entry": _graph_ms(lambda: block_engine.block_entry(x, buf)),
+              "entry_plain": _graph_ms(lambda: block_engine.block_entry_reference(x, buf)),
+              "exit": _graph_ms(lambda: block_engine.block_exit(grad, buf, c1, c2, c0)),
+              "exit_plain": _graph_ms(lambda: block_engine.block_exit_reference(
+                  grad, buf, c1, c2, c0))}
+        bound = {"entry": 4 * elements / HBM_BYTES_PER_S * 1e3,
+                 "exit": 6 * elements / HBM_BYTES_PER_S * 1e3}
+        results[name] = {**checks, **{f"{k}_ms": round(v, 4) for k, v in ms.items()},
+                         **{f"{k}_bound_ms": round(v, 4) for k, v in bound.items()},
+                         **{f"{k}_hbm_pct": round(100 * bound[k] / ms[k], 2) for k in bound}}
+        print(f"  {name} (C0 {c0}, ld {ld}): {json.dumps(results[name])} ({card})")
+        if not (checks["copy"] and checks["dx_bitwise"] and checks["repeats_bitwise"]
+                and moments <= 2e-6):
+            raise AssertionError(f"the boundary kernels failed their checks at {name}")
+        del x, buf, grad
+    return results
+
+
 def optimizer_phase(card: str) -> dict:
     """The multi-tensor optimizer (``ops/sgd_update``: one C call, three
     launches) on the gradients of one bf16 train step (b2 128x160) of
@@ -1286,7 +1355,7 @@ def train_phase(card: str, config, steps: int = 10, batch: int = 8,
     steady = sorted(step_ms[2:])[len(step_ms[2:]) // 2]  # median after 2 warm-ups
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = {"dense_conv_fwd": 0, "warp_sample_fwd": steps, "warp_sample_bwd": steps,
-                **dict.fromkeys(block_engine.LAUNCHES, 44 * steps)}
+                **engine_launches(steps, steps)}
     print(f"train phase: {steps} bf16 steps, b{batch} {height}x{width}: losses "
           + " ".join(f"{v:.5f}" for v in losses.tolist()))
     print(f"  launches: {launches} (expected {expected})")
@@ -1611,13 +1680,12 @@ def _trainer_argv(data: Path, out: Path, *extra) -> list:
 
 
 def _trainer_expected(train_steps: int, evals: int) -> dict:
-    """The kernel launches of a trainer run: each train step K2, K3 and
-    44 of K4, K5 and K6; each validation batch (the train-mode forward
-    with the batch statistics) K2 and 44 of K4; no K1."""
+    """The kernel launches of a trainer run: each train step K2, K3, 44
+    of K4, K5 and K6 and 11 block entries and exits; each validation batch
+    (the train-mode forward with the batch statistics) K2, 44 of K4 and 11
+    entries; no K1."""
     return {"dense_conv_fwd": 0, "warp_sample_fwd": train_steps + evals,
-            "warp_sample_bwd": train_steps, "block_engine_fwd": 44 * (train_steps + evals),
-            "block_engine_dinput": 44 * train_steps,
-            "block_engine_dweight": 44 * train_steps}
+            "warp_sample_bwd": train_steps, **engine_launches(train_steps + evals, train_steps)}
 
 
 def _check_checkpoint(path: Path, model: torch.nn.Module = None) -> dict:
@@ -1673,8 +1741,12 @@ def trainer_phase(card: str, synthetic_step_ms: float, tmp: Path) -> dict:
     each; a 256x320 crop at ``--input_downsampling 4``): the precompute
     (two spawned workers), the native rasterizer against its numpy version
     at that size, the loader alone, then the trainer at b8 bf16 for epochs
-    0 and 1 (6 steps each, validation, a checkpoint each) and a resume from
-    the epoch-0 checkpoint for epoch 1 under ``--profile_dir``. Each run's
+    0 and 1 (6 steps each, validation, a checkpoint each) from its own init
+    with the head ``conditioned`` (``--load_trained_model``: epoch 0, zero
+    momentum), and a resume from the epoch-0 checkpoint for epoch 1 under
+    ``--profile_dir``. From the raw init, weight noise of 1e-7 moves the
+    first loss by 9-23%, so the checkpoints that (13) and (16b) compare
+    card against CPU in f32 would ride on a chaotic trajectory. Each run's
     launches are counted from 0 and must be the trainer's; every loss is
     finite and every checkpoint loads back with its momentum, count and
     step."""
@@ -1732,9 +1804,14 @@ def trainer_phase(card: str, synthetic_step_ms: float, tmp: Path) -> dict:
     print(f"  loader alone: {len(batches)} batches of 8 at 256x320 in "
           f"{loader_ms:.2f} ms a batch, 8 threads [host CPU of the {card} machine]")
 
+    # the trainer's own init with the head conditioned, at epoch 0, step 0
+    # and zero momentum, as the benchmark's trainer cell starts
+    start = tmp / "conditioned_start.pt"
+    ckpt.save_checkpoint(start, training.create_train_state(conditioned(init_weights(
+        FCDenseNet57(), torch.Generator().manual_seed(trainer.SEED)))), 0, 0.0)
     runs = {}
     for label, extra, steps in (
-            ("first", (), 12),
+            ("first", ("--load_trained_model", "--trained_model_path", str(start)), 12),
             ("resumed", ("--load_trained_model", "--profile_dir", str(tmp / "profile"),
                          "--trained_model_path"), 6)):
         if label == "resumed":
@@ -2278,7 +2355,7 @@ def two_rank_phase(card: str, tmp: Path) -> dict:
     a, b = ranks
     expected = {"dense_conv_fwd": 0, "warp_sample_fwd": DIST_STEPS,
                 "warp_sample_bwd": DIST_STEPS,
-                **dict.fromkeys(block_engine.LAUNCHES, 44 * DIST_STEPS)}
+                **engine_launches(DIST_STEPS, DIST_STEPS)}
     same = (all(torch.equal(a["model"][k], v) for k, v in b["model"].items())
             and all(torch.equal(x, y) for x, y in zip(a["momentum"], b["momentum"]))
             and (a["count"], a["step"]) == (b["count"], b["step"]) == (DIST_STEPS,) * 2
@@ -2381,7 +2458,7 @@ def distill_phase(card: str, config, steps: int = 10) -> dict:
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
     median = float(np.median(step_ms[2:]))
     expected = {"dense_conv_fwd": 44 * steps, "warp_sample_fwd": 0, "warp_sample_bwd": 0,
-                **dict.fromkeys(block_engine.LAUNCHES, 44 * steps)}
+                **engine_launches(steps, steps)}
     kept = all(torch.equal(teacher.model.state_dict()[k], v) for k, v in teacher_stats.items())
     print(f"  distill {steps} bf16 steps b8 256x320: losses "
           + " ".join(f"{v:.6f}" for v in losses.tolist())
@@ -2569,10 +2646,9 @@ def store_phase(card: str, config, steps: int = 10) -> dict:
 
     engine = runs["engine"]
     for store, run in runs.items():
-        k4 = 88 if store in ("act8 replay", "remat") else 44
+        forwards = 2 * steps if store in ("act8 replay", "remat") else steps
         expected = {"dense_conv_fwd": 0, "warp_sample_fwd": steps, "warp_sample_bwd": steps,
-                    "block_engine_fwd": k4 * steps, "block_engine_dinput": 44 * steps,
-                    "block_engine_dweight": 44 * steps}
+                    **engine_launches(forwards, steps)}
         first_loss_same = bool(torch.equal(run["losses"][0], engine["losses"][0])
                                and torch.equal(run["loss0"], engine["loss0"]))
         stats_same = all(torch.equal(run["stats"][k], v) for k, v in engine["stats"].items())
@@ -2611,7 +2687,8 @@ def store_trainer_phase(card: str, data: Path, tmp: Path) -> dict:
         torch.cuda.synchronize()
         counted = _launch_counts()
         expected = _trainer_expected(steps, evals)
-        expected["block_engine_fwd"] += 44 * steps
+        for name, n in engine_launches(steps, 0).items():  # the backward's replays
+            expected[name] += n
         (path,) = run.checkpoints
         loaded = _check_checkpoint(path)
         print(f"  trainer {flag} [{card}]: launches {counted} (expected {expected}); losses "
@@ -2682,8 +2759,8 @@ def depth_anything_phase(card: str, batch: int = 8, steps: int = 10) -> dict:
     print(f"  one step [{card}]: loss {float(metrics['loss']):.6f}, launches {launches}, "
           f"{len(params)} tensors, {sum(p.numel() for p in params):,} parameters")
     want = {"dense_conv_fwd": 0, "warp_sample_fwd": 1, "warp_sample_bwd": 1,
-            "block_engine_fwd": 0, "block_engine_dinput": 0, "block_engine_dweight": 0,
-            "sgd_update": 1, "restrided": 0, "attention": 24}
+            **dict.fromkeys(block_engine.LAUNCHES, 0), "sgd_update": 1, "restrided": 0,
+            "attention": 24}
     if launches != want or len(params) != 402 or not torch.isfinite(metrics["loss"]):
         raise AssertionError(f"the Depth Anything V2 step left its path: {launches}")
     grads = captured[0]
@@ -2776,6 +2853,8 @@ def main() -> int:
     print(f"sampler phase, {card}:")
     sampler = sampler_phase(card)
     engine = engine_kernel_phase(card)
+    print(f"boundary phase, {card}:")
+    boundary_phase(card)
     print(f"optimizer phase, {card}:")
     optimizer_phase(card)
 

@@ -20,6 +20,17 @@
 //                            gy_eff[p,f], as per-block f32 partials over
 //                            strided tile sets, summed in a second pass
 //
+// and, once a block, its boundary with the rest of the network (the input
+// x is the C0-channel prefix of buf):
+//
+//   block_engine_entry       x (B, H, W, C0) into buf[..., :C0], and x's
+//                            per-channel (mean, mean of squares): per-block
+//                            f64 partials, summed in block order by a
+//                            second pass
+//   block_engine_exit        dx = T((g + c1) + c2*x) over the prefix, from
+//                            grad[..., :C0] and buf[..., :C0], into a
+//                            contiguous (B, H, W, C0) tensor
+//
 // Replaces the Pallas TPU kernels endoscopydepthestimation_pytorch_tpu/ops/
 // block_engine.py `_fwd_kernel` (:332, launched by `_layer_fwd` :464),
 // `_bwd1_kernel` (:642, `_layer_bwd1` :797) and `_bwd2_kernel` (:919,
@@ -117,6 +128,21 @@
 //       float4 broadcasts, over the same strided tiles; the 4 row groups
 //       are reduced in shared memory, and the same second kernel sums the
 //       S partials.
+//   The boundary (both dtypes, one template): memory-bound passes over the
+//       prefix, 4 bytes an element in (read x, write buf) and 6 out (read g
+//       and x, write dx) in bf16. A block of 256 threads is `rows` pixels x
+//       `lanes` channel vectors; a thread keeps one channel vector of VW
+//       channels (16 bytes where C0 and ld are multiples of VW and the bases
+//       16-byte aligned, else one channel) and strides over the pixels with
+//       grid.x blocks (one wave at 3 an SM), two pixels in flight; the C
+//       entries alone pick the vector width and the grid (`boundary_layout`).
+//       (At 4 blocks an SM the 64-register cap spilled and both ran 4-10%
+//       slower; 4 pixels in flight spilled more and was slower still.)
+//       The entry's thread sums x and x^2 in f64 (a 256x320 prefix is 1.3 M
+//       pixels: f32 chains lose ~1e-6); the block's rows are summed in row
+//       order, the blocks' partials in block order: bitwise repeatable. The
+//       exit rounds each step as the plain expression does (__fadd_rn,
+//       __fmul_rn: never an FMA), so dx is bitwise the plain version's.
 
 #include <atomic>
 #include <climits>
@@ -1166,6 +1192,127 @@ __global__ void sum_partials_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
+// ---------------------------------------------------------------------------
+// The block's boundary: the entry (x into buf, x's moments) and the exit (dx)
+
+constexpr int NTB = 256;              // threads a boundary block
+constexpr int BOUNDARY_UNROLL = 2;    // pixels a thread has in flight
+
+// VW elements of T, loaded and stored as one vector (16 bytes for VW > 1)
+template <typename T, int VW> struct alignas(sizeof(T) * VW) Vec { T v[VW]; };
+
+// thread (row, lane) of block (bx, by) takes the channel vector by*lanes +
+// lane, at the pixels bx*rows + row, then gridDim.x*rows further on, ...
+// Its first channel, or C0 where the thread has no vector.
+__device__ __forceinline__ int boundary_channel(int C0, int VW, int lanes, int rows) {
+  const int lane = threadIdx.x % lanes, row = threadIdx.x / lanes;
+  const int c = (blockIdx.y * lanes + lane) * VW;
+  return row < rows && c < C0 ? c : C0;
+}
+
+template <typename T, int VW>
+__global__ void __launch_bounds__(NTB, 3) boundary_entry_kernel(
+    const T* __restrict__ x, T* __restrict__ buf, double* __restrict__ part, long long P,
+    int C0, int ld, int lanes, int rows) {
+  __shared__ double s_sum[NTB * 2 * VW];  // [thread][sum, sum of squares][VW]
+  const int c = boundary_channel(C0, VW, lanes, rows);
+  double s1[VW], s2[VW];
+#pragma unroll
+  for (int k = 0; k < VW; ++k) s1[k] = s2[k] = 0.0;
+  if (c < C0) {
+    const long long step = (long long)gridDim.x * rows;
+    for (long long p = (long long)blockIdx.x * rows + threadIdx.x / lanes; p < P;
+         p += BOUNDARY_UNROLL * step) {
+      Vec<T, VW> v[BOUNDARY_UNROLL];
+#pragma unroll
+      for (int u = 0; u < BOUNDARY_UNROLL; ++u)
+        if (p + u * step < P)
+          v[u] = *reinterpret_cast<const Vec<T, VW>*>(x + (p + u * step) * C0 + c);
+#pragma unroll
+      for (int u = 0; u < BOUNDARY_UNROLL; ++u)
+        if (p + u * step < P) {
+          *reinterpret_cast<Vec<T, VW>*>(buf + (p + u * step) * ld + c) = v[u];
+#pragma unroll
+          for (int k = 0; k < VW; ++k) {
+            const double d = to_float(v[u].v[k]);
+            s1[k] += d;
+            s2[k] = fma(d, d, s2[k]);  // a float's square is exact in f64
+          }
+        }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < VW; ++k) {
+    s_sum[threadIdx.x * 2 * VW + k] = s1[k];
+    s_sum[threadIdx.x * 2 * VW + VW + k] = s2[k];
+  }
+  __syncthreads();
+  // the block's partial per (statistic, channel): its rows in order
+  for (int e = threadIdx.x; e < 2 * lanes * VW; e += NTB) {
+    const int stat = e / (lanes * VW), lc = e % (lanes * VW);
+    const int ch = blockIdx.y * lanes * VW + lc;
+    if (ch >= C0) continue;
+    double s = 0.0;
+    for (int r = 0; r < rows; ++r)
+      s += s_sum[(r * lanes + lc / VW) * 2 * VW + stat * VW + lc % VW];
+    part[((long long)stat * C0 + ch) * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// out[k] = (sum over the n_blocks partials part[k][b]) / n, one block a k
+// in [0, 2*C0): each thread sums its strided partials in order, then a
+// fixed tree over the threads
+__global__ void __launch_bounds__(NTB) boundary_entry_finish_kernel(
+    const double* __restrict__ part, float* __restrict__ out, int n_blocks, double n) {
+  __shared__ double s_red[NTB];
+  const double* row = part + (long long)blockIdx.x * n_blocks;
+  double s = 0.0;
+  for (int b = threadIdx.x; b < n_blocks; b += NTB) s += row[b];
+  s_red[threadIdx.x] = s;
+  __syncthreads();
+  for (int h = NTB / 2; h > 0; h /= 2) {
+    if (threadIdx.x < h) s_red[threadIdx.x] += s_red[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = (float)(s_red[0] / n);
+}
+
+// dx[p, c] = T((g + c1[c]) + c2[c]*x) with g, x the prefix of grad, buf
+template <typename T, int VW>
+__global__ void __launch_bounds__(NTB, 3) boundary_exit_kernel(
+    const T* __restrict__ grad, const T* __restrict__ buf, const float* __restrict__ c1,
+    const float* __restrict__ c2, T* __restrict__ dx, long long P, int C0, int ld,
+    int lanes, int rows) {
+  const int c = boundary_channel(C0, VW, lanes, rows);
+  if (c >= C0) return;
+  float a[VW], b[VW];
+#pragma unroll
+  for (int k = 0; k < VW; ++k) {
+    a[k] = c1[c + k];
+    b[k] = c2[c + k];
+  }
+  const long long step = (long long)gridDim.x * rows;
+  for (long long p = (long long)blockIdx.x * rows + threadIdx.x / lanes; p < P;
+       p += BOUNDARY_UNROLL * step) {
+    Vec<T, VW> g[BOUNDARY_UNROLL], xv[BOUNDARY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < BOUNDARY_UNROLL; ++u)
+      if (p + u * step < P) {
+        g[u] = *reinterpret_cast<const Vec<T, VW>*>(grad + (p + u * step) * ld + c);
+        xv[u] = *reinterpret_cast<const Vec<T, VW>*>(buf + (p + u * step) * ld + c);
+      }
+#pragma unroll
+    for (int u = 0; u < BOUNDARY_UNROLL; ++u)
+      if (p + u * step < P) {
+        Vec<T, VW> out;
+#pragma unroll
+        for (int k = 0; k < VW; ++k)
+          out.v[k] = from_float<T>(gy_eff(to_float(g[u].v[k]), to_float(xv[u].v[k]), a[k], b[k]));
+        *reinterpret_cast<Vec<T, VW>*>(dx + (p + u * step) * C0 + c) = out;
+      }
+  }
+}
+
 int tiles(int n, int t) { return (n + t - 1) / t; }
 
 bool bad_dims(int B, int H, int W, int C, int F, int ld) {
@@ -1342,6 +1489,58 @@ cudaError_t launch_dweight_mma(const void* grad, const void* buf,
 #undef DWEIGHT_LAUNCH
 }
 
+// A boundary launch, decided here alone: vw = 16 / sizeof(T) channels a
+// lane (one 16-byte vector) where C0 and ld are multiples of it and every
+// base is 16-byte aligned, else 1; `lanes` channel vectors a pixel row (at
+// most NTB), NTB / lanes rows a block, grid.y = the groups of lanes a row
+// needs, grid.x = the blocks that stride over the P pixels, at most
+// BOUNDARY_BLOCKS in all
+constexpr int BOUNDARY_BLOCKS = 396;  // one wave at 3 blocks an SM on 132 SMs
+
+struct BoundaryLayout {
+  int vw, lanes, rows, groups, blocks;
+};
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+BoundaryLayout boundary_layout(int dtype, long long P, int C0, int ld, const void* a,
+                               const void* b, const void* c) {
+  const int full = dtype == 1 ? 8 : 4;
+  const int vw = C0 % full == 0 && ld % full == 0 && aligned16(a) && aligned16(b) &&
+                         aligned16(c) ? full : 1;
+  const int nv = C0 / vw;
+  const int lanes = nv < NTB ? nv : NTB;
+  const int rows = NTB / lanes, groups = tiles(nv, lanes);
+  const long long want = (P + rows - 1) / rows, cap = BOUNDARY_BLOCKS / groups;
+  const long long blocks = want < cap ? want : cap;
+  return {vw, lanes, rows, groups, blocks > 1 ? (int)blocks : 1};
+}
+
+bool boundary_ok(int dtype, int B, int H, int W, int C0, int ld) {
+  return (dtype == 0 || dtype == 1) && B >= 1 && H >= 1 && W >= 1 && C0 >= 1 && C0 <= ld;
+}
+
+template <typename T, int VW>
+cudaError_t launch_entry(const BoundaryLayout& l, const void* x, void* buf, double* part,
+                         float* out, long long P, int C0, int ld, cudaStream_t s) {
+  boundary_entry_kernel<T, VW><<<dim3(l.blocks, l.groups), NTB, 0, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(buf), part, P, C0, ld, l.lanes, l.rows);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  boundary_entry_finish_kernel<<<2 * C0, NTB, 0, s>>>(part, out, l.blocks, (double)P);
+  return cudaGetLastError();
+}
+
+template <typename T, int VW>
+cudaError_t launch_exit(const BoundaryLayout& l, const void* grad, const void* buf,
+                        const float* c1, const float* c2, void* dx, long long P, int C0,
+                        int ld, cudaStream_t s) {
+  boundary_exit_kernel<T, VW><<<dim3(l.blocks, l.groups), NTB, 0, s>>>(
+      static_cast<const T*>(grad), static_cast<const T*>(buf), c1, c2, static_cast<T*>(dx),
+      P, C0, ld, l.lanes, l.rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1463,6 +1662,64 @@ int block_engine_dweight(int dtype, const void* grad, const void* buf,
   const int n = 9 * C * F;
   sum_partials_kernel<<<tiles(n, 256), 256, 0, s>>>(p, static_cast<float*>(dw), n_split, n);
   return (int)cudaGetLastError();
+}
+
+// The boundary, both: dtype as above for x, buf, grad and dx; buf and grad
+// contiguous (B, H, W, ld), the block input the prefix [0, C0); x and dx
+// contiguous (B, H, W, C0). The C side picks the vector width and the grid
+// from these arguments (`boundary_layout`).
+
+// The layout the entry (a = x, b = c = buf) or the exit (a = grad, b =
+// buf, c = dx) takes for these arguments, into out[5]: vw, lanes, rows,
+// grid.y, grid.x. The entry's scratch is (2, C0, grid.x) float64. Returns
+// cudaErrorInvalidValue where the kernels refuse the arguments.
+int block_engine_boundary_layout(int dtype, const void* a, const void* b, const void* c,
+                                 int B, int H, int W, int C0, int ld, int* out) {
+  if (!boundary_ok(dtype, B, H, W, C0, ld)) return (int)cudaErrorInvalidValue;
+  const BoundaryLayout l = boundary_layout(dtype, (long long)B * H * W, C0, ld, a, b, c);
+  out[0] = l.vw;
+  out[1] = l.lanes;
+  out[2] = l.rows;
+  out[3] = l.groups;
+  out[4] = l.blocks;
+  return 0;
+}
+
+// Entry: x into buf[..., :C0]; out (2, C0) float32, x's per-channel mean and
+// mean of squares; part: float64 scratch of part_elems, at least 2 * C0 *
+// grid.x.
+int block_engine_entry(int dtype, const void* x, void* buf, void* part, void* out, int B,
+                       int H, int W, int C0, int ld, int part_elems, void* stream) {
+  if (!boundary_ok(dtype, B, H, W, C0, ld)) return (int)cudaErrorInvalidValue;
+  const long long P = (long long)B * H * W;
+  const BoundaryLayout l = boundary_layout(dtype, P, C0, ld, x, buf, buf);
+  if ((long long)part_elems < 2LL * C0 * l.blocks) return (int)cudaErrorInvalidValue;
+  double* p = static_cast<double*>(part);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)(l.vw == 8 ? launch_entry<__nv_bfloat16, 8>(l, x, buf, p, o, P, C0, ld, s)
+                           : launch_entry<__nv_bfloat16, 1>(l, x, buf, p, o, P, C0, ld, s));
+  return (int)(l.vw == 4 ? launch_entry<float, 4>(l, x, buf, p, o, P, C0, ld, s)
+                         : launch_entry<float, 1>(l, x, buf, p, o, P, C0, ld, s));
+}
+
+// Exit: dx = (g + c1) + c2*x from grad[..., :C0] and buf[..., :C0], each
+// step rounded to f32, then to dx's type; c1, c2: float32, C0 or more.
+int block_engine_exit(int dtype, const void* grad, const void* buf, const void* c1,
+                      const void* c2, void* dx, int B, int H, int W, int C0, int ld,
+                      void* stream) {
+  if (!boundary_ok(dtype, B, H, W, C0, ld)) return (int)cudaErrorInvalidValue;
+  const long long P = (long long)B * H * W;
+  const BoundaryLayout l = boundary_layout(dtype, P, C0, ld, grad, buf, dx);
+  const float* a = static_cast<const float*>(c1);
+  const float* b = static_cast<const float*>(c2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)(l.vw == 8 ? launch_exit<__nv_bfloat16, 8>(l, grad, buf, a, b, dx, P, C0, ld, s)
+                           : launch_exit<__nv_bfloat16, 1>(l, grad, buf, a, b, dx, P, C0, ld, s));
+  return (int)(l.vw == 4 ? launch_exit<float, 4>(l, grad, buf, a, b, dx, P, C0, ld, s)
+                         : launch_exit<float, 1>(l, grad, buf, a, b, dx, P, C0, ld, s));
 }
 
 }  // extern "C"

@@ -34,10 +34,18 @@ Per layer the work is three kernels, in ``csrc/block_engine.cu``:
   implicit GEMM on the tensor cores, in f32 (the parity dtype) a direct
   reduction on FFMAs, both as per-block partials summed in order.
 
+Once a block, at its boundary, two memory-bound passes over the prefix
+[0, C0), in the same file:
+
+- ``block_entry``: x into ``buf[..., :C0]`` and x's per-channel (mean,
+  mean of squares) (JAX :597-598), reading x once;
+- ``block_exit``: the final fix-up dx = g + C1 + C2*x (JAX :1307) from
+  the gradient buffer's prefix and x, into a fresh (B, H, W, C0) tensor,
+  with no f32 temporary.
+
 Between the launches plain PyTorch does only per-channel vector math, as
-XLA does in JAX: the BN folds, the (C1, C2) updates, summing K4's and K5's
-per-block partials, and the final fix-up dx = g + C1 + C2*x (JAX :1307),
-besides the block input's statistics and its copy into ``buf``.
+XLA does in JAX: the BN folds, the (C1, C2) updates, and summing K4's and
+K5's per-block partials.
 
 In place: K4 writes into ``buf``; the backward clones the incoming
 gradient once into a fresh buffer and K5 adds into that buffer's prefix
@@ -80,10 +88,11 @@ from ..utils import profiling
 
 # kernel launches in this process, by kernel
 LAUNCHES = {"block_engine_fwd": 0, "block_engine_dinput": 0,
-            "block_engine_dweight": 0}
+            "block_engine_dweight": 0, "block_engine_entry": 0, "block_engine_exit": 0}
 # each C entry's span (``utils.profiling``)
 _SPANS = {"block_engine_fwd": "engine_fwd", "block_engine_dinput": "engine_dinput",
-          "block_engine_dweight": "engine_dweight"}
+          "block_engine_dweight": "engine_dweight", "block_engine_entry": "engine_entry",
+          "block_engine_exit": "engine_exit"}
 MAX_GROWTH = 16        # the kernels' compiled maximum of F
 EPS = 1e-5             # BatchNorm's, as torch's and the JAX package's
 TILE_H, TILE_W = 16, 32  # f32 K4's and K5's output tile
@@ -113,8 +122,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.block_engine_fwd.argtypes = [i] + [p] * 7 + [i] * 9 + [p]
         lib.block_engine_dinput.argtypes = [i] + [p] * 9 + [i] * 9 + [p]
         lib.block_engine_dweight.argtypes = [i] + [p] * 8 + [i] * 9 + [p]
+        lib.block_engine_entry.argtypes = [i] + [p] * 4 + [i] * 6 + [p]
+        lib.block_engine_exit.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
+        lib.block_engine_boundary_layout.argtypes = [i] + [p] * 3 + [i] * 5 + [p]
         for fn in (lib.block_engine_fwd, lib.block_engine_dinput,
-                   lib.block_engine_dweight):
+                   lib.block_engine_dweight, lib.block_engine_entry,
+                   lib.block_engine_exit, lib.block_engine_boundary_layout):
             fn.restype = i
         lib.block_engine_max_growth.argtypes = []
         lib.block_engine_max_growth.restype = i
@@ -207,6 +220,22 @@ def layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2):
     dw = torch.nn.grad.conv2d_weight(_nchw(a), (f, c, 3, 3), _nchw(gy),
                                      padding=1)
     return dw.permute(2, 3, 1, 0).contiguous()
+
+
+def block_entry_reference(x, buf) -> torch.Tensor:
+    """The entry's plain version: x into ``buf[..., :C0]`` (in place);
+    returns (2, C0) f32, x's per-channel mean and mean of squares."""
+    buf[..., :x.shape[3]] = x
+    xf = x.float()
+    return torch.stack([xf.mean((0, 1, 2)), xf.square().mean((0, 1, 2))])
+
+
+def block_exit_reference(grad, buf, c1, c2, c0) -> torch.Tensor:
+    """The exit's plain version: dx = (g + c1) + c2*x over the prefix
+    [0, c0) of grad and buf, in f32, rounded to buf's dtype; contiguous
+    (B, H, W, c0)."""
+    x = buf[..., :c0].float()
+    return (grad[..., :c0].float() + c1[:c0] + c2[:c0] * x).to(buf.dtype).contiguous()
 
 
 # -- the kernel wrappers -------------------------------------------------------
@@ -309,6 +338,44 @@ def dweight_vector_width(dtype: torch.dtype, c: int, f: int, ld: int,
     return 1
 
 
+def boundary_layout(buf, c0: int, *tensors) -> dict:
+    """The launch the boundary kernels take, as their C entries pick it
+    from buf's shape and dtype, C0 and the bases of buf and ``tensors``
+    (the entry: x; the exit: grad and dx): ``vw`` channels a lane (a
+    16-byte vector where C0 and ld are multiples of it and every base is
+    aligned, else 1), ``lanes`` and ``rows`` a block, ``groups`` (grid.y)
+    and ``blocks`` (grid.x)."""
+    b, h, w, ld = buf.shape
+    bases = [t.data_ptr() for t in tensors] + [buf.data_ptr()] * (3 - len(tensors))
+    out = (ctypes.c_int * 5)()
+    rc = _library().block_engine_boundary_layout(_DTYPES[buf.dtype], *bases, b, h, w,
+                                                 c0, ld, out)
+    if rc != 0:
+        raise ValueError(f"no boundary launch for buf {tuple(buf.shape)} {buf.dtype}, "
+                         f"C0 {c0}")
+    return dict(zip(("vw", "lanes", "rows", "groups", "blocks"), out))
+
+
+def _check_boundary(buf, c0, tensors) -> None:
+    if buf.dim() != 4 or not buf.is_contiguous():
+        raise ValueError(f"buf must be a contiguous (B, H, W, C) tensor, got "
+                         f"{tuple(buf.shape)}")
+    if buf.dtype not in _DTYPES:
+        raise TypeError(f"buf must be float32 or bfloat16, got {buf.dtype}")
+    if not 1 <= c0 <= buf.shape[3]:
+        raise ValueError(f"the block input's {c0} channels do not fit buf "
+                         f"{tuple(buf.shape)}")
+    if buf.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no block_engine kernel for device {buf.device}")
+    for name, t, shape, dtype in tensors:
+        if t.shape != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} tensor, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != buf.device:
+            raise ValueError(f"all inputs must lie on {buf.device}, found {name} on "
+                             f"{t.device}")
+
+
 def _launch(name: str, buf, tensors, ints) -> None:
     """Launch ``name`` on buf's device and its current stream with buf's
     dtype code, the tensors' pointers and the ints."""
@@ -387,6 +454,43 @@ def layer_dweight(grad, buf, c, f, scale, shift, c1, c2) -> torch.Tensor:
     return dw
 
 
+def block_entry(x, buf) -> torch.Tensor:
+    """The block input x (B, H, W, C0) into ``buf[..., :C0]`` (in place);
+    returns (2, C0) f32, x's per-channel mean and mean of squares. One C
+    call on the card (a pass over x, then the blocks' f64 partials summed
+    in order), ``block_entry_reference`` on the CPU."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, C0), got {tuple(x.shape)}")
+    b, h, w, c0 = x.shape
+    _check_boundary(buf, c0, [("x", x, (*buf.shape[:3], c0), buf.dtype)])
+    if buf.device.type == "cpu":
+        return block_entry_reference(x, buf)
+    # the blocks' f64 partials, summed in order by the second kernel
+    part = torch.empty(2 * c0 * boundary_layout(buf, c0, x)["blocks"],
+                       dtype=torch.float64, device=buf.device)
+    out = torch.empty((2, c0), dtype=torch.float32, device=buf.device)
+    _launch("block_engine_entry", buf, (x, buf, part, out),
+            (b, h, w, c0, buf.shape[3], part.numel()))
+    return out
+
+
+def block_exit(grad, buf, c1, c2, c0: int) -> torch.Tensor:
+    """dx = (g + c1) + c2*x over the prefix [0, c0) of the gradient
+    buffer and of buf, rounded to buf's dtype: a fresh contiguous (B, H,
+    W, c0) tensor; c1, c2 the block's (C0 + L*F,) f32 coefficients. One
+    launch on the card, bitwise ``block_exit_reference``, which runs on the
+    CPU."""
+    _check_boundary(buf, c0, [("grad", grad, buf.shape, buf.dtype),
+                              ("c1", c1, buf.shape[-1:], torch.float32),
+                              ("c2", c2, buf.shape[-1:], torch.float32)])
+    if buf.device.type == "cpu":
+        return block_exit_reference(grad, buf, c1, c2, c0)
+    b, h, w, ld = buf.shape
+    dx = torch.empty((b, h, w, c0), dtype=buf.dtype, device=buf.device)
+    _launch("block_engine_exit", buf, (grad, buf, c1, c2, dx), (b, h, w, c0, ld))
+    return dx
+
+
 # -- the block -----------------------------------------------------------------
 
 
@@ -398,19 +502,15 @@ def engine_forward(x: torch.Tensor, n_layers: int, params
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The block's forward (JAX ``_engine_impl``): (buf, mu, m2) from the
     NHWC block input and the flat parameter list (gammas, betas, kernels,
-    biases). K4 once per layer; in a process group the statistics are
-    the global batch's."""
+    biases). The entry once, K4 once per layer; in a process group the
+    statistics are the global batch's."""
     gammas, betas, kernels, biases = _split(params, n_layers)
     b, h, w, c0 = x.shape
     growth = biases[0].shape[0]
     n = b * h * w
     buf = torch.empty((b, h, w, c0 + n_layers * growth), dtype=x.dtype,
                       device=x.device)
-    buf[..., :c0] = x
-    xf = x.float()
-    mu_x, m2_x = xf.mean((0, 1, 2)), xf.square().mean((0, 1, 2))
-    if distributed.group() is not None:
-        mu_x, m2_x = distributed.all_mean_(torch.stack([mu_x, m2_x]))
+    mu_x, m2_x = distributed.all_mean_(block_entry(x, buf))
     mus, m2s = [mu_x], [m2_x]
     for j in range(n_layers):
         mu, m2 = torch.cat(mus), torch.cat(m2s)
@@ -428,7 +528,7 @@ def engine_backward(buf, mu, m2, n_layers: int, params, gbuf, gmu, gm2) -> tuple
     """The block's backward (JAX ``_engine_bwd``) at the block output
     ``buf`` and its statistics (mu, m2): the gradients of x and of every
     parameter, in ``params``' order, from the cotangents of (buf, mu,
-    m2). K5 and K6 once per layer."""
+    m2). K5 and K6 once per layer, then the exit."""
     gammas, betas, kernels, biases = _split(params, n_layers)
     b, h, w, ctot = buf.shape
     growth = biases[0].shape[0]
@@ -467,9 +567,8 @@ def engine_backward(buf, mu, m2, n_layers: int, params, gbuf, gmu, gm2) -> tuple
         gamma = gammas[j].float()
         c2[:c] -= gamma * inv * inv * dgamma / n
         c1[:c] += gamma * inv * (inv * mu[:c] * dgamma - dss) / n
-    x = buf[..., :c0].float()
-    dx = (grad[..., :c0].float() + c1[:c0] + c2[:c0] * x).to(buf.dtype)
-    return (dx.contiguous(), *dgammas, *dbetas, *dkernels, *dbiases)
+    dx = block_exit(grad, buf, c1, c2, c0)
+    return (dx, *dgammas, *dbetas, *dkernels, *dbiases)
 
 
 class BlockEngine(torch.autograd.Function):

@@ -14,6 +14,8 @@ rtol/atol 2e-4, the JAX package's own engine-vs-materialized tolerance
 ``fused_dense_conv_reference`` at 1e-5 of the reference's size.
 """
 import copy
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -383,3 +385,207 @@ def test_dweight_tiles_cover_each_pixel_once(b, h, w, c, f, extra):
     assert n_split > 1 or b * h * w <= 256
     ref = block_engine.layer_dweight_reference(grad, buf, c, f, scale, shift, c1, c2)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max())
+
+
+# -- the block's boundary: the entry (x into buf, its moments) and the exit (dx)
+
+# (B, H, W, C0, ld): FCDenseNet-57's last up block, FC-DenseNet-103's, and
+# a C0 that is not a multiple of 8 (the kernels' scalar path), at few pixels
+BOUNDARY_SHAPES = [(2, 8, 10, 144, 192), (2, 8, 10, 192, 256), (3, 5, 7, 37, 61)]
+
+
+def _boundary_inputs(b, h, w, c0, ld, dtype, seed=11):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(b, h, w, c0, generator=g) + 1).to(dtype)
+    buf = torch.randn(b, h, w, ld, generator=g).to(dtype)
+    grad = torch.randn(b, h, w, ld, generator=g).to(dtype)
+    c1, c2 = torch.randn(ld, generator=g) * 0.1, torch.randn(ld, generator=g) * 0.1
+    return x, buf, grad, c1, c2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c0,ld", BOUNDARY_SHAPES)
+def test_boundary_twins_are_the_expressions_they_replace(b, h, w, c0, ld, dtype):
+    """``block_entry_reference`` and ``block_exit_reference`` bitwise the
+    expressions ``engine_forward`` and ``engine_backward`` wrote inline, and
+    the wrappers on CPU tensors bitwise the twins. dx is also the kernel's
+    arithmetic emulated in numpy f32: (g + c1) + c2*x, each step rounded,
+    no fused multiply-add, then rounded to the dtype."""
+    x, buf, grad, c1, c2 = _boundary_inputs(b, h, w, c0, ld, dtype)
+    got_buf, want_buf = buf.clone(), buf.clone()
+    stats = block_engine.block_entry_reference(x, got_buf)
+    want_buf[..., :c0] = x
+    xf = x.float()
+    assert torch.equal(got_buf, want_buf)
+    assert stats.dtype == torch.float32 and torch.equal(
+        stats, torch.stack([xf.mean((0, 1, 2)), xf.square().mean((0, 1, 2))]))
+    dx = block_engine.block_exit_reference(grad, buf, c1, c2, c0)
+    x0 = buf[..., :c0].float()
+    want = (grad[..., :c0].float() + c1[:c0] + c2[:c0] * x0).to(dtype)
+    assert dx.is_contiguous() and dx.dtype == dtype and torch.equal(dx, want)
+    g32, x32 = grad[..., :c0].float().numpy(), x0.numpy()
+    emulated = (g32 + c1[:c0].numpy()) + c2[:c0].numpy() * x32
+    assert emulated.dtype == np.float32
+    assert torch.equal(dx, torch.from_numpy(emulated).to(dtype))
+    entry_buf = buf.clone()
+    assert torch.equal(block_engine.block_entry(x, entry_buf), stats)
+    assert torch.equal(entry_buf, got_buf)
+    assert torch.equal(block_engine.block_exit(grad, buf, c1, c2, c0), dx)
+
+
+def _bad_boundary_calls():
+    bf16 = torch.bfloat16
+    x, buf = torch.zeros(2, 4, 5, 16, dtype=bf16), torch.zeros(2, 4, 5, 24, dtype=bf16)
+    grad, c = torch.zeros_like(buf), torch.zeros(24)
+    wide = torch.zeros(2, 4, 5, 32, dtype=bf16)
+    entry, exit_ = block_engine.block_entry, block_engine.block_exit
+    return {
+        "entry x not contiguous": lambda: entry(wide[..., ::2], buf),
+        "entry x of another dtype": lambda: entry(x.float(), buf),
+        "entry buf of a dtype without kernels": lambda: entry(x.half(), buf.half()),
+        "entry buf not contiguous": lambda: entry(x, wide[..., :24]),
+        "entry c0 > ctot": lambda: entry(wide, buf),
+        "entry another image size": lambda: entry(x[:, :3].contiguous(), buf),
+        "exit c0 > ctot": lambda: exit_(grad, buf, c, c, 25),
+        "exit c0 = 0": lambda: exit_(grad, buf, c, c, 0),
+        "exit grad of another dtype": lambda: exit_(grad.float(), buf, c, c, 16),
+        "exit grad not contiguous": lambda: exit_(torch.zeros(2, 4, 5, 48, dtype=bf16)[..., ::2],
+                                                   buf, c, c, 16),
+        "exit c1 of another length": lambda: exit_(grad, buf, c[:16], c, 16),
+        "exit c2 not float32": lambda: exit_(grad, buf, c, c.double(), 16),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_boundary_calls()))
+def test_boundary_wrappers_refuse_what_the_kernels_do_not_take(case):
+    """Checked before the CPU twin or any launch, so the CPU sees what the
+    card would refuse."""
+    with pytest.raises((ValueError, TypeError)):
+        _bad_boundary_calls()[case]()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_engine_boundary_on_the_cpu_is_the_old_inline_code(monkeypatch, dtype):
+    """``engine_forward`` and ``engine_backward`` on CPU tensors give the
+    same tensors, bitwise, as with the boundary's old inline expressions
+    put back in the place of ``block_entry`` and ``block_exit``."""
+    x, params, cots = _block_inputs(2, 5, 7, 10, 4, 3, seed=6)
+    x = torch.from_numpy(x).to(dtype)
+    params = [torch.from_numpy(p) for group in params for p in group]
+    gbuf, gmu, gm2 = (torch.from_numpy(cots[0]).to(dtype), torch.from_numpy(cots[1]),
+                      torch.from_numpy(cots[2]))
+
+    def run():
+        buf, mu, m2 = block_engine.engine_forward(x, 3, params)
+        return (buf, mu, m2, *block_engine.engine_backward(buf, mu, m2, 3, params, gbuf,
+                                                           gmu, gm2))
+
+    got = run()
+
+    def old_entry(x, buf):
+        c0 = x.shape[3]
+        buf[..., :c0] = x
+        xf = x.float()
+        return torch.stack([xf.mean((0, 1, 2)), xf.square().mean((0, 1, 2))])
+
+    def old_exit(grad, buf, c1, c2, c0):
+        x = buf[..., :c0].float()
+        dx = (grad[..., :c0].float() + c1[:c0] + c2[:c0] * x).to(buf.dtype)
+        return dx.contiguous()
+
+    monkeypatch.setattr(block_engine, "block_entry", old_entry)
+    monkeypatch.setattr(block_engine, "block_exit", old_exit)
+    want = run()
+    assert len(got) == len(want) == 3 + 1 + 4 * 3
+    for i, (a, r) in enumerate(zip(got, want)):
+        assert a.dtype == r.dtype and torch.equal(a, r), i
+
+
+def _engine_boundaries(net: str) -> list:
+    """(C0, ld) of the 11 engine blocks of FCDenseNet-57 or FC-DenseNet-103,
+    in forward order."""
+    import chip_smoke
+    if net == "fcdensenet57":
+        blocks, kwargs = (4,) * 11, {}
+    else:
+        down, up = (4, 5, 7, 10, 12), (12, 10, 7, 5, 4)
+        blocks, kwargs = down + (15,) + up, dict(down=down, up=up, bottleneck=15, growth=16)
+    layers = chip_smoke.dense_layer_shapes(256, 320, **kwargs)
+    growth = kwargs.get("growth", 12)
+    starts = np.cumsum((0,) + blocks[:-1])
+    return [(layers[s][2], layers[s][2] + n * growth) for s, n in zip(starts, blocks)]
+
+
+def _cu_constant(name: str) -> int:
+    """A ``constexpr int`` of ``csrc/block_engine.cu``, the one place the
+    boundary kernels' launch is decided."""
+    source = (Path(block_engine.__file__).resolve().parents[1] / "csrc"
+              / "block_engine.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", source).group(1))
+
+
+def _boundary_grid(pixels: int, c0: int, vw: int) -> tuple:
+    """(lanes, rows, groups, blocks) of the C entries' ``boundary_layout``
+    at vector width vw, emulated with the file's ``NTB`` and
+    ``BOUNDARY_BLOCKS``: lanes channel vectors a row, rows a block, groups
+    of lanes side by side (grid.y), blocks striding over the pixels (grid.x)."""
+    threads, cap = _cu_constant("NTB"), _cu_constant("BOUNDARY_BLOCKS")
+    lanes = min(c0 // vw, threads)
+    rows, groups = threads // lanes, -(-(c0 // vw) // lanes)
+    return lanes, rows, groups, max(1, min(-(-pixels // rows), cap // groups))
+
+
+def _boundary_vector_width(dtype, c0: int, ld: int, *bases: int) -> int:
+    """The C entries' vector width, emulated: a 16-byte vector of channels
+    where C0 and ld are multiples of it and every base is aligned, else 1."""
+    vw = 16 // dtype.itemsize
+    return vw if c0 % vw == 0 and ld % vw == 0 and all(p % 16 == 0 for p in bases) else 1
+
+
+def _boundary_coverage(pixels: int, c0: int, vw: int) -> np.ndarray:
+    """How often the boundary kernels' threads take each (pixel, channel):
+    the C launch's layout and each thread's pixel stride, emulated."""
+    lanes, rows, groups, n_blocks = _boundary_grid(pixels, c0, vw)
+    count = np.zeros((pixels, c0), np.int64)
+    for by in range(groups):
+        first = (by * lanes + np.arange(lanes)) * vw
+        channels = (first[first < c0, None] + np.arange(vw)).ravel()
+        for bx in range(n_blocks):
+            for row in range(rows):
+                p = np.arange(bx * rows + row, pixels, n_blocks * rows)
+                count[np.ix_(p, channels)] += 1
+    return count
+
+
+@pytest.mark.parametrize("net", ["fcdensenet57", "fcdensenet103"])
+def test_boundary_vectors_and_grid_at_every_block(net):
+    """Every block of FCDenseNet-57 and FC-DenseNet-103 takes 16-byte
+    vectors on aligned buffers (8 bf16 or 4 f32 channels: C0 and ld are
+    multiples of 8); a misaligned base or a C0 or ld off the vector takes
+    scalars. The grid stays within ``BOUNDARY_BLOCKS`` of the C file, at
+    2B = 16 256x320 and at 2B = 2 8x10, and fills a wave at 256x320."""
+    boundaries = _engine_boundaries(net)
+    assert len(boundaries) == 11
+    cap = _cu_constant("BOUNDARY_BLOCKS")
+    for c0, ld in boundaries:
+        for dtype, vw in ((torch.bfloat16, 8), (torch.float32, 4)):
+            assert _boundary_vector_width(dtype, c0, ld, 4096, 8192) == vw
+            assert _boundary_vector_width(dtype, c0, ld, 4096, 8200) == 1
+            for pixels in (16 * 256 * 320, 2 * 8 * 10):
+                _, _, groups, blocks = _boundary_grid(pixels, c0, vw)
+                assert 1 <= blocks * groups <= cap
+            _, _, groups, blocks = _boundary_grid(16 * 256 * 320, c0, vw)
+            assert blocks * groups > cap - groups
+    assert _boundary_vector_width(torch.bfloat16, 36, 48, 0, 0) == 1
+    assert _boundary_vector_width(torch.bfloat16, 48, 52, 0, 0) == 1
+    assert _boundary_vector_width(torch.float32, 36, 52, 0, 0) == 4
+
+
+@pytest.mark.parametrize("pixels,c0,vw", [(70, 37, 1), (70, 301, 1), (81920, 48, 8),
+                                          (80, 656, 8), (40, 2056, 8), (1280, 64, 4)])
+def test_boundary_threads_take_each_element_once(pixels, c0, vw):
+    """The boundary kernels' (block, thread) -> (pixels, channel vector)
+    assignment covers every element of the prefix exactly once: ragged
+    rows, a row wider than a block (C0 / vw > 256: groups of lanes), the
+    grid at its cap, scalars and vectors."""
+    assert (_boundary_coverage(pixels, c0, vw) == 1).all()

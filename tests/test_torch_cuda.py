@@ -444,11 +444,14 @@ def _tiny_bf16_steps(device, steps=3):
 def test_tiny_train_step_bf16_launch_counts(device):
     """Three bf16 train steps of a tiny FCDenseNet, one K2 and one K3
     launch and one ``sgd_update`` call per step: every dense layer runs
-    K4, K5 and K6 once per step through the engine, and K1 never."""
+    K4, K5 and K6 once per step through the engine, every dense block its
+    entry and exit once, and K1 never."""
     before = dict(block_engine.LAUNCHES)
     assert _tiny_bf16_steps(device) == 0
+    layers, blocks = 10, 5
     for name, n in block_engine.LAUNCHES.items():
-        assert n == before[name] + 3 * 10, name
+        per_step = blocks if name in ("block_engine_entry", "block_engine_exit") else layers
+        assert n == before[name] + 3 * per_step, name
 
 
 # the CUDA runtime's and driver's calls that put work on a stream, as the
@@ -461,7 +464,9 @@ def test_traced_step_spans_match_the_launch_counters(device, monkeypatch):
     """One eager bf16 FCDenseNet-57 step under ``torch.profiler``
     recording the device alone, as the benchmark's traced stretch does:
     one ``engine_fwd``, ``engine_dinput`` and ``engine_dweight`` span per
-    K4, K5 and K6 launch (44 each), one ``warp_fwd`` and one ``warp_bwd``,
+    K4, K5 and K6 launch (44 each), one ``engine_entry`` and
+    ``engine_exit`` per block's entry and exit (11 each), one
+    ``warp_fwd`` and one ``warp_bwd``,
     no ``dense_conv``; and on the profiler's clock every K5 kernel starts
     after the step's ``backward`` span began. (A replayed step has no
     such span: ``tests/test_torch_cuda_step_graph.py``.)"""
@@ -491,7 +496,8 @@ def test_traced_step_spans_match_the_launch_counters(device, monkeypatch):
     session = profiling.sessions()[-1]
     count = {name: sum(r.name == name for r in session.records)
              for name in ("dense_conv", "warp_fwd", "warp_bwd", "engine_fwd",
-                          "engine_dinput", "engine_dweight", "sgd_update")}
+                          "engine_dinput", "engine_dweight", "engine_entry", "engine_exit",
+                          "sgd_update")}
     assert count == {
         "dense_conv": dense_conv.LAUNCHES - k1,
         "warp_fwd": warp_sample.LAUNCHES["warp_sample_fwd"] - k23["warp_sample_fwd"],
@@ -500,10 +506,13 @@ def test_traced_step_spans_match_the_launch_counters(device, monkeypatch):
            for k, n in block_engine.LAUNCHES.items()},
         "sgd_update": sgd_update.LAUNCHES["sgd_update"] - sgd}
     assert count == {"dense_conv": 0, "warp_fwd": 1, "warp_bwd": 1, "engine_fwd": 44,
-                     "engine_dinput": 44, "engine_dweight": 44, "sgd_update": 1}
+                     "engine_dinput": 44, "engine_dweight": 44, "engine_entry": 11,
+                     "engine_exit": 11, "sgd_update": 1}
     assert sgd_update.RESTRIDED == restrided
-    parents = {r.parent for r in session.records if r.name.startswith("engine_d")}
+    parents = {r.parent for r in session.records
+               if r.name.startswith("engine_d") or r.name == "engine_exit"}
     assert parents == {"backward"}
+    assert {r.parent for r in session.records if r.name == "engine_entry"} == {"forward"}
     assert {r.parent for r in session.records if r.name == "sgd_update"} == {"optimizer"}
     (optimizer,) = [r for r in session.records if r.name == "optimizer"]
     launched = [e.name() for e in prof.profiler.kineto_results.events()
@@ -754,7 +763,8 @@ def test_engine_kernels_match_twins(device, b, h, w, c, f, extra, dtype):
     assert got.shape == (3, 3, c, f) and _close(got, ref, dtype)
     for name, n in block_engine.LAUNCHES.items():
         k5 = name == "block_engine_dinput"
-        assert n == before[name] + (len(grads) if k5 else 1), name
+        boundary = name in ("block_engine_entry", "block_engine_exit")
+        assert n == before[name] + (0 if boundary else len(grads) if k5 else 1), name
 
 
 def test_engine_dinput_is_deterministic(device):
@@ -857,7 +867,9 @@ def test_block_engine_apply_matches_cpu(device):
 
     before = dict(block_engine.LAUNCHES)
     got = run(device)
-    assert all(block_engine.LAUNCHES[k] == before[k] + n_layers for k in before)
+    assert {k: n - before[k] for k, n in block_engine.LAUNCHES.items()} == {
+        "block_engine_fwd": n_layers, "block_engine_dinput": n_layers,
+        "block_engine_dweight": n_layers, "block_engine_entry": 1, "block_engine_exit": 1}
     ref = run("cpu")
     for i, (a, r) in enumerate(zip(got, ref)):
         assert _rel(a, r) <= 1e-4, i
@@ -914,6 +926,100 @@ def test_engine_dweight_is_deterministic(device):
             for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(*runs)
+
+
+# (B, H, W, C0, ld, dtype) -> the channels a lane moves: FC-DenseNet-103's
+# and FCDenseNet-57's last up block at 2B = 16, 256x320; FC-DenseNet-103's
+# bottleneck; a row of more than 256 vectors; f32 vectors; scalars (ld or
+# C0 off the vector)
+BOUNDARY_CASES = {
+    (16, 256, 320, 192, 256, torch.bfloat16): 8, (16, 256, 320, 144, 192, torch.bfloat16): 8,
+    (16, 8, 10, 656, 896, torch.bfloat16): 8, (2, 8, 10, 2056, 2064, torch.bfloat16): 8,
+    (4, 64, 80, 48, 100, torch.bfloat16): 1, (3, 17, 33, 37, 61, torch.bfloat16): 1,
+    (4, 64, 80, 48, 96, torch.float32): 4, (3, 17, 33, 37, 61, torch.float32): 1,
+}
+
+
+def _boundary_moved(before: dict) -> dict:
+    return {k: n - before[k] for k, n in block_engine.LAUNCHES.items() if n != before[k]}
+
+
+@pytest.mark.parametrize("case", list(BOUNDARY_CASES), ids=str)
+def test_block_entry_copies_x_and_its_moments(device, case):
+    """The entry kernel: ``buf[..., :C0]`` bitwise x and the rest of buf
+    untouched; x's per-channel mean and mean of squares within 2e-6
+    (relative) of their f64 values; a repeat bitwise equal; one counted C
+    call each."""
+    b, h, w, c0, ld, dtype = case
+    g = torch.Generator(device=device).manual_seed(21)
+    offset = torch.rand(c0, generator=g, device=device) + 0.5
+    x = (torch.randn(b, h, w, c0, generator=g, device=device) + offset).to(dtype)
+    bufs = [torch.full((b, h, w, ld), 7.0, dtype=dtype, device=device) for _ in range(2)]
+    assert block_engine.boundary_layout(bufs[0], c0, x)["vw"] == BOUNDARY_CASES[case]
+    before = dict(block_engine.LAUNCHES)
+    stats = [block_engine.block_entry(x, buf) for buf in bufs]
+    torch.cuda.synchronize()
+    assert _boundary_moved(before) == {"block_engine_entry": 2}
+    assert torch.equal(bufs[0][..., :c0], x) and bool((bufs[0][..., c0:] == 7).all())
+    assert torch.equal(*bufs) and torch.equal(*stats)
+    x64 = x.double()
+    want = torch.stack([x64.mean((0, 1, 2)), x64.square().mean((0, 1, 2))])
+    assert stats[0].shape == (2, c0) and stats[0].dtype == torch.float32
+    rel = ((stats[0].double() - want).abs() / want.abs()).max().item()
+    assert rel <= 2e-6, rel
+
+
+@pytest.mark.parametrize("case", list(BOUNDARY_CASES), ids=str)
+def test_block_exit_is_bitwise_its_twin(device, case):
+    """The exit kernel: dx = (g + c1) + c2*x over the prefix bitwise
+    ``block_exit_reference``'s (the same f32 steps, no FMA, the same
+    rounding to the dtype), on the vector and the scalar path; a fresh
+    contiguous (B, H, W, C0) tensor; a repeat bitwise equal."""
+    b, h, w, c0, ld, dtype = case
+    g = torch.Generator(device=device).manual_seed(22)
+    buf = torch.randn(b, h, w, ld, generator=g, device=device).to(dtype)
+    grad = torch.randn(b, h, w, ld, generator=g, device=device).to(dtype)
+    c1, c2 = (torch.randn(ld, generator=g, device=device) * 0.1 for _ in range(2))
+    assert block_engine.boundary_layout(buf, c0, grad)["vw"] == BOUNDARY_CASES[case]
+    before = dict(block_engine.LAUNCHES)
+    dx = [block_engine.block_exit(grad, buf, c1, c2, c0) for _ in range(2)]
+    ref = block_engine.block_exit_reference(grad, buf, c1, c2, c0)
+    torch.cuda.synchronize()
+    assert _boundary_moved(before) == {"block_engine_exit": 2}
+    assert dx[0].shape == (b, h, w, c0) and dx[0].dtype == dtype and dx[0].is_contiguous()
+    assert torch.equal(dx[0], ref) and torch.equal(*dx)
+
+
+def test_engine_backward_allocates_no_f32_temporaries(device):
+    """``engine_backward`` at FCDenseNet-57's last up block (2B = 16,
+    256x320, C0 144, four layers of growth 12: ld 192), bf16: the
+    allocator's peak rises by no more than the gradient buffer, dx and 1
+    MiB (the per-layer partials and the parameters' gradients)."""
+    b, h, w, c0, n_layers, f = 16, 256, 320, 144, 4, 12
+    g = torch.Generator(device=device).manual_seed(23)
+    cs = [c0 + j * f for j in range(n_layers)]
+    ld = c0 + n_layers * f
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=device) * scale
+
+    params = ([torch.rand(c, generator=g, device=device) + 0.5 for c in cs]
+              + [randn(c, scale=0.1) for c in cs]
+              + [randn(3, 3, c, f, scale=(2.0 / (9 * c)) ** 0.5) for c in cs]
+              + [randn(f, scale=0.1) for _ in cs])
+    buf = randn(b, h, w, ld).bfloat16()
+    mu = buf.float().mean((0, 1, 2))
+    m2 = buf.float().square().mean((0, 1, 2))
+    gbuf, gmu, gm2 = randn(b, h, w, ld).bfloat16(), randn(ld), randn(ld)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    dx, *_ = block_engine.engine_backward(buf, mu, m2, n_layers, params, gbuf, gmu, gm2)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(device) - base
+    grad_bytes, dx_bytes = 2 * buf.numel(), 2 * dx.numel()
+    assert dx.shape == (b, h, w, c0) and bool(torch.isfinite(dx.float()).all())
+    assert rise <= grad_bytes + dx_bytes + 2 ** 20, rise - grad_bytes - dx_bytes
 
 
 def test_device_prefetch_copies_every_batch_to_the_card(device):

@@ -182,8 +182,9 @@ def test_a_replay_is_one_span_and_the_trace_sees_its_kernels(device):
     session = profiling.sessions()[-1]
     assert sorted(r.name for r in session.records) == ["replay", "replay", "train_step",
                                                        "train_step"]
-    assert {k: v - counts[0][k] for k, v in block_engine.LAUNCHES.items()} == dict.fromkeys(
-        block_engine.LAUNCHES, 88)
+    assert {k: v - counts[0][k] for k, v in block_engine.LAUNCHES.items()} == {
+        **dict.fromkeys(block_engine.LAUNCHES, 88), "block_engine_entry": 22,
+        "block_engine_exit": 22}
     assert {k: v - counts[1][k] for k, v in warp_sample.LAUNCHES.items()} == dict.fromkeys(
         warp_sample.LAUNCHES, 2)
     assert sgd_update.LAUNCHES["sgd_update"] == counts[2] + 2
