@@ -150,6 +150,18 @@ to the CPU or to a kernel's plain version):
      loss finite, the peak memory; a torch.profiler table of two steps:
      device ms by kernel, the attention kernels by name and the fused
      SDPA op the step ran.
+ 18. Depth Pro (``--architecture depth_pro``, ``depth_pro_phase``; also
+     alone: ``python3 -c "import chip_smoke as c;
+     c.depth_pro_phase(c.card_name())"``): the bf16 train step at b1
+     1536x1536 (two frames, 70 tiles and 2 images of 577 tokens), per step
+     48 attention calls (24 batched over the tiles, 24 of the image
+     encoder), 70 tiles, K2 and K3 once, no K1 or K4-K6, one
+     ``sgd_update`` C call over 763 tensors and nothing restrided; ten
+     steps by CUDA events, the loss finite, the peak memory; a
+     torch.profiler table of two steps: device ms by kernel, the attention
+     kernels and the fused SDPA op; then ``DepthPredictor`` on a 256x320
+     crop, resized to 1536x1536 and back: 35 tiles a frame, the depth
+     finite and of the crop's size, ms a frame.
 Only the main paths' launches (6, 8, 9, 12, 13's counted runs, 14b,
 15a's bf16 steps on both ranks, 15b's NCCL run and 16's runs) enter the
 ``kernels`` line.
@@ -185,9 +197,9 @@ from endoscopydepthestimation_pytorch_tpu_torch.data import (SequenceData, augme
                                                            native, preprocess, rasterizer,
                                                            readers)
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
-    DepthAnythingV2Large, FCDenseNet57, FCDenseNet103, UNet, init_weights,
+    DepthAnythingV2Large, DepthProLarge, FCDenseNet57, FCDenseNet103, UNet, init_weights,
     save_reference_checkpoint)
-from endoscopydepthestimation_pytorch_tpu_torch.models import depth_anything
+from endoscopydepthestimation_pytorch_tpu_torch.models import depth_anything, depth_pro
 from endoscopydepthestimation_pytorch_tpu_torch.ops import (_libtorch_build, act8, block_engine,
                                                           conv3x3_mma, dense_conv,
                                                           sgd_update, warp_sample)
@@ -2726,6 +2738,36 @@ def card_name() -> str:
                  "--format=csv,noheader"]).splitlines()[0]
 
 
+def _step_profile(step, card: str, steps: int = 2) -> dict:
+    """A torch.profiler table of ``steps`` calls of ``step``: device ms a
+    call by kernel, the attention kernels and the SDPA ops; raises where
+    the attention ran no fused kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / (1e3 * steps)
+    attention = {k: v for k, v in kernels.items()
+                 if re.search(r"flash_fwd|flash_bwd|fmha|sdpa", k)}
+    ops = {e.key for e in prof.key_averages()}
+    fused = sorted(o for o in ops if "scaled_dot_product" in o)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
+    print(f"  profiler, ms a step by kernel [{card}]: total {sum(kernels.values()):.2f}, "
+          f"attention {sum(attention.values()):.2f}; SDPA ops {fused}")
+    for name, v in top:
+        print(f"    {v:9.3f}  {name[:160]}")
+    print("  attention kernels: " + json.dumps({k[:200]: round(v, 4)
+                                                for k, v in attention.items()}))
+    if "aten::_scaled_dot_product_attention_math" in ops or not attention:
+        raise AssertionError(f"the attention did not run a fused kernel: {fused}")
+    return {"attention_ms": sum(attention.values()), "device_ms": sum(kernels.values())}
+
+
 def depth_anything_phase(card: str, batch: int = 8, steps: int = 10) -> dict:
     """(17) Depth Anything V2-Large's bf16 train step at b8 518x644 (see the
     module docstring)."""
@@ -2797,34 +2839,79 @@ def depth_anything_phase(card: str, batch: int = 8, steps: int = 10) -> dict:
           f"{losses[0]:.6f} .. {losses[-1]:.6f}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite losses {losses}")
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            training.train_step(state, data, dcl, config)
-        torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 2e3
-    attention = {k: v for k, v in kernels.items()
-                 if re.search(r"flash_fwd|flash_bwd|fmha|sdpa", k)}
-    ops = {e.key for e in prof.key_averages()}
-    fused = sorted(o for o in ops if "scaled_dot_product" in o)
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
-    print(f"  profiler, ms a step by kernel [{card}]: total {sum(kernels.values()):.2f}, "
-          f"attention {sum(attention.values()):.2f}; SDPA ops {fused}")
-    for name, v in top:
-        print(f"    {v:9.3f}  {name[:160]}")
-    print("  attention kernels: " + json.dumps({k[:200]: round(v, 4)
-                                                for k, v in attention.items()}))
-    if "aten::_scaled_dot_product_attention_math" in ops or not attention:
-        raise AssertionError(f"the attention did not run a fused kernel: {fused}")
-    result = {"ms": ms, "peak_bytes": peak, "attention_ms": sum(attention.values()),
-              "device_ms": sum(kernels.values())}
+    table = _step_profile(lambda: training.train_step(state, data, dcl, config), card)
+    result = {"ms": ms, "peak_bytes": peak, **table}
     del state, model, data
     torch.cuda.empty_cache()
     return result
+
+
+def depth_pro_phase(card: str, steps: int = 10) -> dict:
+    """(18) Depth Pro's bf16 train step at b1 1536x1536 and its predictor
+    (see the module docstring)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    side = 1536
+    model = init_weights(DepthProLarge(dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        head = model.head[4]
+        head.weight.mul_(0.1)
+        head.bias.mul_(0.1).add_(3.0)
+    state = training.create_train_state(model.cuda())
+    config = training.TrainConfig(compute_dtype=torch.bfloat16)
+    data = synthetic_batch(1, side, side, SEED + 31, "cuda")
+    dcl = torch.tensor(5.0, device="cuda")
+    _reset_launch_counts()
+    before = (sgd_update.LAUNCHES["sgd_update"], sgd_update.RESTRIDED,
+              depth_anything.LAUNCHES["attention"], depth_pro.LAUNCHES["tiles"])
+    _, metrics = training.train_step(state, data, dcl, config)
+    torch.cuda.synchronize()
+    launches = {**_launch_counts(), "sgd_update": sgd_update.LAUNCHES["sgd_update"] - before[0],
+                "restrided": sgd_update.RESTRIDED - before[1],
+                "attention": depth_anything.LAUNCHES["attention"] - before[2],
+                "tiles": depth_pro.LAUNCHES["tiles"] - before[3]}
+    params = state.params
+    print(f"  one step [{card}]: loss {float(metrics['loss']):.6f}, launches {launches}, "
+          f"{len(params)} tensors, {sum(p.numel() for p in params):,} parameters")
+    want = {"dense_conv_fwd": 0, "warp_sample_fwd": 1, "warp_sample_bwd": 1,
+            **dict.fromkeys(block_engine.LAUNCHES, 0), "sgd_update": 1, "restrided": 0,
+            "attention": 48, "tiles": 70}
+    if launches != want or len(params) != 763 or not torch.isfinite(metrics["loss"]):
+        raise AssertionError(f"the Depth Pro step left its path: {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    ms = _cuda_ms(lambda: losses.append(training.train_step(state, data, dcl, config)[1]["loss"]),
+                  iters=steps, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    print(f"  {steps} steps [{card}]: {ms:.2f} ms a step (CUDA events), "
+          f"{1 / ms * 1e3:.3f} samples/s, peak {peak / 2**30:.3f} GiB; losses "
+          f"{losses[0]:.6f} .. {losses[-1]:.6f}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    table = _step_profile(lambda: training.train_step(state, data, dcl, config), card)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "depth_pro.pt"
+        ckpt.save_checkpoint(path, state, 0, 0.0)
+        del state, data
+        torch.cuda.empty_cache()
+        sequence = synthetic_sequence(256, 320)
+        predictor = DepthPredictor(path, sequence, batch_size=1, downsampling=1.0,
+                                   architecture="depth_pro")
+        frame = synthetic_frames(1, 256, 320, SEED + 32)[0]
+        tiles = depth_pro.LAUNCHES["tiles"]
+        depth = predictor.predict_frame(frame)
+        frame_ms = _cuda_ms(lambda: predictor.predict_frame(frame), iters=5, warmup=1)
+        tiles = (depth_pro.LAUNCHES["tiles"] - tiles) / 7
+    print(f"  predictor [{card}]: 256x320 crop through 1536x1536, {frame_ms:.2f} ms a frame, "
+          f"{tiles:g} tiles a frame, depth {depth.shape} in [{depth.min():.4f}, "
+          f"{depth.max():.4f}]")
+    if depth.shape != (256, 320) or not np.isfinite(depth).all() or tiles != 35:
+        raise AssertionError("the Depth Pro predictor left its path")
+    del predictor, model
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_bytes": peak, "frame_ms": frame_ms, **table}
 
 
 def main() -> int:
@@ -2928,6 +3015,8 @@ def main() -> int:
         aux = aux_phase(card, config, trained["data"], trained["checkpoints"], work)
     print(f"Depth Anything V2 phase, {card}:")
     depth_anything_phase(card)
+    print(f"Depth Pro phase, {card}:")
+    depth_pro_phase(card)
     for part in (trained, evaluated, unet, spread, world1, aux):
         for name, n in part["launches"].items():
             launches[name] += n

@@ -180,35 +180,42 @@ class Block(nn.Module):
 
 
 class DinoVisionTransformer(nn.Module):
-    """The DINOv2 encoder; ``forward(x, take)`` returns the normalized patch
-    tokens (B, rows * cols, C) after each block in ``take``."""
+    """The DINOv2 encoder at ``patch`` pixels a patch, its position
+    embedding stored for the img_size / patch grid; ``forward(x, take,
+    raw)`` returns the normalized patch tokens (B, rows * cols, C) after
+    each block in ``take``, then the raw ones (no final LayerNorm) after
+    each block in ``raw``."""
 
     def __init__(self, img_size: int, embed_dim: int, depth: int, num_heads: int,
-                 mlp_ratio: float = 4.0, init_values: float = 1.0):
+                 mlp_ratio: float = 4.0, init_values: float = 1.0, patch: int = PATCH):
         super().__init__()
-        grid = img_size // PATCH
-        self.patch_embed = PatchEmbed(embed_dim)
+        self.patch = patch
+        grid = img_size // patch
+        self.patch_embed = PatchEmbed(embed_dim, patch)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + grid * grid, embed_dim))
         self.blocks = nn.ModuleList(Block(embed_dim, num_heads, mlp_ratio, init_values)
                                     for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor, take: Sequence[int]) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, take: Sequence[int],
+                raw: Sequence[int] = ()) -> List[torch.Tensor]:
         b = x.shape[0]
-        rows, cols = x.shape[-2] // PATCH, x.shape[-1] // PATCH
+        rows, cols = x.shape[-2] // self.patch, x.shape[-1] // self.patch
         patches = _conv(x, self.patch_embed.proj)            # (B, C, rows, cols)
         patches = patches.permute(0, 2, 3, 1).reshape(b, rows * cols, -1)
         tokens = torch.cat([self.cls_token.to(x.dtype).expand(b, -1, -1), patches], 1)
         tokens = tokens + interpolate_pos_embed(self.pos_embed, rows, cols).to(x.dtype)
-        out = []
+        out, taps = [], []
         fused = sdpa_kernel(FUSED_ATTENTION) if x.is_cuda else contextlib.nullcontext()
         with fused:
             for i, block in enumerate(self.blocks):
                 tokens = block(tokens)
                 if i in take:
                     out.append(_layer_norm(tokens, self.norm)[:, 1:])
-        return out
+                if i in raw:
+                    taps.append(tokens[:, 1:])
+        return out + taps
 
 
 class ResidualConvUnit(nn.Module):
@@ -309,17 +316,23 @@ class DepthAnythingV2(nn.Module):
 FCDENSENET_FLAGS = ("act8", "remat", "block_engine")
 
 
+def refuse_fcdensenet_flags(network: str, n_classes: int, flags) -> None:
+    """A transformer builder's refusals: the FC-DenseNet flags (``act8``,
+    ``remat``, ``block_engine``) when set, and more than one channel."""
+    given = [f"--{f}" for f in FCDENSENET_FLAGS if flags.get(f)]
+    if given:
+        raise ValueError(f"{', '.join(given)} applies only to FC-DenseNet, not to "
+                         f"{network}")
+    if n_classes != 1:
+        raise ValueError(f"{network} predicts one channel, not {n_classes}")
+
+
 def DepthAnythingV2Large(n_classes: int = 1, dtype=torch.float32, **flags) -> DepthAnythingV2:
     """``model_configs['vitl']``: ViT-L/14 (1024 wide, 24 blocks, 16 heads),
     layers 4, 11, 17, 23, DPT features 256, out_channels 256, 512, 1024,
     1024. The FC-DenseNet flags (``act8``, ``remat``, ``block_engine``)
     do not apply to it and are refused when set."""
-    given = [f"--{f}" for f in FCDENSENET_FLAGS if flags.get(f)]
-    if given:
-        raise ValueError(f"{', '.join(given)} applies only to FC-DenseNet, not to "
-                         f"Depth Anything V2")
-    if n_classes != 1:
-        raise ValueError(f"Depth Anything V2 predicts one channel, not {n_classes}")
+    refuse_fcdensenet_flags("Depth Anything V2", n_classes, flags)
     return DepthAnythingV2(dtype=dtype)
 
 

@@ -32,7 +32,7 @@ import torch
 from . import training
 from .data import preprocess
 from .data.augment import normalize_color
-from .models import ARCHITECTURES
+from .models import ARCHITECTURES, fixed_input_size
 from .ops import _libtorch_build
 from .utils import checkpoint as ckpt
 from .utils import profiling
@@ -93,6 +93,26 @@ class _MaskedDepth(torch.nn.Module):
         return self.model(x).permute(0, 2, 3, 1) * self.boundary
 
 
+class _Resized(torch.nn.Module):
+    """A network that takes one input size only (``models.fixed_input_size``),
+    behind bilinear resizes (align_corners False) of the colors to that
+    size and of the depth back to the colors' (Depth Pro's ``infer``)."""
+
+    def __init__(self, model: torch.nn.Module, size):
+        super().__init__()
+        self.model = model
+        self.size = tuple(size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        size = tuple(x.shape[-2:])
+        if size == self.size:
+            return self.model(x)
+        depth = self.model(torch.nn.functional.interpolate(
+            x, size=self.size, mode="bilinear", align_corners=False))
+        return torch.nn.functional.interpolate(depth, size=size, mode="bilinear",
+                                               align_corners=False)
+
+
 class DepthPredictor:
     """Checkpoint-backed depth inference on one sequence's calibration.
 
@@ -101,7 +121,9 @@ class DepthPredictor:
     ``models.ARCHITECTURES``, the network the checkpoint holds. Parameters
     and BN statistics stay float32 on ``device`` (the CUDA card unless the
     caller asks for another, such as ``"cpu"``); activations run in
-    ``dtype``.
+    ``dtype``. A network that takes one input size only (Depth Pro's
+    1536x1536) sees each frame resized to it, and its depth is resized
+    back to the crop.
     """
 
     def __init__(self, checkpoint_path, sequence: preprocess.SequenceData,
@@ -117,6 +139,9 @@ class DepthPredictor:
 
         model = ARCHITECTURES[architecture](n_classes=1, dtype=dtype)
         ckpt.load_any_checkpoint(checkpoint_path, model)
+        fixed = fixed_input_size(architecture)
+        if fixed is not None:
+            model = _Resized(model, fixed)
         self.model = model.to(self.device).eval()
 
         boundary = (sequence.mask_boundary.astype(np.float32) / 255.0 > 0.9)

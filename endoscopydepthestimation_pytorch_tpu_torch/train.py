@@ -18,8 +18,10 @@ through the block engine (``--architecture unet`` runs PyTorch's convs and
 the warp sampler's kernels only; ``--architecture depth_anything_v2_vitl``,
 Depth Anything V2-Large, PyTorch's convs and matmuls and fused attention,
 and needs ``--network_downsampling 14`` or a multiple, so that the crop's
-sides are multiples of its 14-pixel patches); batches reach the card
-through ``parallel.device_prefetch``.
+sides are multiples of its 14-pixel patches; ``--architecture depth_pro``,
+Depth Pro, the same kernels, and takes ``--input_size 1536 1536`` only,
+its one input size); batches reach the card through
+``parallel.device_prefetch``.
 
 It runs on the CUDA card unless ``--device cpu`` asks for the CPU, and
 raises without a card. Flags for what the port does not carry, or has not
@@ -201,8 +203,9 @@ def _refuse_unported(args) -> None:
 
 def _check_architecture(args) -> None:
     """The architecture's own refusals, before any data is read: its
-    builder, run on the meta device, refuses flags it has no use for, and
-    the crops must be whole multiples of its ``crop_multiple``."""
+    builder, run on the meta device, refuses flags it has no use for, the
+    input size must be its fixed one where it has one, and the crops must
+    be whole multiples of its ``crop_multiple``."""
     with torch.device("meta"):
         ARCHITECTURES[args.architecture](n_classes=1, act8=args.act8, remat=args.remat,
                                          block_engine=args.block_engine)
