@@ -48,7 +48,11 @@ to the CPU or to a kernel's plain version):
      entry's copy bitwise x and its moments within 2e-6 of an f64 mean,
      dx bitwise its plain version's, repeats bitwise, and each kernel's
      time alone beside the PyTorch chain it replaced and its bytes bound;
-     then the optimizer kernel against its plain loop on the gradients of one
+     then the glue kernels between the engine's launches (``glue_phase``;
+     alone the same way) over one FC-DenseNet-103 and one FCDenseNet-57
+     step's glue launches on random partials: their time alone beside the
+     plain twins' and their bytes bound; then the optimizer kernel
+     against its plain loop on the gradients of one
      FC-DenseNet-103 and one FCDenseNet-57 train step, and its time
      through the wrapper and alone beside the loop's and its bytes bound;
   6. serving: ``DepthPredictor`` on a seeded reference-format ``.pt`` and
@@ -256,14 +260,22 @@ def dense_block_shapes(height: int, width: int) -> list:
     return [dense_layer_shapes(height, width)[i] for i in range(0, 44, 4)]
 
 
-def engine_launches(forwards: int, backwards: int, layers: int = 44, blocks: int = 11) -> dict:
-    """``block_engine.LAUNCHES`` moved by ``forwards`` train-mode forwards
-    and ``backwards`` backwards of a network of ``layers`` dense layers in
+def engine_launches(forwards: int, backwards: int, layers: int = 44, blocks: int = 11,
+                    replays: int = 0, ranks: int = 1) -> dict:
+    """``block_engine.LAUNCHES`` moved by ``forwards`` train-mode forwards,
+    ``replays`` forwards replayed in a backward (act8, remat) and
+    ``backwards`` backwards of a network of ``layers`` dense layers in
     ``blocks`` blocks (FCDenseNet-57 by default): K4 a layer and the entry
-    a block a forward, K5 and K6 a layer and the exit a block a backward."""
-    return {"block_engine_fwd": layers * forwards, "block_engine_dinput": layers * backwards,
-            "block_engine_dweight": layers * backwards, "block_engine_entry": blocks * forwards,
-            "block_engine_exit": blocks * backwards}
+    a block a forward or replay, K5 and K6 a layer and the exit a block a
+    backward; the glue once a block and once a layer (twice in a process
+    group of ``ranks`` > 1) in each direction, the running statistics once
+    a block a forward (not a replay)."""
+    runs, glue = forwards + replays, blocks + (2 if ranks > 1 else 1) * layers
+    return {"block_engine_fwd": layers * runs, "block_engine_dinput": layers * backwards,
+            "block_engine_dweight": layers * backwards, "block_engine_entry": blocks * runs,
+            "block_engine_exit": blocks * backwards, "block_engine_glue_fwd": glue * runs,
+            "block_engine_glue_bwd": glue * backwards,
+            "block_engine_running_stats": blocks * forwards}
 
 
 def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
@@ -894,7 +906,7 @@ def _engine_layer_check(buf32, grad32, c: int, f: int, layer: tuple,
         buf, grad, w_t = buf32.to(dtype), grad32.to(dtype), wk.to(dtype)
         e = []
         got_b, ref_b = buf.clone(), buf.clone()
-        got = block_engine.layer_forward(got_b, c, scale, shift, w_t, bias)
+        got = block_engine.layer_forward(got_b, c, scale, shift, w_t, bias).sum(1)
         ref = block_engine.layer_forward_reference(ref_b, c, scale, shift, w_t, bias)
         e.append(max(_engine_err(got_b[..., c:c + f], ref_b[..., c:c + f], dtype,
                                  max_abs, names[0]), _engine_err(got, ref, dtype)))
@@ -907,7 +919,9 @@ def _engine_layer_check(buf32, grad32, c: int, f: int, layer: tuple,
         k5 = []
         for grad0 in grads:
             got_g, ref_g = grad0.clone(), grad0.clone()
-            got = block_engine.layer_dinput(got_g, buf, c, scale, shift, w_t, c1, c2)
+            part, part_bias = block_engine.layer_dinput(got_g, buf, c, scale, shift, w_t,
+                                                        c1, c2)
+            got = (*part.sum(1), part_bias.sum(0))
             ref = block_engine.layer_dinput_reference(ref_g, buf, c, scale, shift, w_t,
                                                       c1, c2)
             k5 += [_engine_err(got_g[..., :c], ref_g[..., :c], dtype, max_abs, names[1])]
@@ -1172,6 +1186,203 @@ def boundary_phase(card: str, batch: int = 16, height: int = 256, width: int = 3
                 and moments <= 2e-6):
             raise AssertionError(f"the boundary kernels failed their checks at {name}")
         del x, buf, grad
+    return results
+
+
+def _sum_err(got, ref, part, dim) -> float:
+    """The largest difference of two f32 sums of the same partials in two
+    orders, as a share of the partials' absolute sum."""
+    return float(((got - ref).abs() / part.abs().sum(dim)).max())
+
+
+def _same(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _glue_block_checks(mu, m2, c1, c2, c0, f, n, params, pairs, fresh) -> list:
+    """A block's once-a-block glue launches against their twins, bitwise,
+    on clones: the forward's first call (the entry's moments into mu, m2
+    and layer 0's fold and kernel cast), the backward's start (C1, C2 and
+    the top layer's fold and cast) and the running statistics of every
+    layer (``pairs``). Returns the names of those that differ."""
+    failed = []
+    for kernel, plain, name in (
+            (block_engine.glue_forward, block_engine.glue_forward_reference, "forward start"),
+            (block_engine.glue_backward_start, block_engine.glue_backward_start_reference,
+             "backward start"),
+            (block_engine.running_stats, block_engine.running_stats_reference,
+             "running statistics")):
+        runs = []
+        for glue in (kernel, plain):
+            if name == "forward start":
+                state = [mu.clone(), m2.clone()]
+                runs.append(state + list(glue(*state, 0, torch.stack([mu[:c0], m2[:c0]]), n,
+                                              block_engine.FINISH, params[0], fresh())))
+            elif name == "backward start":
+                state = [c1.clone(), c2.clone()]
+                runs.append(state + list(glue(mu, m2, *state, mu, m2, n, params[-1], fresh())))
+            else:
+                state = [(a.clone(), b.clone()) for a, b in pairs]
+                glue(state, mu, m2, c0, f, 0.9)
+                runs.append([t for pair in state for t in pair])
+        if not _same(*runs):
+            failed.append(name)
+    return failed
+
+
+def _glue_layer_checks(mu, m2, c1, c2, c, f, n, part, stats, gamma, nxt, prev,
+                       fresh) -> tuple:
+    """One dense layer's glue (prefix c, growth f) against its twins, on
+    clones: the forward after K4 (``part``, K4's partials) and the backward
+    after K5 (``stats``, K5's partials). Returns the failed checks' names
+    and the sums' largest error as a share of their partials' absolute
+    sum. The sums (the statistics, dbeta, the bias gradient, the (sum
+    dpre*x, sum dpre)) may differ from the twins' in their order; what is
+    computed from them (the next layer's fold and kernel cast, dgamma, the
+    (C1, C2) updates) must be bitwise the twins' given the kernel's sums,
+    and a REDUCE-alone call's sums bitwise the one-call's."""
+    reduce, finish = block_engine.REDUCE, block_engine.FINISH
+    failed = []
+    mu_k, m2_k = mu.clone(), m2.clone()
+    folded = block_engine.glue_forward(mu_k, m2_k, c, part, n, reduce | finish, nxt, fresh())
+    mu_t, m2_t = mu.clone(), m2.clone()
+    block_engine.glue_forward_reference(mu_t, m2_t, c, part, n, reduce | finish, None, None)
+    err = max(_sum_err(mu_k[c:c + f] * n, mu_t[c:c + f] * n, part[0], 0),
+              _sum_err(m2_k[c:c + f] * n, m2_t[c:c + f] * n, part[1], 0))
+    moments = block_engine.glue_forward(mu.clone(), m2.clone(), c, part, n, reduce, None,
+                                        fresh())
+    if not (torch.equal(mu_k[:c], mu[:c]) and torch.equal(mu_k[c + f:], mu[c + f:])
+            and torch.equal(m2_k[:c], m2[:c]) and torch.equal(m2_k[c + f:], m2[c + f:])):
+        failed.append("forward: channels outside the layer's moved")
+    if not torch.equal(moments, torch.stack([mu_k[c:c + f], m2_k[c:c + f]])):
+        failed.append("forward: REDUCE alone differs from the one call")
+    if nxt is not None and not _same(folded, block_engine._fold_next(mu_k, m2_k, nxt, fresh())):
+        failed.append("forward: the next layer's fold or kernel cast")
+
+    grads = [torch.empty(k, device=mu.device) for k in (c, c, f)]
+    c1_k, c2_k = c1.clone(), c2.clone()
+    folded = block_engine.glue_backward(mu, m2, c1_k, c2_k, c, stats, n, reduce | finish,
+                                        gamma, grads, prev, fresh())
+    alone = [torch.empty(k, device=mu.device) for k in (c, c, f)]
+    sums = block_engine.glue_backward(mu, m2, c1.clone(), c2.clone(), c, stats, n, reduce,
+                                      gamma, alone, None, fresh())
+    err = max(err, _sum_err(sums, stats[0].sum(1), stats[0], 1),
+              _sum_err(grads[2], stats[1].sum(0), stats[1], 0))
+    if not (_same(alone, grads) and torch.equal(sums[1], grads[1])):
+        failed.append("backward: REDUCE alone differs from the one call")
+    inv = torch.rsqrt(m2[:c] - mu[:c].square() + block_engine.EPS)
+    if not torch.equal(grads[0], inv * (sums[0] - mu[:c] * sums[1])):
+        failed.append("backward: dgamma")
+    c1_t, c2_t = c1.clone(), c2.clone()
+    twin = block_engine.glue_backward_reference(mu, m2, c1_t, c2_t, c, sums, n, finish, gamma,
+                                                None, prev, fresh())
+    if not _same((c1_t, c2_t), (c1_k, c2_k)):
+        failed.append("backward: the (C1, C2) update")
+    if prev is not None and not _same(folded, twin):
+        failed.append("backward: the previous layer's fold or kernel cast")
+    return failed, err
+
+
+def glue_phase(card: str, batch: int = 16, height: int = 256, width: int = 320) -> dict:
+    """The engine's glue kernels in bf16 over every dense block of
+    FC-DenseNet-103 and FCDenseNet-57 at 2B = 16 256x320, on random partials
+    of K4's and K5's shapes. First each launch against its plain twin (the
+    PyTorch expressions it replaced) on cloned inputs: every layer's glue in
+    both directions as ``_glue_layer_checks`` holds it (its sums within
+    1e-5 of the partials' absolute sum, the rest bitwise), each block's
+    first forward call, backward start and running statistics bitwise.
+    Raises on any mismatch. Then one train step's glue launches (each
+    direction once a block and once a layer, the running statistics once a
+    block): their device time alone (CUDA graph replay of each launch,
+    summed) beside the twins', and the bytes bound: every partial, vector
+    and kernel element read once and every output written once."""
+    reduce_finish, finish = block_engine.REDUCE | block_engine.FINISH, block_engine.FINISH
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    dev = dict(device="cuda")
+    results = {}
+    for net, kwargs in (("fcdensenet103", dict(down=(4, 5, 7, 10, 12), up=(12, 10, 7, 5, 4),
+                                               bottleneck=15, growth=16)),
+                        ("fcdensenet57", {})):
+        sizes = (*kwargs.get("down", (4,) * 5), kwargs.get("bottleneck", 4),
+                 *kwargs.get("up", (4,) * 5))
+        layers, f = dense_layer_shapes(height, width, **kwargs), kwargs.get("growth", 12)
+        ms, launches, n_bytes = {"glue": 0.0, "glue_plain": 0.0}, 0, 0
+        failed, sums_err, checked = [], 0.0, 0
+        for first, n_layers in zip(np.cumsum((0,) + sizes[:-1]), sizes):
+            h, w, c0 = layers[first]
+            n, ctot = batch * h * w, c0 + n_layers * f
+            mu = torch.randn(ctot, generator=g, **dev) * 0.5
+            m2 = mu.square() + 1
+            params = [(torch.rand(c0 + j * f, generator=g, **dev) + 0.5,
+                       torch.randn(c0 + j * f, generator=g, **dev) * 0.1,
+                       torch.randn(f, c0 + j * f, 3, 3, generator=g, **dev).permute(2, 3, 1, 0))
+                      for j in range(n_layers)]
+            c1, c2 = (torch.randn(ctot, generator=g, **dev) * 0.1 for _ in range(2))
+            out = block_engine.GlueBuffers.empty(ctot - f, f, torch.bfloat16, "cuda")
+            pairs = [(torch.randn(c0 + j * f, generator=g, **dev),
+                      torch.rand(c0 + j * f, generator=g, **dev) + 0.5)
+                     for j in range(n_layers)]
+
+            def fresh():
+                return block_engine.GlueBuffers.empty(ctot - f, f, torch.bfloat16, "cuda")
+
+            failed += [f"the block at layer {first}: {what}"
+                       for what in _glue_block_checks(mu, m2, c1, c2, c0, f, n, params, pairs,
+                                                      fresh)]
+            checked += 3
+
+            def fold_bytes(c):  # gamma, beta, the f32 kernel in; scale, shift, bf16 kernel out
+                return 16 * c + 9 * c * f * 6
+
+            calls = [((block_engine.glue_forward, block_engine.glue_forward_reference),
+                      (mu, m2, 0, torch.stack([mu[:c0], m2[:c0]]), n, finish, params[0], out),
+                      16 * c0 + fold_bytes(c0)),
+                     ((block_engine.glue_backward_start,
+                       block_engine.glue_backward_start_reference),
+                      (mu, m2, c1, c2, mu, m2, n, params[-1], out),
+                      24 * ctot + fold_bytes(ctot - f)),
+                     ((block_engine.running_stats, block_engine.running_stats_reference),
+                      (pairs, mu, m2, c0, f, 0.9), sum(24 * p[0].numel() for p in pairs))]
+            for j in range(n_layers):
+                c = c0 + j * f
+                tile = block_engine.forward_tiling(torch.bfloat16, batch, h, w, c)[:2]
+                part = torch.randn(2, block_engine._n_part(batch, h, w, *tile), f,
+                                   generator=g, **dev).abs()
+                nxt = params[j + 1] if j + 1 < n_layers else None
+                calls.append(((block_engine.glue_forward, block_engine.glue_forward_reference),
+                              (mu, m2, c, part, n, reduce_finish, nxt, out),
+                              4 * part.numel() + 16 * c + (fold_bytes(c + f) if nxt else 0)))
+                tile = block_engine.dinput_tiling(torch.bfloat16, batch, h, w, c)[:2]
+                n_part = block_engine._n_part(batch, h, w, *tile)
+                stats = (torch.randn(2, n_part, c, generator=g, **dev),
+                         torch.randn(n_part, f, generator=g, **dev))
+                grads = [torch.empty(k, **dev) for k in (c, c, f)]
+                prev = params[j - 1] if j > 0 else None
+                bad, err = _glue_layer_checks(mu, m2, c1, c2, c, f, n, part, stats,
+                                              params[j][0], nxt, prev, fresh)
+                failed += [f"layer {first + j}: {what}" for what in bad]
+                sums_err, checked = max(sums_err, err), checked + 2
+                calls.append(((block_engine.glue_backward, block_engine.glue_backward_reference),
+                              (mu, m2, c1, c2, c, stats, n, reduce_finish, params[j][0], grads,
+                               prev, out),
+                              4 * (stats[0].numel() + stats[1].numel()) + 36 * c + 4 * f
+                              + (fold_bytes(c - f) if prev else 0)))
+            for (kernel, plain), args, moved in calls:
+                ms["glue"] += _graph_ms(lambda: kernel(*args))
+                ms["glue_plain"] += _graph_ms(lambda: plain(*args))
+                launches += 1
+                n_bytes += moved
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        results[net] = {"checked": checked, "failed": failed, "sums_err": sums_err,
+                        "launches": launches, **{f"{k}_ms": round(v, 4) for k, v in ms.items()},
+                        "bound_ms": round(bound, 4), "bytes": n_bytes,
+                        "hbm_pct": round(100 * bound / ms["glue"], 2)}
+        print(f"  glue a {net} step, bf16 b{batch // 2} pairs {height}x{width}: "
+              f"{json.dumps(results[net])} ({card})")
+        if failed or not sums_err <= 1e-5:
+            raise AssertionError(f"the glue kernels failed their checks in {net}: {failed[:8]}, "
+                                 f"sums {sums_err:.3e} of their partials' absolute sum "
+                                 f"(limit 1e-5)")
     return results
 
 
@@ -2367,7 +2578,7 @@ def two_rank_phase(card: str, tmp: Path) -> dict:
     a, b = ranks
     expected = {"dense_conv_fwd": 0, "warp_sample_fwd": DIST_STEPS,
                 "warp_sample_bwd": DIST_STEPS,
-                **engine_launches(DIST_STEPS, DIST_STEPS)}
+                **engine_launches(DIST_STEPS, DIST_STEPS, ranks=2)}
     same = (all(torch.equal(a["model"][k], v) for k, v in b["model"].items())
             and all(torch.equal(x, y) for x, y in zip(a["momentum"], b["momentum"]))
             and (a["count"], a["step"]) == (b["count"], b["step"]) == (DIST_STEPS,) * 2
@@ -2658,9 +2869,9 @@ def store_phase(card: str, config, steps: int = 10) -> dict:
 
     engine = runs["engine"]
     for store, run in runs.items():
-        forwards = 2 * steps if store in ("act8 replay", "remat") else steps
+        replays = steps if store in ("act8 replay", "remat") else 0
         expected = {"dense_conv_fwd": 0, "warp_sample_fwd": steps, "warp_sample_bwd": steps,
-                    **engine_launches(forwards, steps)}
+                    **engine_launches(steps, steps, replays=replays)}
         first_loss_same = bool(torch.equal(run["losses"][0], engine["losses"][0])
                                and torch.equal(run["loss0"], engine["loss0"]))
         stats_same = all(torch.equal(run["stats"][k], v) for k, v in engine["stats"].items())
@@ -2699,7 +2910,7 @@ def store_trainer_phase(card: str, data: Path, tmp: Path) -> dict:
         torch.cuda.synchronize()
         counted = _launch_counts()
         expected = _trainer_expected(steps, evals)
-        for name, n in engine_launches(steps, 0).items():  # the backward's replays
+        for name, n in engine_launches(0, 0, replays=steps).items():  # the backward's replays
             expected[name] += n
         (path,) = run.checkpoints
         loaded = _check_checkpoint(path)
@@ -2942,6 +3153,8 @@ def main() -> int:
     engine = engine_kernel_phase(card)
     print(f"boundary phase, {card}:")
     boundary_phase(card)
+    print(f"glue phase, {card}:")
+    glue_phase(card)
     print(f"optimizer phase, {card}:")
     optimizer_phase(card)
 

@@ -31,6 +31,23 @@
 //                            grad[..., :C0] and buf[..., :C0], into a
 //                            contiguous (B, H, W, C0) tensor
 //
+// and the per-channel glue between those launches (one launch each at
+// world size 1; REDUCE and FINISH as two around a process group's
+// all-reduce):
+//
+//   block_engine_glue_fwd    after K4: its partials summed (spread across
+//                            the SMs, the chunks' sums summed in order by
+//                            the last block of a channel group), /n into
+//                            the block's (mu, m2); the next layer's BN fold
+//                            and its kernel cast to HWIO in T
+//   block_engine_glue_bwd    after K5 and K6: its partials summed into
+//                            dgamma, dbeta, dbias; the (C1, C2) update in
+//                            place; the previous layer's fold and kernel
+//   block_engine_glue_bwd_start  before the top layer: C1, C2 = gmu/n,
+//                            2*gm2/n and the top layer's fold and kernel
+//   block_engine_running_stats  once a block: every layer's running
+//                            statistics, 0.9*r + 0.1*stat
+//
 // Replaces the Pallas TPU kernels endoscopydepthestimation_pytorch_tpu/ops/
 // block_engine.py `_fwd_kernel` (:332, launched by `_layer_fwd` :464),
 // `_bwd1_kernel` (:642, `_layer_bwd1` :797) and `_bwd2_kernel` (:919,
@@ -143,6 +160,20 @@
 //       order, the blocks' partials in block order: bitwise repeatable. The
 //       exit rounds each step as the plain expression does (__fadd_rn,
 //       __fmul_rn: never an FMA), so dx is bitwise the plain version's.
+//   The glue (both dtypes; T only for the cast kernel): a few kilobytes of
+//       vectors, plus K4's and K5's partials (up to ~16 MB at 256x320, read
+//       once). A reduction block takes a chunk of at least 32 rows of one
+//       plane's columns of a group of 64 channels, lanes of 256 threads
+//       striding the rows (each lane's rows in order, then the lanes in
+//       order), writes its sums to a scratch row; about 264 blocks in all.
+//       The last block of a group to count itself in (a __device__ counter
+//       per group, which that block sets back to 0) sums the scratch rows in
+//       chunk order and finishes the group's channels. What waits for no sum
+//       (the folds of settled channels, the kernel cast) runs in every
+//       block, grid-stride. Every step rounds as PyTorch's CUDA kernels do:
+//       separate products and sums, rsqrtf, a division by n as the product
+//       with the f32 1/n; so the folds, casts and (C1, C2) updates are bitwise
+//       the plain expressions on the card given the same sums.
 
 #include <atomic>
 #include <climits>
@@ -1313,6 +1344,332 @@ __global__ void __launch_bounds__(NTB, 3) boundary_exit_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The glue between a block's launches: the per-channel vector math of its
+// layers (the statistics from K4's sums, the BN folds, the weight casts, the
+// BN gradients and the (C1, C2) updates from K5's sums, the running
+// statistics). Every step is rounded as the plain PyTorch expression on the
+// card rounds it (__fmul_rn, __fadd_rn, __fsub_rn: never an FMA; a division
+// by the pixel count n is a product with the f32 1/n, as PyTorch's CUDA
+// division by a scalar computes it).
+
+constexpr int NTG = 256;           // threads a glue block
+constexpr int GLUE_BLOCKS = 264;   // a reduction's blocks, at most about (2 an SM)
+constexpr int GLUE_ROWS = 32;      // partial rows a reduction block takes, at least
+constexpr int GLUE_WIDTH = 64;     // channels a group of a reduction, at most
+constexpr int GLUE_GROUPS = 64;    // groups a reduction, at most: 63 of channels + the bias's
+constexpr int GLUE_CHANNELS = (GLUE_GROUPS - 1) * GLUE_WIDTH;  // a reduction's, at most
+constexpr int GLUE_REDUCE = 1, GLUE_FINISH = 2, GLUE_HEAD = 4;  // the kernels' phases
+constexpr float GLUE_EPS = 1e-5f;  // BatchNorm's
+
+// blocks of each group of a reduction that have finished, per direction;
+// the group's last block sets its count back to 0 for the next launch. So
+// two glue reductions of one direction on one device must never overlap:
+// the engine issues every launch on one stream (ops/block_engine.py,
+// `_glue_launch`), and a launch on a second stream that overlaps one of the
+// first would mix the two counts
+__device__ unsigned int glue_arrivals[2][GLUE_GROUPS];
+
+// A reduction of per-tile partials: planes 0 and 1 (n_part, nc) each (the
+// sums of K4 or K5 for nc channels) and plane 2 (n_part, nb) (K5's bias
+// sums; nb = 0 in the forward). Group g < groups takes the columns [g*width,
+// (g+1)*width) of planes 0 and 1, group `groups` plane 2; a segment is one
+// plane's part of a group, grid.y; grid.x splits the rows into chunks of
+// `rows`. scratch: (chunks, 2*nc + nb) float32, the chunks' sums.
+struct GlueLayout {
+  int groups, width, segments, chunks, rows;
+};
+
+// The fold of a layer's BatchNorm over its prefix [0, c) into (scale,
+// shift), and its kernel cast to the buffer's type: w_in[ky, kx, c, f] at
+// element strides s0..s3 (float32) into w_out (3, 3, c, F), contiguous. c = 0:
+// no layer.
+struct GlueFold {
+  const float* gamma;
+  const float* beta;
+  float* scale;
+  float* shift;
+  const float* w_in;
+  void* w_out;
+  int c, F, s0, s1, s2, s3;
+};
+
+// 1/sqrt(var + eps) with var = m2 - mu^2: the fold's and dgamma's
+__device__ __forceinline__ float bn_inv(float mu, float m2) {
+  return rsqrtf(__fadd_rn(__fsub_rn(m2, __fmul_rn(mu, mu)), GLUE_EPS));
+}
+
+__device__ __forceinline__ void fold_channel(const GlueFold& f, const float* mu,
+                                             const float* m2, int ch) {
+  const float scale = __fmul_rn(f.gamma[ch], bn_inv(mu[ch], m2[ch]));
+  f.scale[ch] = scale;
+  f.shift[ch] = __fsub_rn(f.beta[ch], __fmul_rn(mu[ch], scale));
+}
+
+template <typename T>
+__device__ void cast_weights(const GlueFold& f, long long first, long long step) {
+  const int n = 9 * f.c * f.F;  // below 2^31: the C entries check it
+  T* out = static_cast<T*>(f.w_out);
+  for (long long i = first; i < n; i += step) {
+    const int o = (int)i % f.F, c = (int)i / f.F % f.c, tap = (int)i / (f.F * f.c);
+    out[i] = from_float<T>(f.w_in[(long long)(tap / 3) * f.s0 + (tap % 3) * f.s1 +
+                                  (long long)c * f.s2 + (long long)o * f.s3]);
+  }
+}
+
+// this thread's index over the launch, and the launch's threads
+__device__ __forceinline__ long long glue_thread() {
+  return ((long long)blockIdx.y * gridDim.x + blockIdx.x) * NTG + threadIdx.x;
+}
+__device__ __forceinline__ long long glue_threads() {
+  return (long long)gridDim.x * gridDim.y * NTG;
+}
+
+// sum over q < lanes of s_red[q * width + t], in q order, for t < width
+__device__ __forceinline__ float lane_sum(const float* s_red, int lanes, int width, int t) {
+  float s = 0.f;
+  for (int q = 0; q < lanes; ++q) s += s_red[q * width + t];
+  return s;
+}
+
+// sum of load(i) over i = first, first + step, ... < end, in that order,
+// with GLUE_BATCH loads in flight: the chains are L2-latency bound
+constexpr int GLUE_BATCH = 8;
+
+template <typename Load>
+__device__ __forceinline__ float strided_sum(Load load, long long first, long long end,
+                                             long long step) {
+  float s = 0.f;
+  long long i = first;
+  for (; i + (GLUE_BATCH - 1) * step < end; i += GLUE_BATCH * step) {
+    float v[GLUE_BATCH];
+#pragma unroll
+    for (int u = 0; u < GLUE_BATCH; ++u) v[u] = load(i + u * step);
+#pragma unroll
+    for (int u = 0; u < GLUE_BATCH; ++u) s += v[u];
+  }
+  for (; i < end; i += step) s += load(i);
+  return s;
+}
+
+// Block (chunk, segment) sums its chunk's rows of its segment into scratch;
+// blocks with blockIdx.y >= segments take no part. The last block of a
+// group to finish then sums the group's columns of the chunks' sums, in
+// chunk order, into s_tot (planes 0 and 1: [0, w) and [w, 2w), w the
+// group's width; the bias's group: [0, nb)) and returns the group; every
+// other block returns -1. In a block, `lanes` threads share a column: lane
+// q takes the rows q, q + lanes, ... in order, and the lanes are summed in
+// lane order, so every sum has one fixed order.
+__device__ int glue_reduce(const float* __restrict__ p01, const float* __restrict__ p2, int n_part,
+                           int nc, int nb, const GlueLayout& l, float* __restrict__ scratch,
+                           unsigned int* arrivals, float* s_tot) {
+  __shared__ float s_red[NTG];
+  __shared__ bool s_last;
+  const int seg = blockIdx.y;
+  if (seg >= l.segments) return -1;
+  const bool bias = seg == 2 * l.groups;
+  const int grp = bias ? l.groups : seg % l.groups, plane = bias ? 2 : seg / l.groups;
+  const int col0 = bias ? 0 : grp * l.width, ld = bias ? nb : nc;
+  const int w = bias ? nb : min(l.width, nc - col0);
+  const float* src = bias ? p2 : p01 + (long long)plane * n_part * nc;
+  const int stride = 2 * nc + nb, base = plane * nc + col0;
+  const long long r0 = (long long)blockIdx.x * l.rows;
+  const long long r1 = min(r0 + l.rows, (long long)n_part);
+  for (int c0 = 0; c0 < w; c0 += NTG) {
+    const int wc = min(w - c0, NTG), lanes = NTG / wc;
+    const int lane = threadIdx.x / wc, col = col0 + c0 + threadIdx.x % wc;
+    s_red[threadIdx.x] =
+        lane < lanes ? strided_sum([&](long long r) { return src[r * ld + col]; }, r0 + lane,
+                                   r1, lanes)
+                     : 0.f;
+    __syncthreads();
+    if (threadIdx.x < wc)
+      scratch[(long long)blockIdx.x * stride + base + c0 + threadIdx.x] =
+          lane_sum(s_red, lanes, wc, threadIdx.x);
+    __syncthreads();
+  }
+  __threadfence();  // this block's sums reach L2 before it counts itself
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int blocks = (bias ? 1u : 2u) * gridDim.x;
+    s_last = atomicAdd(&arrivals[grp], 1u) + 1u == blocks;
+    if (s_last) arrivals[grp] = 0u;  // every block of the group has counted
+  }
+  __syncthreads();
+  if (!s_last) return -1;
+  __threadfence();
+  const int gw = bias ? nb : min(l.width, nc - grp * l.width), nv = bias ? nb : 2 * gw;
+  for (int i0 = 0; i0 < nv; i0 += NTG) {
+    const int wc = min(nv - i0, NTG), lanes = NTG / wc;
+    const int lane = threadIdx.x / wc, i = i0 + threadIdx.x % wc;
+    const int col = bias ? 2 * nc + i : i < gw ? grp * l.width + i : nc + grp * l.width + i - gw;
+    s_red[threadIdx.x] =
+        lane < lanes ? strided_sum([&](long long k) { return __ldcg(scratch + k * stride + col); },
+                                   lane, gridDim.x, lanes)
+                     : 0.f;
+    __syncthreads();
+    if (threadIdx.x < wc) s_tot[i] = lane_sum(s_red, lanes, wc, threadIdx.x);
+    __syncthreads();
+  }
+  return grp;
+}
+
+// The forward's glue once a layer, after K4 (and once a block before the
+// first K4, with the entry's moments): the layer's statistics into the
+// block's (mu, m2) at [offset, offset + k), the next layer's fold and kernel.
+// REDUCE: sum K4's partials part (2, n_part, k), times 1/n; alone, write
+// them to moments (2, k) (a process group averages them between the two
+// calls). FINISH: the statistics (from the sums, else from moments) into
+// (mu, m2), then the fold and the cast of `next` (c = offset + k, or 0).
+struct GlueFwd {
+  const float* part;
+  float* moments;
+  float* mu;
+  float* m2;
+  float* scratch;
+  GlueFold next;
+  GlueLayout l;
+  int n_part, k, offset, flags;
+  float inv_n;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NTG) glue_forward_kernel(GlueFwd a) {
+  extern __shared__ float s_tot[];
+  if (a.flags & GLUE_FINISH) {
+    // what waits for no sum: the channels whose statistics are settled
+    const int settled = a.flags & GLUE_REDUCE ? a.offset : a.offset + a.k;
+    for (long long ch = glue_thread(); ch < settled; ch += glue_threads()) {
+      if (ch >= a.offset) {
+        a.mu[ch] = a.moments[ch - a.offset];
+        a.m2[ch] = a.moments[a.k + ch - a.offset];
+      }
+      if (ch < a.next.c) fold_channel(a.next, a.mu, a.m2, (int)ch);
+    }
+    cast_weights<T>(a.next, glue_thread(), glue_threads());
+  }
+  if (!(a.flags & GLUE_REDUCE) ||
+      glue_reduce(a.part, nullptr, a.n_part, a.k, 0, a.l, a.scratch, glue_arrivals[0], s_tot) < 0)
+    return;
+  for (int f = threadIdx.x; f < a.k; f += NTG) {
+    const float mean = __fmul_rn(s_tot[f], a.inv_n), mean2 = __fmul_rn(s_tot[a.k + f], a.inv_n);
+    if (!(a.flags & GLUE_FINISH)) {
+      a.moments[f] = mean;
+      a.moments[a.k + f] = mean2;
+      continue;
+    }
+    const int ch = a.offset + f;
+    a.mu[ch] = mean;
+    a.m2[ch] = mean2;
+    if (ch < a.next.c) fold_channel(a.next, a.mu, a.m2, ch);
+  }
+}
+
+// The backward's glue once a layer j, after K5 and K6 (and once a block
+// before the top layer's K5: HEAD, C1 = gmu/n and C2 = 2*gm2/n over the
+// block's ctot channels, and the top layer's fold and kernel). REDUCE: sum
+// K5's partials part (2, n_part, c) (sum dpre*x, sum dpre) and part_bias
+// (n_part, F) into this rank's dgamma = inv*(dsx - mu*dss), dbeta = dss and
+// the bias gradient; alone, write (dsx, dss) to sums (2, c) (a process
+// group sums them between the two calls). FINISH: with every rank's (dsx,
+// dss) (the sums, else `sums`), layer j's BN-through-statistics gradient
+// into C1 and C2 over [0, c), then the fold and the cast of `next` (layer
+// j - 1, or c = 0).
+struct GlueBwd {
+  const float* part;
+  const float* part_bias;
+  float* sums;
+  const float* gmu;
+  const float* gm2;
+  const float* mu;
+  const float* m2;
+  float* c1;
+  float* c2;
+  const float* gamma;
+  float* dgamma;
+  float* dbeta;
+  float* dbias;
+  float* scratch;
+  GlueFold next;
+  GlueLayout l;
+  int n_part, c, F, ctot, flags;
+  float inv_n;
+};
+
+// layer j's update of C1 and C2 at channel ch from every rank's (dsx, dss)
+__device__ __forceinline__ void update_c1_c2(const GlueBwd& a, int ch, float dsx, float dss) {
+  const float mu = a.mu[ch], inv = bn_inv(mu, a.m2[ch]), gamma = a.gamma[ch];
+  const float dgamma = __fmul_rn(inv, __fsub_rn(dsx, __fmul_rn(mu, dss)));
+  const float gi = __fmul_rn(gamma, inv);
+  a.c2[ch] = __fsub_rn(a.c2[ch], __fmul_rn(__fmul_rn(__fmul_rn(gi, inv), dgamma), a.inv_n));
+  const float d = __fsub_rn(__fmul_rn(__fmul_rn(inv, mu), dgamma), dss);
+  a.c1[ch] = __fadd_rn(a.c1[ch], __fmul_rn(__fmul_rn(gi, d), a.inv_n));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTG) glue_backward_kernel(GlueBwd a) {
+  extern __shared__ float s_tot[];
+  if (a.flags & (GLUE_FINISH | GLUE_HEAD)) {
+    const long long first = glue_thread(), step = glue_threads();
+    for (long long ch = first; ch < a.next.c; ch += step)
+      fold_channel(a.next, a.mu, a.m2, (int)ch);
+    cast_weights<T>(a.next, first, step);
+    if (a.flags & GLUE_HEAD)
+      for (long long ch = first; ch < a.ctot; ch += step) {
+        a.c1[ch] = __fmul_rn(a.gmu[ch], a.inv_n);
+        a.c2[ch] = __fmul_rn(__fmul_rn(2.0f, a.gm2[ch]), a.inv_n);
+      }
+    else if (!(a.flags & GLUE_REDUCE))
+      for (long long ch = first; ch < a.c; ch += step)
+        update_c1_c2(a, (int)ch, a.sums[ch], a.sums[a.c + ch]);
+  }
+  if (!(a.flags & GLUE_REDUCE)) return;
+  const int grp = glue_reduce(a.part, a.part_bias, a.n_part, a.c, a.F, a.l, a.scratch,
+                              glue_arrivals[1], s_tot);
+  if (grp < 0) return;
+  if (grp == a.l.groups) {
+    for (int f = threadIdx.x; f < a.F; f += NTG) a.dbias[f] = s_tot[f];
+    return;
+  }
+  const int first = grp * a.l.width, w = min(a.l.width, a.c - first);
+  for (int i = threadIdx.x; i < w; i += NTG) {
+    const int ch = first + i;
+    const float dsx = s_tot[i], dss = s_tot[w + i];
+    a.dgamma[ch] = __fmul_rn(bn_inv(a.mu[ch], a.m2[ch]), __fsub_rn(dsx, __fmul_rn(a.mu[ch], dss)));
+    a.dbeta[ch] = dss;
+    if (a.flags & GLUE_FINISH) {
+      update_c1_c2(a, ch, dsx, dss);
+    } else {
+      a.sums[ch] = dsx;
+      a.sums[a.c + ch] = dss;
+    }
+  }
+}
+
+// Once a block: every layer j's running statistics, r = 0.9*r + 0.1*stat
+// over its prefix [0, c0 + j*F), the variance the biased m2 - mu^2, from
+// the block's (mu, m2); keep and take are PyTorch's f32 roundings of the
+// momentum and of 1 - momentum. grid.y = the layers.
+constexpr int STATS_LAYERS = 32;  // layers a launch
+
+struct RunningStats {
+  float* mean[STATS_LAYERS];
+  float* var[STATS_LAYERS];
+};
+
+__global__ void __launch_bounds__(NTG) glue_running_stats_kernel(
+    RunningStats r, const float* __restrict__ mu, const float* __restrict__ m2, int c0, int F,
+    float keep, float take) {
+  const int j = blockIdx.y, c = c0 + j * F;
+  float* mean = r.mean[j];
+  float* var = r.var[j];
+  for (int ch = blockIdx.x * NTG + threadIdx.x; ch < c; ch += gridDim.x * NTG) {
+    const float m = mu[ch], v = __fsub_rn(m2[ch], __fmul_rn(m, m));
+    mean[ch] = __fadd_rn(__fmul_rn(keep, mean[ch]), __fmul_rn(take, m));
+    var[ch] = __fadd_rn(__fmul_rn(keep, var[ch]), __fmul_rn(take, v));
+  }
+}
+
 int tiles(int n, int t) { return (n + t - 1) / t; }
 
 bool bad_dims(int B, int H, int W, int C, int F, int ld) {
@@ -1541,6 +1898,59 @@ cudaError_t launch_exit(const BoundaryLayout& l, const void* grad, const void* b
   return cudaGetLastError();
 }
 
+// A glue reduction's layout for n_part rows of 2*nc + nb columns (nc at
+// most GLUE_CHANNELS: the C entries check it): groups of at most
+// GLUE_WIDTH channels, as even as they come, rows split into chunks of at
+// least GLUE_ROWS, about GLUE_BLOCKS blocks in all
+GlueLayout glue_layout(int n_part, int nc, int nb) {
+  const int width = tiles(nc, tiles(nc, GLUE_WIDTH));
+  const int groups = tiles(nc, width);
+  const int segments = 2 * groups + (nb > 0 ? 1 : 0);
+  const int cap = GLUE_BLOCKS / segments > 1 ? GLUE_BLOCKS / segments : 1;
+  int chunks = tiles(n_part, GLUE_ROWS);
+  if (chunks > cap) chunks = cap;
+  const int rows = tiles(n_part, chunks);
+  return {groups, width, segments, tiles(n_part, rows), rows};
+}
+
+// The grid of a glue launch: the reduction's blocks (chunks x segments)
+// and enough more rows of blocks for the work that waits for no sum
+// (`work` elements, about 4 a thread, at most GLUE_BLOCKS blocks); without
+// a reduction, those blocks alone
+dim3 glue_grid(bool reduce, const GlueLayout& l, long long work) {
+  long long want = (work + 4 * NTG - 1) / (4 * NTG);
+  if (want > GLUE_BLOCKS) want = GLUE_BLOCKS;
+  if (want < 1) want = 1;
+  if (!reduce) return dim3((unsigned)want, 1);
+  const long long rows = (want + l.chunks - 1) / l.chunks;
+  return dim3(l.chunks, rows > l.segments ? (unsigned)rows : l.segments);
+}
+
+bool glue_fold_ok(const GlueFold& f) {
+  return f.c == 0 || (f.c > 0 && f.F >= 1 && f.F <= MAX_GROWTH && 9LL * f.c * f.F <= INT_MAX &&
+                      f.gamma && f.beta && f.scale && f.shift && f.w_in && f.w_out);
+}
+
+long long fold_work(const GlueFold& f) { return 9LL * f.c * f.F; }
+
+template <typename T>
+cudaError_t launch_glue_fwd(const GlueFwd& a, cudaStream_t s) {
+  const long long work = fold_work(a.next) > a.offset + a.k ? fold_work(a.next) : a.offset + a.k;
+  const dim3 grid = glue_grid(a.flags & GLUE_REDUCE, a.l, work);
+  glue_forward_kernel<T><<<grid, NTG, 2 * a.l.width * sizeof(float), s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_glue_bwd(const GlueBwd& a, cudaStream_t s) {
+  long long work = fold_work(a.next);
+  if (a.ctot > work) work = a.ctot;
+  const int smem = (2 * a.l.width > a.F ? 2 * a.l.width : a.F) * (int)sizeof(float);
+  const dim3 grid = glue_grid(a.flags & GLUE_REDUCE, a.l, work);
+  glue_backward_kernel<T><<<grid, NTG, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1720,6 +2130,140 @@ int block_engine_exit(int dtype, const void* grad, const void* buf, const void* 
                            : launch_exit<__nv_bfloat16, 1>(l, grad, buf, a, b, dx, P, C0, ld, s));
   return (int)(l.vw == 4 ? launch_exit<float, 4>(l, grad, buf, a, b, dx, P, C0, ld, s)
                          : launch_exit<float, 1>(l, grad, buf, a, b, dx, P, C0, ld, s));
+}
+
+// The glue: dtype as above for the cast weights w_out; every other tensor
+// float32 and contiguous. flags: GLUE_REDUCE (1), GLUE_FINISH (2) or both.
+// A reduction takes at most GLUE_CHANNELS channels. The next layer's fold: gamma, beta,
+// scale, shift (c_next,), its kernel w_in (3, 3, c_next, F) float32 at
+// element strides s0..s3, w_out (3, 3, c_next, F) contiguous; c_next = 0:
+// none. inv_n: the f32 1/n. scratch: float32, at least the layout's
+// elements, with a reduction.
+
+// The layout of a reduction of n_part rows of 2*nc + nb columns, into
+// out[6]: groups, width, segments, chunks, rows, and the scratch's elements.
+int block_engine_glue_layout(int n_part, int nc, int nb, int* out) {
+  if (n_part < 1 || nc < 1 || nc > GLUE_CHANNELS || nb < 0 || nb > MAX_GROWTH)
+    return (int)cudaErrorInvalidValue;
+  const GlueLayout l = glue_layout(n_part, nc, nb);
+  const long long elems = (long long)l.chunks * (2LL * nc + nb);
+  if (elems > INT_MAX) return (int)cudaErrorInvalidValue;
+  out[0] = l.groups;
+  out[1] = l.width;
+  out[2] = l.segments;
+  out[3] = l.chunks;
+  out[4] = l.rows;
+  out[5] = (int)elems;
+  return 0;
+}
+
+// Forward, the layer's channels [offset, offset + k): part (2, n_part, k),
+// moments (2, k), mu and m2 the block's (at least offset + k). c_next is 0
+// or offset + k, and only with GLUE_FINISH.
+int block_engine_glue_fwd(int dtype, const void* part, void* moments, void* mu, void* m2,
+                          void* scratch, const void* gamma, const void* beta, const void* w_in,
+                          void* scale, void* shift, void* w_out, int n_part, int k, int offset,
+                          int c_next, int F, int s0, int s1, int s2, int s3, float inv_n, int flags,
+                          int scratch_elems, void* stream) {
+  const bool reduce = flags & GLUE_REDUCE;
+  if ((dtype != 0 && dtype != 1) || flags < 1 || flags > 3 || k < 1 || offset < 0 ||
+      (reduce && (n_part < 1 || k > GLUE_CHANNELS)) ||
+      (c_next != 0 && (c_next != offset + k || !(flags & GLUE_FINISH))))
+    return (int)cudaErrorInvalidValue;
+  GlueFwd a{static_cast<const float*>(part), static_cast<float*>(moments), static_cast<float*>(mu),
+            static_cast<float*>(m2), static_cast<float*>(scratch),
+            {static_cast<const float*>(gamma), static_cast<const float*>(beta),
+             static_cast<float*>(scale), static_cast<float*>(shift),
+             static_cast<const float*>(w_in), w_out, c_next, F, s0, s1, s2, s3},
+            {}, n_part, k, offset, flags, inv_n};
+  if (!glue_fold_ok(a.next)) return (int)cudaErrorInvalidValue;
+  if (reduce) {
+    a.l = glue_layout(n_part, k, 0);
+    if ((long long)scratch_elems < (long long)a.l.chunks * 2 * k) return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 1 ? launch_glue_fwd<__nv_bfloat16>(a, s) : launch_glue_fwd<float>(a, s));
+}
+
+// Backward, layer j's prefix [0, c) with growth F: part (2, n_part, c),
+// part_bias (n_part, F), sums (2, c), gamma (c,) layer j's, dgamma and
+// dbeta (c,), dbias (F,); c1 and c2 the block's (at least c). c_next is 0
+// or c - F, and only with GLUE_FINISH.
+int block_engine_glue_bwd(int dtype, const void* part, const void* part_bias, void* sums,
+                          const void* mu, const void* m2, void* c1, void* c2, const void* gamma,
+                          void* dgamma, void* dbeta, void* dbias, void* scratch,
+                          const void* gamma_next, const void* beta_next, const void* w_in,
+                          void* scale, void* shift, void* w_out, int n_part, int c, int F,
+                          int c_next, int s0, int s1, int s2, int s3, float inv_n, int flags,
+                          int scratch_elems, void* stream) {
+  const bool reduce = flags & GLUE_REDUCE;
+  if ((dtype != 0 && dtype != 1) || flags < 1 || flags > 3 || c < 1 || F < 1 ||
+      F > MAX_GROWTH || (reduce && (n_part < 1 || c > GLUE_CHANNELS)) ||
+      (c_next != 0 && (c_next != c - F || !(flags & GLUE_FINISH))))
+    return (int)cudaErrorInvalidValue;
+  GlueBwd a{static_cast<const float*>(part), static_cast<const float*>(part_bias),
+            static_cast<float*>(sums), nullptr, nullptr, static_cast<const float*>(mu),
+            static_cast<const float*>(m2), static_cast<float*>(c1), static_cast<float*>(c2),
+            static_cast<const float*>(gamma), static_cast<float*>(dgamma),
+            static_cast<float*>(dbeta), static_cast<float*>(dbias), static_cast<float*>(scratch),
+            {static_cast<const float*>(gamma_next), static_cast<const float*>(beta_next),
+             static_cast<float*>(scale), static_cast<float*>(shift),
+             static_cast<const float*>(w_in), w_out, c_next, F, s0, s1, s2, s3},
+            {}, n_part, c, F, c, flags, inv_n};
+  if (!glue_fold_ok(a.next)) return (int)cudaErrorInvalidValue;
+  if (reduce) {
+    a.l = glue_layout(n_part, c, F);
+    if ((long long)scratch_elems < (long long)a.l.chunks * (2LL * c + F))
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 1 ? launch_glue_bwd<__nv_bfloat16>(a, s) : launch_glue_bwd<float>(a, s));
+}
+
+// The backward's start, before a block's top layer: c1, c2 (ctot,) =
+// gmu/n, 2*gm2/n, and the top layer's fold (c_next, at most ctot; F its
+// growth), one launch of the backward's glue kernel
+int block_engine_glue_bwd_start(int dtype, const void* gmu, const void* gm2, const void* mu,
+                                const void* m2, void* c1, void* c2, const void* gamma,
+                                const void* beta, const void* w_in, void* scale, void* shift,
+                                void* w_out, int ctot, int c_next, int F, int s0, int s1, int s2,
+                                int s3, float inv_n, void* stream) {
+  if ((dtype != 0 && dtype != 1) || ctot < 1 || c_next < 1 || c_next > ctot)
+    return (int)cudaErrorInvalidValue;
+  GlueBwd a{};
+  a.gmu = static_cast<const float*>(gmu);
+  a.gm2 = static_cast<const float*>(gm2);
+  a.mu = static_cast<const float*>(mu);
+  a.m2 = static_cast<const float*>(m2);
+  a.c1 = static_cast<float*>(c1);
+  a.c2 = static_cast<float*>(c2);
+  a.next = {static_cast<const float*>(gamma), static_cast<const float*>(beta),
+            static_cast<float*>(scale), static_cast<float*>(shift), static_cast<const float*>(w_in),
+            w_out, c_next, F, s0, s1, s2, s3};
+  a.F = F;
+  a.ctot = ctot;
+  a.flags = GLUE_HEAD;
+  a.inv_n = inv_n;
+  if (!glue_fold_ok(a.next)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 1 ? launch_glue_bwd<__nv_bfloat16>(a, s) : launch_glue_bwd<float>(a, s));
+}
+
+// Running statistics of a block's n_layers (at most STATS_LAYERS) layers:
+// means[j], vars[j] (c0 + j*F,) float32, from the block's mu and m2.
+int block_engine_running_stats(void* const* means, void* const* vars, const void* mu,
+                               const void* m2, int c0, int F, int n_layers, float keep,
+                               float take, void* stream) {
+  if (c0 < 1 || F < 1 || n_layers < 1 || n_layers > STATS_LAYERS) return (int)cudaErrorInvalidValue;
+  RunningStats r{};
+  for (int j = 0; j < n_layers; ++j) {
+    r.mean[j] = static_cast<float*>(means[j]);
+    r.var[j] = static_cast<float*>(vars[j]);
+  }
+  const dim3 grid(tiles(c0 + (n_layers - 1) * F, NTG), n_layers);
+  glue_running_stats_kernel<<<grid, NTG, 0, static_cast<cudaStream_t>(stream)>>>(
+      r, static_cast<const float*>(mu), static_cast<const float*>(m2), c0, F, keep, take);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

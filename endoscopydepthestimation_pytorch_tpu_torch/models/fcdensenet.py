@@ -158,7 +158,8 @@ class DenseBlock(nn.Module):
         ``store`` ``act8.replay_block_apply``. Returns (output NCHW in
         channels_last memory, its (mean, mean of squares)); advances every
         layer's running statistics once, here, from the block's prefix
-        statistics."""
+        statistics (``block_engine.running_stats``: one launch a block on
+        the card, ``update_running_stats``' expressions on the CPU)."""
         c0, g = x.shape[1], self.growth_rate
         layers = list(self.layers)
         params = ([l.norm.weight for l in layers], [l.norm.bias for l in layers],
@@ -168,9 +169,8 @@ class DenseBlock(nn.Module):
         buf, mu, m2 = (engine.block_engine_apply(xh, *params) if self.store is None
                        else act8.replay_block_apply(xh, *params, store=self.store))
         out = buf.permute(0, 3, 1, 2)
-        for j, layer in enumerate(layers):
-            c = c0 + j * g
-            update_running_stats(layer.norm, mu[:c].detach(), m2[:c].detach())
+        engine.running_stats([(l.norm.running_mean, l.norm.running_var) for l in layers],
+                             mu, m2, c0, g, MOMENTUM)
         return (out[:, c0:] if self.upsample else out), (mu, m2)
 
     def forward(self, x: torch.Tensor, with_stats: bool = False):

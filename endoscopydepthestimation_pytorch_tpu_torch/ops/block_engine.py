@@ -21,15 +21,16 @@ carried over.)
 Per layer the work is three kernels, in ``csrc/block_engine.cu``:
 
 - K4 ``layer_forward``: y into ``buf[..., C_j:C_j+F]`` and the (sum y,
-  sum y^2) of the stored y, from which the layer's statistics come
-  (JAX :625-628); in bf16 an implicit GEMM on the tensor cores, in f32
-  (the parity dtype) a direct convolution on FFMAs;
+  sum y^2) of the stored y as per-tile partials, from which the layer's
+  statistics come (JAX :625-628); in bf16 an implicit GEMM on the tensor
+  cores, in f32 (the parity dtype) a direct convolution on FFMAs;
 - K5 ``layer_dinput``: with gy_eff = g + C1 + C2*y (the lazily applied
   BN-through-statistics gradient, JAX :689-699), the transposed-tap
   cotangent of the prefix through the ReLU mask and the BN scale, added
   into the gradient buffer's prefix, and the per-channel (sum dpre*x,
-  sum dpre) and sum gy_eff; in bf16 an implicit GEMM on the tensor cores,
-  in f32 (the parity dtype) a direct convolution on FFMAs;
+  sum dpre) and sum gy_eff as per-tile partials; in bf16 an implicit GEMM
+  on the tensor cores, in f32 (the parity dtype) a direct convolution on
+  FFMAs;
 - K6 ``layer_dweight``: the layer's weight gradient, f32; in bf16 an
   implicit GEMM on the tensor cores, in f32 (the parity dtype) a direct
   reduction on FFMAs, both as per-block partials summed in order.
@@ -43,9 +44,34 @@ Once a block, at its boundary, two memory-bound passes over the prefix
   the gradient buffer's prefix and x, into a fresh (B, H, W, C0) tensor,
   with no f32 temporary.
 
-Between the launches plain PyTorch does only per-channel vector math, as
-XLA does in JAX: the BN folds, the (C1, C2) updates, and summing K4's and
-K5's per-block partials.
+Between those launches the per-channel vector math (what XLA fuses between
+the Pallas calls in JAX, :129-134, :625-628, :1262-1301) runs as three
+more kernels of the same file, channel-local, in f32, each step rounded as
+the plain PyTorch expression on the card rounds it (no FMA):
+
+- ``glue_forward``, once a layer after K4 (and once a block before the
+  first, from the entry's moments): K4's per-tile partials summed, divided
+  by n, into the block's preallocated (mu, m2), then the next layer's BN
+  folded into (scale, shift) and its kernel cast to HWIO in buf's dtype
+  (``GlueBuffers``, one per block);
+- ``glue_backward``, once a layer after K5 and K6: K5's partials summed
+  into dgamma, dbeta and the bias gradient, layer j's (C1, C2) update
+  applied in place, layer j - 1's fold and kernel; ``glue_backward_start``
+  (the same kernel) once a block before the top layer: C1 = gmu/n, C2 =
+  2*gm2/n and the top layer's fold;
+- ``running_stats``, once a block: every layer's running statistics.
+
+The partial sums spread across the SMs: each block sums a chunk of the
+tiles' rows for a group of channels, and the last block of a group to
+finish (a completion counter it resets itself) sums the chunks' sums in
+chunk order. No float atomics: the order is fixed by the shapes alone, so
+the results are bitwise repeatable, though not the plain version's
+order. The counters are one per channel group and direction on the
+device, so two glue launches of one direction must not overlap: every
+launch goes on the current stream, as the engine's all do. The twins
+(``glue_*_reference``, ``running_stats_reference``) are the expressions
+the engine wrote inline before; on the CPU K4's and K5's wrappers return
+their sums as one partial row, which the twins sum as the card's.
 
 In place: K4 writes into ``buf``; the backward clones the incoming
 gradient once into a fresh buffer and K5 adds into that buffer's prefix
@@ -72,13 +98,18 @@ ranks before C1 and C2 are formed with the global pixel count (JAX
 gradient stay the rank's own, averaged with every other parameter
 gradient after the backward (the module docstring of
 ``parallel.distributed``, convention 3). That is 5 + 5 all-reduces per
-4-layer block and step, none at world size 1.
+4-layer block and step, none at world size 1. Around each per-layer
+all-reduce the glue runs as two calls of the same kernel, REDUCE (the
+rank's sums) then FINISH (the rest, from every rank's); at world size 1
+one call does both.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -88,11 +119,18 @@ from ..utils import profiling
 
 # kernel launches in this process, by kernel
 LAUNCHES = {"block_engine_fwd": 0, "block_engine_dinput": 0,
-            "block_engine_dweight": 0, "block_engine_entry": 0, "block_engine_exit": 0}
+            "block_engine_dweight": 0, "block_engine_entry": 0, "block_engine_exit": 0,
+            "block_engine_glue_fwd": 0, "block_engine_glue_bwd": 0,
+            "block_engine_running_stats": 0}
 # each C entry's span (``utils.profiling``)
 _SPANS = {"block_engine_fwd": "engine_fwd", "block_engine_dinput": "engine_dinput",
           "block_engine_dweight": "engine_dweight", "block_engine_entry": "engine_entry",
-          "block_engine_exit": "engine_exit"}
+          "block_engine_exit": "engine_exit", "block_engine_glue_fwd": "engine_glue_fwd",
+          "block_engine_glue_bwd": "engine_glue_bwd",
+          "block_engine_running_stats": "engine_running_stats"}
+# the glue's phases, its C entries' flags: the sums of the partials, and
+# the finish (statistics or (C1, C2), and the next layer's fold and kernel)
+REDUCE, FINISH = 1, 2
 MAX_GROWTH = 16        # the kernels' compiled maximum of F
 EPS = 1e-5             # BatchNorm's, as torch's and the JAX package's
 TILE_H, TILE_W = 16, 32  # f32 K4's and K5's output tile
@@ -125,9 +163,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.block_engine_entry.argtypes = [i] + [p] * 4 + [i] * 6 + [p]
         lib.block_engine_exit.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
         lib.block_engine_boundary_layout.argtypes = [i] + [p] * 3 + [i] * 5 + [p]
+        f = ctypes.c_float
+        lib.block_engine_glue_layout.argtypes = [i] * 3 + [p]
+        lib.block_engine_glue_fwd.argtypes = [i] + [p] * 11 + [i] * 9 + [f] + [i] * 2 + [p]
+        lib.block_engine_glue_bwd.argtypes = [i] + [p] * 18 + [i] * 8 + [f] + [i] * 2 + [p]
+        lib.block_engine_glue_bwd_start.argtypes = [i] + [p] * 12 + [i] * 7 + [f, p]
+        lib.block_engine_running_stats.argtypes = [p] * 4 + [i] * 3 + [f] * 2 + [p]
         for fn in (lib.block_engine_fwd, lib.block_engine_dinput,
                    lib.block_engine_dweight, lib.block_engine_entry,
-                   lib.block_engine_exit, lib.block_engine_boundary_layout):
+                   lib.block_engine_exit, lib.block_engine_boundary_layout,
+                   lib.block_engine_glue_layout, lib.block_engine_glue_fwd,
+                   lib.block_engine_glue_bwd, lib.block_engine_glue_bwd_start,
+                   lib.block_engine_running_stats):
             fn.restype = i
         lib.block_engine_max_growth.argtypes = []
         lib.block_engine_max_growth.restype = i
@@ -236,6 +283,93 @@ def block_exit_reference(grad, buf, c1, c2, c0) -> torch.Tensor:
     (B, H, W, c0)."""
     x = buf[..., :c0].float()
     return (grad[..., :c0].float() + c1[:c0] + c2[:c0] * x).to(buf.dtype).contiguous()
+
+
+class GlueBuffers(NamedTuple):
+    """A block's folded BatchNorm and cast kernel of the layer that runs
+    next, rewritten by the glue once a layer: scale and shift (C,) f32 and
+    the kernel (3, 3, C, F) flat in buf's dtype, C the block's widest
+    prefix; layer j takes the first C_j channels."""
+    scale: torch.Tensor
+    shift: torch.Tensor
+    w: torch.Tensor
+
+    @staticmethod
+    def empty(c: int, growth: int, dtype, device) -> "GlueBuffers":
+        return GlueBuffers(torch.empty(c, dtype=torch.float32, device=device),
+                           torch.empty(c, dtype=torch.float32, device=device),
+                           torch.empty(9 * c * growth, dtype=dtype, device=device))
+
+    def layer(self, c: int, f: int) -> tuple:
+        """The (scale, shift, w) views of a layer with prefix c and growth f."""
+        return self.scale[:c], self.shift[:c], self.w[:9 * c * f].view(3, 3, c, f)
+
+
+def _fold_next(mu, m2, layer, out: GlueBuffers):
+    """The next layer's BatchNorm folded over its prefix and its kernel cast,
+    into ``out``; returns its (scale, shift, w), or None without a layer."""
+    if layer is None:
+        return None
+    gamma, beta, kernel = layer
+    c, f = kernel.shape[2], kernel.shape[3]
+    scale, shift, w = out.layer(c, f)
+    s, sh, _ = fold(gamma, beta, mu[:c], m2[:c] - mu[:c].square())
+    scale.copy_(s)
+    shift.copy_(sh)
+    w.copy_(kernel)
+    return scale, shift, w
+
+
+def glue_forward_reference(mu, m2, c, stats, n, flags, layer, out):
+    """The forward glue's plain version (``glue_forward``): the expressions
+    ``engine_forward`` and K4's wrapper wrote inline."""
+    if flags & REDUCE:
+        stats = stats.sum(1) / n
+        if not flags & FINISH:
+            return stats
+    k = stats.shape[1]
+    mu[c:c + k] = stats[0]
+    m2[c:c + k] = stats[1]
+    return _fold_next(mu, m2, layer, out)
+
+
+def glue_backward_reference(mu, m2, c1, c2, c, stats, n, flags, gamma, grads, layer, out):
+    """The backward glue's plain version (``glue_backward``): the expressions
+    ``engine_backward`` and K5's wrapper wrote inline."""
+    inv = torch.rsqrt(m2[:c] - mu[:c].square() + EPS)
+    if flags & REDUCE:
+        part, part_bias = stats
+        sums = part.sum(1)
+        dsx, dss = sums[0], sums[1]
+        dgamma = inv * (dsx - mu[:c] * dss)
+        for t, v in zip(grads, (dgamma, dss, part_bias.sum(0))):
+            t.copy_(v)
+        if not flags & FINISH:
+            return sums
+    else:
+        dsx, dss = stats[0], stats[1]
+        dgamma = inv * (dsx - mu[:c] * dss)
+    gamma = gamma.float()
+    c2[:c] -= gamma * inv * inv * dgamma / n
+    c1[:c] += gamma * inv * (inv * mu[:c] * dgamma - dss) / n
+    return _fold_next(mu, m2, layer, out)
+
+
+def glue_backward_start_reference(mu, m2, c1, c2, gmu, gm2, n, layer, out):
+    """The backward glue's start, plain (``glue_backward_start``)."""
+    c1.copy_(gmu / n)
+    c2.copy_(2.0 * gm2 / n)
+    return _fold_next(mu, m2, layer, out)
+
+
+def running_stats_reference(pairs, mu, m2, c0: int, growth: int, momentum: float) -> None:
+    """``running_stats``' plain version: ``models.fcdensenet.
+    update_running_stats``' expressions, layer by layer."""
+    for j, (mean, var) in enumerate(pairs):
+        c = c0 + j * growth
+        v = m2[:c] - mu[:c].square()
+        mean.copy_(momentum * mean + (1.0 - momentum) * mu[:c])
+        var.copy_(momentum * var + (1.0 - momentum) * v)
 
 
 # -- the kernel wrappers -------------------------------------------------------
@@ -392,13 +526,15 @@ def _launch(name: str, buf, tensors, ints) -> None:
 
 def layer_forward(buf, c, scale, shift, w, bias) -> torch.Tensor:
     """Layer output into ``buf[..., c:c+F]`` (in place) from the prefix
-    [0, c); returns (2, F) f32, the sum and the sum of squares of the
-    stored y. K4 on the card, ``layer_forward_reference`` on the CPU."""
+    [0, c); returns the sum and the sum of squares of the stored y as
+    per-tile partials, (2, n_part, F) f32 (the glue sums them). K4 on the
+    card; on the CPU ``layer_forward_reference``, whose sums are one
+    partial row, (2, 1, F)."""
     f = w.shape[3]
     _check(buf, c, f, [("scale", scale, c), ("shift", shift, c),
                        ("bias", bias, f)], w=w)
     if buf.device.type == "cpu":
-        return layer_forward_reference(buf, c, scale, shift, w, bias)
+        return layer_forward_reference(buf, c, scale, shift, w, bias)[:, None]
     b, h, wd, ld = buf.shape
     tile_h, tile_w, n_split = forward_tiling(buf.dtype, b, h, wd, c)
     n_part = _n_part(b, h, wd, tile_h, tile_w)
@@ -409,19 +545,21 @@ def layer_forward(buf, c, scale, shift, w, bias) -> torch.Tensor:
              if n_split > 1 else part)
     _launch("block_engine_fwd", buf, (buf, scale, shift, w, bias, part, ypart),
             (b, h, wd, c, f, ld, n_part, n_split, tile_w))
-    return part.sum(1)
+    return part
 
 
-def layer_dinput(grad, buf, c, scale, shift, w, c1, c2):
+def layer_dinput(grad, buf, c, scale, shift, w, c1, c2) -> tuple:
     """Adds the prefix cotangent dpre*scale into ``grad[..., :c]`` (in
-    place); returns (sum dpre*x, sum dpre) per prefix channel and
-    sum gy_eff per output channel, f32. K5 on the card,
-    ``layer_dinput_reference`` on the CPU."""
+    place); returns (sum dpre*x, sum dpre) per prefix channel and sum
+    gy_eff per output channel as per-tile partials, (2, n_part, c) and
+    (n_part, F) f32 (the glue sums them). K5 on the card; on the CPU
+    ``layer_dinput_reference``, whose sums are one partial row."""
     f = w.shape[3]
     _check(buf, c, f, [("scale", scale, c), ("shift", shift, c),
                        ("c1", c1, f), ("c2", c2, f)], w=w, grad=grad)
     if buf.device.type == "cpu":
-        return layer_dinput_reference(grad, buf, c, scale, shift, w, c1, c2)
+        dsx, dss, dbias = layer_dinput_reference(grad, buf, c, scale, shift, w, c1, c2)
+        return torch.stack([dsx, dss])[:, None], dbias[None]
     b, h, wd, ld = buf.shape
     tile_h, tile_w, n_split = dinput_tiling(buf.dtype, b, h, wd, c)
     n_part = _n_part(b, h, wd, tile_h, tile_w)
@@ -430,8 +568,7 @@ def layer_dinput(grad, buf, c, scale, shift, w, c1, c2):
     _launch("block_engine_dinput", buf,
             (grad, buf, scale, shift, w, c1, c2, part, part_bias),
             (b, h, wd, c, f, ld, n_part, n_split, tile_w))
-    sums = part.sum(1)
-    return sums[0], sums[1], part_bias.sum(0)
+    return part, part_bias
 
 
 def layer_dweight(grad, buf, c, f, scale, shift, c1, c2) -> torch.Tensor:
@@ -491,6 +628,194 @@ def block_exit(grad, buf, c1, c2, c0: int) -> torch.Tensor:
     return dx
 
 
+@functools.lru_cache(maxsize=None)
+def glue_layout(n_part: int, nc: int, nb: int) -> dict:
+    """How the glue's C entries spread a sum of per-tile partials (n_part
+    rows of nc channels in each of two planes, and nb bias columns) across
+    blocks: ``groups`` of ``width`` channels, ``segments``, ``chunks`` of
+    ``rows`` rows, and the f32 ``scratch`` elements that takes."""
+    out = (ctypes.c_int * 6)()
+    if _library().block_engine_glue_layout(n_part, nc, nb, out) != 0:
+        raise ValueError(f"no glue layout for {n_part} rows of {nc} + {nb} columns")
+    return dict(zip(("groups", "width", "segments", "chunks", "rows", "scratch"), out))
+
+
+def _check_glue(dtype, tensors) -> None:
+    if dtype not in _DTYPES:
+        raise TypeError(f"the block's dtype must be float32 or bfloat16, got {dtype}")
+    device = tensors[0][1].device
+    for name, t, numel in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < numel:
+            raise ValueError(f"{name} must be a contiguous float32 tensor of at least "
+                             f"{numel} elements, got {t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"all inputs must lie on {device}, found {name} on {t.device}")
+
+
+def _fold_args(layer, out: GlueBuffers) -> tuple:
+    """The next layer's pointers (gamma, beta, kernel, scale, shift, w) and
+    ints (c, F, the kernel's four strides) for a glue C entry; nulls and
+    zeros without a layer."""
+    if layer is None:
+        return (None,) * 6, (0,) * 6
+    gamma, beta, kernel = layer
+    if kernel.dim() != 4 or kernel.shape[:2] != (3, 3) or kernel.dtype != torch.float32:
+        raise ValueError(f"the kernel must be a float32 (3, 3, C, F) tensor, got "
+                         f"{kernel.dtype} {tuple(kernel.shape)}")
+    c, f = kernel.shape[2], kernel.shape[3]
+    _check_glue(out.w.dtype, [("gamma", gamma, c), ("beta", beta, c), ("scale", out.scale, c),
+                              ("shift", out.shift, c)])
+    if out.w.numel() < 9 * c * f or kernel.device != gamma.device:
+        raise ValueError(f"the kernel (3, 3, {c}, {f}) does not fit the glue's buffers")
+    scale, shift, w = out.layer(c, f)
+    return (gamma, beta, kernel, scale, shift, w), (c, f, *kernel.stride())
+
+
+def _glue_launch(name, dtype, tensors, ints, n, tail=(), entry=None) -> None:
+    """Launch the glue C entry ``entry`` (by default ``name``; counted and
+    spanned as ``name``) on the current stream: dtype code, the tensors'
+    pointers (None: null), the ints, 1/n as PyTorch's CUDA division of an
+    f32 tensor by n computes it (the f32 reciprocal of the f32 n), the
+    ``tail`` ints (the flags and the scratch's elements), the stream.
+
+    A reduction's completion counters are the device's, one set a
+    direction, and its last block resets them: two glue launches of one
+    direction on one device must not overlap. The engine issues all of its
+    launches on one stream; a caller that runs a block's engine on a
+    second stream while another runs must wait for it first."""
+    device = next(t for t in tensors if t is not None).device
+    inv_n = float(np.float32(1.0) / np.float32(n))
+    with profiling.span(_SPANS[name]), torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(_library(), entry or name)(
+            _DTYPES[dtype], *(None if t is None else t.data_ptr() for t in tensors), *ints,
+            inv_n, *tail, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry or name} launch failed: CUDA error {rc}, ints {ints}, "
+                           f"{tail}")
+    LAUNCHES[name] += 1
+
+
+def glue_forward(mu, m2, c: int, stats, n: int, flags: int, layer, out: GlueBuffers):
+    """The forward's per-channel math around K4, for the k channels
+    [c, c + k) of the block's statistics mu, m2 (C_tot,) f32. REDUCE:
+    ``stats`` are K4's partials (2, n_part, k), summed and divided by the
+    pixel count n; alone, returns those (2, k) moments (a process group
+    averages them, then calls FINISH). FINISH: the moments (from the sums,
+    else ``stats`` (2, k)) into mu, m2 [c, c + k), then ``layer`` (the next
+    layer's gamma, beta and f32 (3, 3, c + k, F) kernel, or None) folded and
+    cast into ``out``; returns its (scale, shift, w) views, or None. One
+    launch on the card (the partials summed across blocks in a fixed
+    order), ``glue_forward_reference`` on the CPU."""
+    if mu.device.type == "cpu":
+        return glue_forward_reference(mu, m2, c, stats, n, flags, layer, out)
+    k = stats.shape[-1]
+    reduce = bool(flags & REDUCE)
+    layout = glue_layout(stats.shape[1], k, 0) if reduce else None
+    moments = (torch.empty((2, k), dtype=torch.float32, device=mu.device)
+               if flags == REDUCE else stats if not reduce else None)
+    tensors, ints = _fold_args(layer, out)
+    _check_glue(out.w.dtype, [("mu", mu, c + k), ("m2", m2, c + k)]
+                + ([("part", stats, 2 * k)] if reduce else [("moments", moments, 2 * k)]))
+    scratch = (torch.empty(layout["scratch"], dtype=torch.float32, device=mu.device)
+               if reduce else None)
+    _glue_launch("block_engine_glue_fwd", out.w.dtype,
+                 (stats if reduce else None, moments, mu, m2, scratch, *tensors),
+                 (stats.shape[1] if reduce else 0, k, c, *ints), n,
+                 (flags, 0 if scratch is None else scratch.numel()))
+    if flags == REDUCE:
+        return moments
+    return None if layer is None else out.layer(ints[0], ints[1])
+
+
+def glue_backward(mu, m2, c1, c2, c: int, stats, n: int, flags: int, gamma, grads, layer,
+                  out: GlueBuffers):
+    """The backward's per-channel math after layer j's K5 and K6, over its
+    prefix [0, c). REDUCE: ``stats`` are K5's partials (2, n_part, c) and
+    (n_part, F), summed into this rank's gradients ``grads`` (dgamma,
+    dbeta (c,), dbias (F,)); alone, returns the (2, c) (sum dpre*x, sum
+    dpre) (a process group sums them, then calls FINISH). FINISH: with every
+    rank's sums (from the partials, else ``stats`` (2, c)), layer j's
+    BN-through-statistics gradient into the block's C1, C2 [0, c) in place,
+    then ``layer`` (layer j - 1's gamma, beta, kernel, or None) folded and
+    cast into ``out``; returns its views, or None. One launch on the card,
+    ``glue_backward_reference`` on the CPU."""
+    if mu.device.type == "cpu":
+        return glue_backward_reference(mu, m2, c1, c2, c, stats, n, flags, gamma, grads,
+                                       layer, out)
+    reduce = bool(flags & REDUCE)
+    part, part_bias = stats if reduce else (None, None)
+    f = part_bias.shape[1] if reduce else layer[2].shape[3] if layer is not None else 1
+    layout = glue_layout(part.shape[1], c, f) if reduce else None
+    sums = (torch.empty((2, c), dtype=torch.float32, device=mu.device)
+            if flags == REDUCE else None if reduce else stats)
+    dgamma, dbeta, dbias = grads if reduce else (None,) * 3
+    tensors, ints = _fold_args(layer, out)
+    checked = [("mu", mu, c), ("m2", m2, c), ("c1", c1, c), ("c2", c2, c), ("gamma", gamma, c)]
+    if reduce:
+        checked += [("part", part, 2 * c * part.shape[1]),
+                    ("part_bias", part_bias, part.shape[1] * f), ("dgamma", dgamma, c),
+                    ("dbeta", dbeta, c), ("dbias", dbias, f)]
+    if sums is not None:
+        checked.append(("sums", sums, 2 * c))
+    _check_glue(out.w.dtype, checked)
+    scratch = (torch.empty(layout["scratch"], dtype=torch.float32, device=mu.device)
+               if reduce else None)
+    _glue_launch("block_engine_glue_bwd", out.w.dtype,
+                 (part, part_bias, sums, mu, m2, c1, c2, gamma, dgamma, dbeta, dbias, scratch,
+                  *tensors),
+                 (part.shape[1] if reduce else 0, c, f, ints[0], *ints[2:]), n,
+                 (flags, 0 if scratch is None else scratch.numel()))
+    if flags == REDUCE:
+        return sums
+    return None if layer is None else out.layer(ints[0], ints[1])
+
+
+def glue_backward_start(mu, m2, c1, c2, gmu, gm2, n: int, layer, out: GlueBuffers):
+    """Before a block's top layer: C1 = gmu/n and C2 = 2*gm2/n into c1, c2
+    (C_tot,) f32 (every rank's cotangent, the global pixel count n), and
+    ``layer`` (the top layer's gamma, beta, kernel) folded and cast into
+    ``out``; returns its views. One launch of the backward's glue kernel
+    on the card (counted as ``block_engine_glue_bwd``),
+    ``glue_backward_start_reference`` on the CPU."""
+    if mu.device.type == "cpu":
+        return glue_backward_start_reference(mu, m2, c1, c2, gmu, gm2, n, layer, out)
+    ctot = mu.shape[0]
+    tensors, ints = _fold_args(layer, out)
+    _check_glue(out.w.dtype, [(name, t, ctot) for name, t in
+                              (("mu", mu), ("m2", m2), ("c1", c1), ("c2", c2), ("gmu", gmu),
+                               ("gm2", gm2))])
+    _glue_launch("block_engine_glue_bwd", out.w.dtype, (gmu, gm2, mu, m2, c1, c2, *tensors),
+                 (ctot, *ints), n, entry="block_engine_glue_bwd_start")
+    return out.layer(ints[0], ints[1])
+
+
+def running_stats(pairs: Sequence[tuple], mu, m2, c0: int, growth: int,
+                  momentum: float) -> None:
+    """Every layer j's running statistics of a block, ``pairs[j]`` =
+    (running mean, running variance) (c0 + j*growth,) f32, moved in place
+    to momentum*r + (1 - momentum)*stat with the biased variance, from the
+    block's (mu, m2). One launch a block on the card (which takes up to 32
+    layers), ``running_stats_reference`` on the CPU."""
+    mu, m2 = mu.detach(), m2.detach()
+    if mu.device.type == "cpu":
+        with torch.no_grad():
+            return running_stats_reference(pairs, mu, m2, c0, growth, momentum)
+    _check_glue(torch.float32, [("mu", mu, 0), ("m2", m2, 0)]
+                + [(f"running statistic {j}", t, c0 + j * growth)
+                   for j, pair in enumerate(pairs) for t in pair])
+    means = (ctypes.c_void_p * len(pairs))(*(p[0].data_ptr() for p in pairs))
+    variances = (ctypes.c_void_p * len(pairs))(*(p[1].data_ptr() for p in pairs))
+    with profiling.span(_SPANS["block_engine_running_stats"]), torch.cuda.device(mu.device):
+        rc = _library().block_engine_running_stats(
+            means, variances, mu.data_ptr(), m2.data_ptr(), c0, growth, len(pairs), momentum,
+            1.0 - momentum, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"block_engine_running_stats refused {len(pairs)} layers "
+                           f"(at most 32) or failed: CUDA error {rc}")
+    LAUNCHES["block_engine_running_stats"] += 1
+
+
 # -- the block -----------------------------------------------------------------
 
 
@@ -502,33 +827,41 @@ def engine_forward(x: torch.Tensor, n_layers: int, params
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The block's forward (JAX ``_engine_impl``): (buf, mu, m2) from the
     NHWC block input and the flat parameter list (gammas, betas, kernels,
-    biases). The entry once, K4 once per layer; in a process group the
-    statistics are the global batch's."""
+    biases). The entry once; the glue once before the first layer (the
+    entry's moments, layer 0's fold and kernel) and K4 and the glue once
+    per layer (its statistics into mu, m2; the next layer's fold and
+    kernel). In a process group the statistics are the global batch's: the
+    glue runs as two calls around each all-reduce."""
     gammas, betas, kernels, biases = _split(params, n_layers)
     b, h, w, c0 = x.shape
     growth = biases[0].shape[0]
     n = b * h * w
-    buf = torch.empty((b, h, w, c0 + n_layers * growth), dtype=x.dtype,
-                      device=x.device)
-    mu_x, m2_x = distributed.all_mean_(block_entry(x, buf))
-    mus, m2s = [mu_x], [m2_x]
+    ctot = c0 + n_layers * growth
+    buf = torch.empty((b, h, w, ctot), dtype=x.dtype, device=x.device)
+    mu, m2 = (torch.empty(ctot, dtype=torch.float32, device=x.device) for _ in range(2))
+    out = GlueBuffers.empty(ctot - growth, growth, x.dtype, x.device)
+    grouped = distributed.group() is not None
+    layer = glue_forward(mu, m2, 0, distributed.all_mean_(block_entry(x, buf)), n, FINISH,
+                         (gammas[0], betas[0], kernels[0]), out)
     for j in range(n_layers):
-        mu, m2 = torch.cat(mus), torch.cat(m2s)
-        scale, shift, _ = fold(gammas[j], betas[j], mu, m2 - mu.square())
-        sums = layer_forward(buf, c0 + j * growth, scale, shift,
-                             kernels[j].to(x.dtype).contiguous(),
-                             biases[j].float().contiguous())
-        stats = distributed.all_mean_(sums / n)
-        mus.append(stats[0])
-        m2s.append(stats[1])
-    return buf, torch.cat(mus), torch.cat(m2s)
+        c = c0 + j * growth
+        part = layer_forward(buf, c, *layer, biases[j].float().contiguous())
+        nxt = (gammas[j + 1], betas[j + 1], kernels[j + 1]) if j + 1 < n_layers else None
+        if grouped:
+            moments = distributed.all_mean_(glue_forward(mu, m2, c, part, n, REDUCE, None, out))
+            layer = glue_forward(mu, m2, c, moments, n, FINISH, nxt, out)
+        else:
+            layer = glue_forward(mu, m2, c, part, n, REDUCE | FINISH, nxt, out)
+    return buf, mu, m2
 
 
 def engine_backward(buf, mu, m2, n_layers: int, params, gbuf, gmu, gm2) -> tuple:
     """The block's backward (JAX ``_engine_bwd``) at the block output
     ``buf`` and its statistics (mu, m2): the gradients of x and of every
     parameter, in ``params``' order, from the cotangents of (buf, mu,
-    m2). K5 and K6 once per layer, then the exit."""
+    m2). The glue once before the top layer, K6, K5 and the glue once per
+    layer (two glue calls around the all-reduce in a process group), then
+    the exit."""
     gammas, betas, kernels, biases = _split(params, n_layers)
     b, h, w, ctot = buf.shape
     growth = biases[0].shape[0]
@@ -540,33 +873,40 @@ def engine_backward(buf, mu, m2, n_layers: int, params, gbuf, gmu, gm2) -> tuple
     # in buf: kept as per-channel coefficients (C1, C2) and applied
     # lazily (JAX :1195-1205); in a process group gmu and gm2 are the
     # sums of every rank's
-    gmu, gm2 = gmu.float(), gm2.float()
-    if distributed.group() is not None:
+    gmu, gm2 = gmu.float().contiguous(), gm2.float().contiguous()
+    grouped = distributed.group() is not None
+    if grouped:
         gmu, gm2 = distributed.all_sum_(torch.stack([gmu, gm2]))
-    c1 = gmu / n
-    c2 = 2.0 * gm2 / n
+    c1, c2 = (torch.empty(ctot, dtype=torch.float32, device=buf.device) for _ in range(2))
+    out = GlueBuffers.empty(ctot - growth, growth, buf.dtype, buf.device)
+    top = n_layers - 1
+    layer = glue_backward_start(mu, m2, c1, c2, gmu, gm2, n,
+                                (gammas[top], betas[top], kernels[top]), out)
     dgammas, dbetas, dkernels, dbiases = ([None] * n_layers for _ in range(4))
     for j in reversed(range(n_layers)):
         c = c0 + j * growth
-        scale, shift, inv = fold(gammas[j], betas[j], mu[:c], m2[:c] - mu[:c].square())
-        c1j = c1[c:c + growth].contiguous()
-        c2j = c2[c:c + growth].contiguous()
-        dsx, dss, dbiases[j] = layer_dinput(
-            grad, buf, c, scale, shift, kernels[j].to(buf.dtype).contiguous(),
-            c1j, c2j)
-        dkernels[j] = layer_dweight(grad, buf, c, growth, scale, shift,
-                                    c1j, c2j)
+        scale, shift, wj = layer
+        c1j, c2j = c1[c:c + growth], c2[c:c + growth]
+        # K6 reads the layer's own gradient channels, K5 rewrites the prefix's:
+        # K6 first, so that K5's partials live only until the glue sums them
+        dkernels[j] = layer_dweight(grad, buf, c, growth, scale, shift, c1j, c2j)
+        part = layer_dinput(grad, buf, c, scale, shift, wj, c1j, c2j)
         # dgamma, dbeta, and layer j's BN-through-statistics gradient
         # folded into the prefix's (C1, C2) (JAX :1262-1301); the
         # updates take every rank's sums, the gradients this rank's
-        dgamma = inv * (dsx - mu[:c] * dss)
-        dgammas[j], dbetas[j] = dgamma, dss
-        if distributed.group() is not None:
-            dsx, dss = distributed.all_sum_(torch.stack([dsx, dss]))
-            dgamma = inv * (dsx - mu[:c] * dss)
-        gamma = gammas[j].float()
-        c2[:c] -= gamma * inv * inv * dgamma / n
-        c1[:c] += gamma * inv * (inv * mu[:c] * dgamma - dss) / n
+        grads = tuple(torch.empty(k, dtype=torch.float32, device=buf.device)
+                      for k in (c, c, growth))
+        dgammas[j], dbetas[j], dbiases[j] = grads
+        nxt = (gammas[j - 1], betas[j - 1], kernels[j - 1]) if j > 0 else None
+        if grouped:
+            sums = distributed.all_sum_(glue_backward(mu, m2, c1, c2, c, part, n, REDUCE,
+                                                      gammas[j], grads, None, out))
+            layer = glue_backward(mu, m2, c1, c2, c, sums, n, FINISH, gammas[j], None, nxt,
+                                  out)
+        else:
+            layer = glue_backward(mu, m2, c1, c2, c, part, n, REDUCE | FINISH, gammas[j],
+                                  grads, nxt, out)
+        del part  # freed before the next layer's K5 and the exit allocate
     dx = block_exit(grad, buf, c1, c2, c0)
     return (dx, *dgammas, *dbetas, *dkernels, *dbiases)
 

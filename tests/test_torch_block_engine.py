@@ -131,7 +131,7 @@ def test_engine_block_matches_plain_autograd(monkeypatch, upsample, with_stats, 
     gate rejects (B = 2, 5x7): output, its statistics when asked for,
     every gradient, and the running statistics."""
     calls = []
-    original = block_engine.layer_forward
+    original = block_engine.layer_forward  # K4's wrapper, as the engine calls it
 
     def counting(*args):
         calls.append(args[1])
@@ -589,3 +589,236 @@ def test_boundary_threads_take_each_element_once(pixels, c0, vw):
     rows, a row wider than a block (C0 / vw > 256: groups of lanes), the
     grid at its cap, scalars and vectors."""
     assert (_boundary_coverage(pixels, c0, vw) == 1).all()
+
+
+# -- the glue: the per-channel math between the launches -----------------------
+
+
+def _old_engine_forward(x, n_layers, params):
+    """``engine_forward`` as it was with the glue written inline."""
+    gammas, betas, kernels, biases = block_engine._split(params, n_layers)
+    b, h, w, c0 = x.shape
+    growth = biases[0].shape[0]
+    n = b * h * w
+    buf = torch.empty((b, h, w, c0 + n_layers * growth), dtype=x.dtype)
+    mu_x, m2_x = block_engine.block_entry(x, buf)
+    mus, m2s = [mu_x], [m2_x]
+    for j in range(n_layers):
+        mu, m2 = torch.cat(mus), torch.cat(m2s)
+        scale, shift, _ = block_engine.fold(gammas[j], betas[j], mu, m2 - mu.square())
+        sums = block_engine.layer_forward(buf, c0 + j * growth, scale, shift,
+                                          kernels[j].to(x.dtype).contiguous(),
+                                          biases[j].float().contiguous()).sum(1)
+        stats = sums / n
+        mus.append(stats[0])
+        m2s.append(stats[1])
+    return buf, torch.cat(mus), torch.cat(m2s)
+
+
+def _old_engine_backward(buf, mu, m2, n_layers, params, gbuf, gmu, gm2):
+    """``engine_backward`` as it was with the glue written inline."""
+    gammas, betas, kernels, biases = block_engine._split(params, n_layers)
+    b, h, w, ctot = buf.shape
+    growth = biases[0].shape[0]
+    c0 = ctot - n_layers * growth
+    n = b * h * w
+    grad = torch.empty_like(buf)
+    grad.copy_(gbuf)
+    gmu, gm2 = gmu.float(), gm2.float()
+    c1 = gmu / n
+    c2 = 2.0 * gm2 / n
+    dgammas, dbetas, dkernels, dbiases = ([None] * n_layers for _ in range(4))
+    for j in reversed(range(n_layers)):
+        c = c0 + j * growth
+        scale, shift, inv = block_engine.fold(gammas[j], betas[j], mu[:c],
+                                              m2[:c] - mu[:c].square())
+        c1j = c1[c:c + growth].contiguous()
+        c2j = c2[c:c + growth].contiguous()
+        part, part_bias = block_engine.layer_dinput(
+            grad, buf, c, scale, shift, kernels[j].to(buf.dtype).contiguous(), c1j, c2j)
+        (dsx, dss), dbiases[j] = part.sum(1), part_bias.sum(0)
+        dkernels[j] = block_engine.layer_dweight(grad, buf, c, growth, scale, shift, c1j, c2j)
+        dgamma = inv * (dsx - mu[:c] * dss)
+        dgammas[j], dbetas[j] = dgamma, dss
+        gamma = gammas[j].float()
+        c2[:c] -= gamma * inv * inv * dgamma / n
+        c1[:c] += gamma * inv * (inv * mu[:c] * dgamma - dss) / n
+    dx = block_engine.block_exit(grad, buf, c1, c2, c0)
+    return (dx, *dgammas, *dbetas, *dkernels, *dbiases)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["one-call", "two-calls"])
+@pytest.mark.parametrize("layout", ["hwio", "oihw-view"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_engine_glue_on_the_cpu_is_the_old_inline_code(monkeypatch, dtype, layout, split):
+    """``engine_forward`` and ``engine_backward`` on CPU tensors, where the
+    glue runs its twins, give the same tensors, bitwise, as the engine with
+    the glue written inline as before: the statistics, the folds, the
+    kernels cast, dgamma, dbeta, the bias gradient and (C1, C2) through dx.
+    With the kernels as the model passes them (HWIO views of OIHW
+    parameters) too, and with the glue split into its two calls around
+    each collective, as a process group runs it (``split``: a group whose
+    collectives change nothing)."""
+    x, params, cots = _block_inputs(2, 5, 7, 10, 4, 3, seed=7)
+    x = torch.from_numpy(x).to(dtype)
+    params = [torch.from_numpy(p) for group in params for p in group]
+    if layout == "oihw-view":
+        params[6:9] = [k.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+                       for k in params[6:9]]
+        assert not params[6].is_contiguous()
+    gbuf, gmu, gm2 = (torch.from_numpy(cots[0]).to(dtype), torch.from_numpy(cots[1]),
+                      torch.from_numpy(cots[2]))
+
+    def run(forward, backward):
+        buf, mu, m2 = forward(x, 3, params)
+        return (buf, mu, m2, *backward(buf, mu, m2, 3, params, gbuf, gmu, gm2))
+
+    want = run(_old_engine_forward, _old_engine_backward)
+    calls = []
+
+    def record(name, flags_at):
+        original = getattr(block_engine, name)
+
+        def call(*args):
+            calls.append((name, None if flags_at is None else args[flags_at]))
+            return original(*args)
+
+        monkeypatch.setattr(block_engine, name, call)
+
+    for name, flags_at in (("glue_forward", 5), ("glue_backward", 7),
+                           ("glue_backward_start", None)):
+        record(name, flags_at)
+    if split:
+        monkeypatch.setattr(block_engine.distributed, "group", lambda: object())
+    got = run(block_engine.engine_forward, block_engine.engine_backward)
+    assert len(got) == len(want) == 3 + 1 + 4 * 3
+    for i, (a, r) in enumerate(zip(got, want)):
+        assert a.dtype == r.dtype and a.shape == r.shape and torch.equal(a, r), i
+    per_layer = ([REDUCE, FINISH] if split else [REDUCE | FINISH]) * 3
+    assert calls == ([("glue_forward", FINISH)] + [("glue_forward", f) for f in per_layer]
+                     + [("glue_backward_start", None)]
+                     + [("glue_backward", f) for f in per_layer])
+
+
+REDUCE, FINISH = block_engine.REDUCE, block_engine.FINISH
+
+
+def test_running_stats_twin_is_the_update_running_stats_loop():
+    """``block_engine.running_stats`` on CPU tensors (its twin, which the
+    card's one launch a block replaces) moves every layer's running mean
+    and variance bitwise as ``update_running_stats`` called layer by layer
+    on the block's prefix statistics did."""
+    from endoscopydepthestimation_pytorch_tpu_torch.models import fcdensenet
+    g = torch.Generator().manual_seed(5)
+    c0, growth, n_layers = 20, 12, 5
+    ctot = c0 + n_layers * growth
+    mu = torch.randn(ctot, generator=g)
+    m2 = mu.square() + torch.rand(ctot, generator=g) + 0.1
+    norms = []
+    for j in range(n_layers):
+        bn = torch.nn.BatchNorm2d(c0 + j * growth)
+        bn.running_mean.copy_(torch.randn(bn.num_features, generator=g))
+        bn.running_var.copy_(torch.rand(bn.num_features, generator=g) + 0.5)
+        norms.append(bn)
+    want = copy.deepcopy(norms)
+    for j, bn in enumerate(want):
+        c = c0 + j * growth
+        fcdensenet.update_running_stats(bn, mu[:c], m2[:c])
+    block_engine.running_stats([(bn.running_mean, bn.running_var) for bn in norms],
+                               mu.requires_grad_(), m2, c0, growth, fcdensenet.MOMENTUM)
+    for bn, ref in zip(norms, want):
+        assert torch.equal(bn.running_mean, ref.running_mean)
+        assert torch.equal(bn.running_var, ref.running_var)
+        assert not bn.running_mean.requires_grad
+
+
+def _load_metric(name: str):
+    """A per-layer metric reader of the benchmark, loaded by its path."""
+    import importlib.util
+    root = Path(block_engine.__file__).resolve().parents[2] / "h100bench"
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_"),
+                                                  root / "metrics" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_glue_kernels_count_as_pytorch_kernels_not_the_engines(monkeypatch):
+    """The glue kernels take the place of PyTorch kernels: their names, as
+    a device trace shows a function of ``csrc/block_engine.cu`` (with or
+    without template arguments), match neither the port's kernels of
+    ``torch_ops_ms_per_step.train`` nor the engine's of
+    ``engine_roofline``, so the first counts them where it counted the
+    glue and the second measures K4-K6 alone (as the boundary's); every
+    other kernel of the file, K4-K6's, matches both."""
+    monkeypatch.syspath_prepend(str(Path(block_engine.__file__).resolve().parents[2]
+                                    / "h100bench"))
+    port = _load_metric("torch_ops_ms_per_step.train").PORT_KERNELS
+    engine = _load_metric("engine_roofline").ENGINE
+    source = (Path(block_engine.__file__).resolve().parents[1] / "csrc"
+              / "block_engine.cu").read_text()
+    names = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+                           source))
+    glue = {"glue_forward_kernel", "glue_backward_kernel", "glue_running_stats_kernel"}
+    boundary = {"boundary_entry_kernel", "boundary_entry_finish_kernel", "boundary_exit_kernel"}
+    assert glue | boundary <= names and len(names) == 12
+    for name in names:
+        traced = [f"void (anonymous namespace)::{name}{t}((anonymous namespace)::Args)"
+                  for t in ("", "<float>", "<__nv_bfloat16>", "<float, 4>")]
+        if name in glue | boundary:
+            assert not any(port(t) or engine(t) for t in traced), name
+        else:
+            assert any(port(t) for t in traced) and any(engine(t) for t in traced), name
+
+
+def _glue_layout(n_part: int, nc: int, nb: int) -> tuple:
+    """(groups, width, segments, chunks, rows) of the glue's reduction, as
+    the C entries' ``glue_layout`` picks them, emulated with the file's
+    constants; the entries refuse more than ``GLUE_CHANNELS`` channels."""
+    assert nc <= (_cu_constant("GLUE_GROUPS") - 1) * _cu_constant("GLUE_WIDTH")
+    width = -(-nc // -(-nc // _cu_constant("GLUE_WIDTH")))
+    groups = -(-nc // width)
+    segments = 2 * groups + (nb > 0)
+    chunks = min(-(-n_part // _cu_constant("GLUE_ROWS")),
+                 max(1, _cu_constant("GLUE_BLOCKS") // segments))
+    rows = -(-n_part // chunks)
+    return groups, width, segments, -(-n_part // rows), rows
+
+
+@pytest.mark.parametrize("n_part,nc,nb", [
+    (5120, 16, 0), (5120, 12, 0), (5120, 240, 16), (1280, 372, 12), (16, 1072, 16),
+    (80, 880, 16), (7, 5, 3), (1, 1, 1), (3, 4032, 16), (33, 300, 0)])
+def test_glue_blocks_sum_each_partial_once(n_part, nc, nb):
+    """The glue's reduction, emulated block by block and thread by thread:
+    every partial (plane, row, column) is summed by exactly one lane of
+    one block, every (chunk, column) of the scratch is written once and
+    read once by its group's last block, each group counts the blocks it
+    waits for (2 chunks' worth a channel group, 1 the bias's), and the grid
+    stays near ``GLUE_BLOCKS``. Shapes: K4's (F 16, 12) and K5's (c, F)
+    partials at 256x320 and at the deep levels at 2B = 16, the widest a
+    reduction takes (63 groups of 64), ragged."""
+    threads = _cu_constant("NTG")
+    groups, width, segments, chunks, rows = _glue_layout(n_part, nc, nb)
+    assert groups <= _cu_constant("GLUE_GROUPS") - 1 and (chunks - 1) * rows < n_part
+    assert chunks * segments <= max(_cu_constant("GLUE_BLOCKS"), segments)
+    counts = [np.zeros((n_part, nc), np.int64) for _ in range(2)] + [np.zeros((n_part, nb),
+                                                                           np.int64)]
+    stride = 2 * nc + nb
+    written = np.zeros((chunks, stride), np.int64)
+    waits = {}
+    for chunk in range(chunks):
+        for seg in range(segments):
+            bias = seg == 2 * groups
+            grp, plane = (groups, 2) if bias else (seg % groups, seg // groups)
+            col0 = 0 if bias else grp * width
+            w = nb if bias else min(width, nc - col0)
+            r0, r1 = chunk * rows, min(chunk * rows + rows, n_part)
+            for c0 in range(0, w, threads):
+                wc = min(w - c0, threads)
+                for lane in range(threads // wc):
+                    counts[plane][r0 + lane:r1:threads // wc, col0 + c0:col0 + c0 + wc] += 1
+                written[chunk, plane * nc + col0 + c0:plane * nc + col0 + c0 + wc] += 1
+            waits[grp] = waits.get(grp, 0) + 1
+    assert all((c == 1).all() for c in counts)
+    assert (written == 1).all()
+    assert waits == {**{g: 2 * chunks for g in range(groups)}, **({groups: chunks} if nb else {})}

@@ -445,13 +445,17 @@ def test_tiny_train_step_bf16_launch_counts(device):
     """Three bf16 train steps of a tiny FCDenseNet, one K2 and one K3
     launch and one ``sgd_update`` call per step: every dense layer runs
     K4, K5 and K6 once per step through the engine, every dense block its
-    entry and exit once, and K1 never."""
+    entry and exit once, and K1 never; the glue once a layer and once a
+    block in each direction, and the running statistics once a block (2L +
+    3 launches a block of L layers)."""
     before = dict(block_engine.LAUNCHES)
     assert _tiny_bf16_steps(device) == 0
     layers, blocks = 10, 5
+    per_step = {**dict.fromkeys(block_engine.LAUNCHES, layers), "block_engine_entry": blocks,
+                "block_engine_exit": blocks, "block_engine_glue_fwd": layers + blocks,
+                "block_engine_glue_bwd": layers + blocks, "block_engine_running_stats": blocks}
     for name, n in block_engine.LAUNCHES.items():
-        per_step = blocks if name in ("block_engine_entry", "block_engine_exit") else layers
-        assert n == before[name] + 3 * per_step, name
+        assert n == before[name] + 3 * per_step[name], name
 
 
 # the CUDA runtime's and driver's calls that put work on a stream, as the
@@ -466,7 +470,9 @@ def test_traced_step_spans_match_the_launch_counters(device, monkeypatch):
     one ``engine_fwd``, ``engine_dinput`` and ``engine_dweight`` span per
     K4, K5 and K6 launch (44 each), one ``engine_entry`` and
     ``engine_exit`` per block's entry and exit (11 each), one
-    ``warp_fwd`` and one ``warp_bwd``,
+    ``engine_glue_fwd`` and ``engine_glue_bwd`` per glue launch (44 + 11
+    each) and one ``engine_running_stats`` a block, one ``warp_fwd`` and
+    one ``warp_bwd``,
     no ``dense_conv``; and on the profiler's clock every K5 kernel starts
     after the step's ``backward`` span began. (A replayed step has no
     such span: ``tests/test_torch_cuda_step_graph.py``.)"""
@@ -497,6 +503,7 @@ def test_traced_step_spans_match_the_launch_counters(device, monkeypatch):
     count = {name: sum(r.name == name for r in session.records)
              for name in ("dense_conv", "warp_fwd", "warp_bwd", "engine_fwd",
                           "engine_dinput", "engine_dweight", "engine_entry", "engine_exit",
+                          "engine_glue_fwd", "engine_glue_bwd", "engine_running_stats",
                           "sgd_update")}
     assert count == {
         "dense_conv": dense_conv.LAUNCHES - k1,
@@ -507,12 +514,14 @@ def test_traced_step_spans_match_the_launch_counters(device, monkeypatch):
         "sgd_update": sgd_update.LAUNCHES["sgd_update"] - sgd}
     assert count == {"dense_conv": 0, "warp_fwd": 1, "warp_bwd": 1, "engine_fwd": 44,
                      "engine_dinput": 44, "engine_dweight": 44, "engine_entry": 11,
-                     "engine_exit": 11, "sgd_update": 1}
+                     "engine_exit": 11, "engine_glue_fwd": 55, "engine_glue_bwd": 55,
+                     "engine_running_stats": 11, "sgd_update": 1}
     assert sgd_update.RESTRIDED == restrided
     parents = {r.parent for r in session.records
-               if r.name.startswith("engine_d") or r.name == "engine_exit"}
+               if r.name.startswith("engine_d") or r.name in ("engine_exit", "engine_glue_bwd")}
     assert parents == {"backward"}
-    assert {r.parent for r in session.records if r.name == "engine_entry"} == {"forward"}
+    assert {r.parent for r in session.records if r.name in (
+        "engine_entry", "engine_glue_fwd", "engine_running_stats")} == {"forward"}
     assert {r.parent for r in session.records if r.name == "sgd_update"} == {"optimizer"}
     (optimizer,) = [r for r in session.records if r.name == "optimizer"]
     launched = [e.name() for e in prof.profiler.kineto_results.events()
@@ -733,7 +742,7 @@ def test_engine_kernels_match_twins(device, b, h, w, c, f, extra, dtype):
         b, h, w, c, f, extra, dtype, device)
     before = dict(block_engine.LAUNCHES)
     got_buf, ref_buf = buf.clone(), buf.clone()
-    got = block_engine.layer_forward(got_buf, c, scale, shift, wk, bias)
+    got = block_engine.layer_forward(got_buf, c, scale, shift, wk, bias).sum(1)
     ref = block_engine.layer_forward_reference(ref_buf, c, scale, shift, wk, bias)
     torch.cuda.synchronize()
     assert _close(got_buf[..., c:c + f], ref_buf[..., c:c + f], dtype)
@@ -748,7 +757,9 @@ def test_engine_kernels_match_twins(device, b, h, w, c, f, extra, dtype):
         grads.append(torch.cat([torch.zeros_like(grad[..., :c]), grad[..., c:]], -1))
     for grad0 in grads:
         got_grad, ref_grad = grad0.clone(), grad0.clone()
-        got = block_engine.layer_dinput(got_grad, buf, c, scale, shift, wk, c1, c2)
+        part, part_bias = block_engine.layer_dinput(got_grad, buf, c, scale, shift, wk,
+                                                    c1, c2)
+        got = (*part.sum(1), part_bias.sum(0))
         ref = block_engine.layer_dinput_reference(ref_grad, buf, c, scale, shift, wk,
                                                   c1, c2)
         torch.cuda.synchronize()
@@ -763,8 +774,8 @@ def test_engine_kernels_match_twins(device, b, h, w, c, f, extra, dtype):
     assert got.shape == (3, 3, c, f) and _close(got, ref, dtype)
     for name, n in block_engine.LAUNCHES.items():
         k5 = name == "block_engine_dinput"
-        boundary = name in ("block_engine_entry", "block_engine_exit")
-        assert n == before[name] + (0 if boundary else len(grads) if k5 else 1), name
+        layer = name in ("block_engine_fwd", "block_engine_dinput", "block_engine_dweight")
+        assert n == before[name] + (len(grads) if k5 else 1 if layer else 0), name
 
 
 def test_engine_dinput_is_deterministic(device):
@@ -776,8 +787,8 @@ def test_engine_dinput_is_deterministic(device):
     runs = []
     for _ in range(2):
         got_grad = grad.clone()
-        sums = block_engine.layer_dinput(got_grad, buf, c, scale, shift, wk, c1, c2)
-        runs.append((got_grad, *sums))
+        part, part_bias = block_engine.layer_dinput(got_grad, buf, c, scale, shift, wk, c1, c2)
+        runs.append((got_grad, *part.sum(1), part_bias.sum(0)))
     torch.cuda.synchronize()
     for name, a, r in zip(("grad", "dscale", "dshift", "dbias"), *runs):
         assert torch.equal(a, r), name
@@ -795,7 +806,7 @@ def test_engine_forward_is_deterministic(device, shape):
     runs = []
     for _ in range(2):
         got = buf.clone()
-        runs.append((got, block_engine.layer_forward(got, c, scale, shift, wk, bias)))
+        runs.append((got, block_engine.layer_forward(got, c, scale, shift, wk, bias).sum(1)))
     torch.cuda.synchronize()
     for name, a, r in zip(("buf", "sums"), *runs):
         assert torch.equal(a, r), name
@@ -869,10 +880,195 @@ def test_block_engine_apply_matches_cpu(device):
     got = run(device)
     assert {k: n - before[k] for k, n in block_engine.LAUNCHES.items()} == {
         "block_engine_fwd": n_layers, "block_engine_dinput": n_layers,
-        "block_engine_dweight": n_layers, "block_engine_entry": 1, "block_engine_exit": 1}
+        "block_engine_dweight": n_layers, "block_engine_entry": 1, "block_engine_exit": 1,
+        "block_engine_glue_fwd": n_layers + 1, "block_engine_glue_bwd": n_layers + 1,
+        "block_engine_running_stats": 0}
     ref = run("cpu")
     for i, (a, r) in enumerate(zip(got, ref)):
         assert _rel(a, r) <= 1e-4, i
+
+
+def _dense_blocks(net: str) -> tuple:
+    """[(H, W, C0, layers)] of the 11 dense blocks of FCDenseNet-57 or
+    FC-DenseNet-103 at 256x320, in forward order, and the growth."""
+    import chip_smoke
+    if net == "fcdensenet57":
+        sizes, kwargs = (4,) * 11, {}
+    else:
+        down, up = (4, 5, 7, 10, 12), (12, 10, 7, 5, 4)
+        sizes, kwargs = down + (15,) + up, dict(down=down, up=up, bottleneck=15, growth=16)
+    layers = chip_smoke.dense_layer_shapes(256, 320, **kwargs)
+    starts = [sum(sizes[:i]) for i in range(len(sizes))]
+    return [(*layers[s], n) for s, n in zip(starts, sizes)], kwargs.get("growth", 12)
+
+
+def _glue_block(c0, n_layers, f, device, seed):
+    """The block's statistics mu, m2 (C_tot,) and per layer (gamma, beta,
+    kernel): the kernel an HWIO view of an OIHW f32 parameter, as the model
+    passes it."""
+    g = torch.Generator().manual_seed(seed)
+    ctot = c0 + n_layers * f
+    mu = torch.randn(ctot, generator=g) * 0.5
+    m2 = mu.square() + torch.rand(ctot, generator=g) + 0.5
+    layers = [(torch.rand(c0 + j * f, generator=g) + 0.5,
+               torch.randn(c0 + j * f, generator=g) * 0.1,
+               torch.randn(f, c0 + j * f, 3, 3, generator=g))
+              for j in range(n_layers)]
+    return mu.to(device), m2.to(device), [
+        (gamma.to(device), beta.to(device), k.to(device).permute(2, 3, 1, 0))
+        for gamma, beta, k in layers]
+
+
+def _sums_close(got, ref, part, dim) -> bool:
+    """f32 sums of the same partials in another order: within 1e-5 of the
+    partials' absolute sum, the bound this test states for them."""
+    return bool(((got - ref).abs() <= 1e-5 * part.abs().sum(dim)).all())
+
+
+def _same(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("net", ["fcdensenet57", "fcdensenet103"])
+def test_glue_kernels_match_twins(device, net, dtype):
+    """Every dense layer's glue of FCDenseNet-57 or FC-DenseNet-103 at 2B =
+    16 256x320, on random partials of K4's and K5's shapes at that layer:
+    the sums (statistics, dbeta, the bias gradient, the rank's (dsx, dss))
+    within 1e-5 of the partials' absolute sum of the twin's, and bitwise
+    the same over 3 runs; what is computed from them bitwise the plain
+    expressions on the card given the kernel's sums: the statistics from
+    the means, dgamma, the (C1, C2) updates, the folds and the kernels
+    cast. The one-call path equals the two calls of a process group
+    bitwise; the backward's start is bitwise its twin."""
+    reduce, finish = block_engine.REDUCE, block_engine.FINISH
+    blocks, f = _dense_blocks(net)
+    b = 16
+    for i, (h, w, c0, n_layers) in enumerate(blocks):
+        n = b * h * w
+        mu, m2, layers = _glue_block(c0, n_layers, f, device, seed=i)
+        ctot = mu.shape[0]
+        g = torch.Generator(device=device).manual_seed(i)
+
+        def fresh():
+            return block_engine.GlueBuffers.empty(ctot - f, f, dtype, device)
+
+        # the backward's start: C1, C2 from the cotangent, the top layer's fold
+        gmu, gm2 = (torch.randn(ctot, generator=g, device=device) for _ in range(2))
+        runs = []
+        for glue in (block_engine.glue_backward_start,
+                     block_engine.glue_backward_start_reference):
+            c1, c2 = torch.empty(ctot, device=device), torch.empty(ctot, device=device)
+            runs.append((c1, c2, *glue(mu, m2, c1, c2, gmu, gm2, n, layers[-1], fresh())))
+        assert _same(*runs), (net, i, "start")
+        for j in range(n_layers):
+            c = c0 + j * f
+            where = (net, i, j)
+            # the forward, after layer j's K4
+            n_part = block_engine._n_part(b, h, w,
+                                          *block_engine.forward_tiling(dtype, b, h, w, c)[:2])
+            part = torch.randn(2, n_part, f, generator=g, device=device) * 16
+            part[1] = part[1].abs() * 16
+            nxt = layers[j + 1] if j + 1 < n_layers else None
+            outs = []
+            for _ in range(3):
+                mu_k, m2_k = mu.clone(), m2.clone()
+                folded = block_engine.glue_forward(mu_k, m2_k, c, part, n, reduce | finish,
+                                                   nxt, fresh())
+                outs.append((mu_k, m2_k, *(folded or ())))
+            assert all(_same(outs[0], o) for o in outs[1:]), where
+            mu_k, m2_k = outs[0][:2]
+            mu_t, m2_t = mu.clone(), m2.clone()
+            block_engine.glue_forward_reference(mu_t, m2_t, c, part, n, reduce | finish, None,
+                                                None)
+            assert torch.equal(mu_k[:c], mu[:c]) and torch.equal(m2_k[c + f:], m2[c + f:])
+            assert _sums_close(mu_k[c:c + f] * n, mu_t[c:c + f] * n, part[0], 0), where
+            assert _sums_close(m2_k[c:c + f] * n, m2_t[c:c + f] * n, part[1], 0), where
+            moments = block_engine.glue_forward(mu.clone(), m2.clone(), c, part, n, reduce,
+                                                None, fresh())
+            assert torch.equal(moments, torch.stack([mu_k[c:c + f], m2_k[c:c + f]])), where
+            if nxt is not None:
+                twin = block_engine._fold_next(mu_k, m2_k, nxt, fresh())
+                assert _same(outs[0][2:], twin), where
+            two = [mu.clone(), m2.clone()]
+            folded = block_engine.glue_forward(*two, c, moments, n, finish, nxt, fresh())
+            assert _same(two + list(folded or ()), outs[0]), where
+
+            # the backward, after layer j's K5 and K6
+            n_part = block_engine._n_part(b, h, w,
+                                          *block_engine.dinput_tiling(dtype, b, h, w, c)[:2])
+            part = torch.randn(2, n_part, c, generator=g, device=device)
+            part_bias = torch.randn(n_part, f, generator=g, device=device)
+            c1, c2 = (torch.randn(ctot, generator=g, device=device) * 0.1 for _ in range(2))
+            gamma = layers[j][0]
+            prev = layers[j - 1] if j > 0 else None
+            outs = []
+            for _ in range(3):
+                grads = [torch.empty(k, device=device) for k in (c, c, f)]
+                c1_k, c2_k = c1.clone(), c2.clone()
+                folded = block_engine.glue_backward(mu, m2, c1_k, c2_k, c, (part, part_bias),
+                                                    n, reduce | finish, gamma, grads, prev,
+                                                    fresh())
+                outs.append((*grads, c1_k, c2_k, *(folded or ())))
+            assert all(_same(outs[0], o) for o in outs[1:]), where
+            dgamma, dbeta, dbias = outs[0][:3]
+            grads = [torch.empty(k, device=device) for k in (c, c, f)]
+            sums = block_engine.glue_backward(mu, m2, c1.clone(), c2.clone(), c,
+                                              (part, part_bias), n, reduce, gamma, grads, None,
+                                              fresh())
+            assert _sums_close(sums, part.sum(1), part, 1) and torch.equal(sums[1], dbeta)
+            assert _sums_close(dbias, part_bias.sum(0), part_bias, 0), where
+            assert _same(grads, outs[0][:3]), where
+            inv = torch.rsqrt(m2[:c] - mu[:c].square() + block_engine.EPS)
+            assert torch.equal(dgamma, inv * (sums[0] - mu[:c] * sums[1])), where
+            for glue in (block_engine.glue_backward, block_engine.glue_backward_reference):
+                c1_t, c2_t = c1.clone(), c2.clone()
+                folded = glue(mu, m2, c1_t, c2_t, c, sums, n, finish, gamma, None, prev,
+                              fresh())
+                assert _same((c1_t, c2_t, *(folded or ())), outs[0][3:]), (*where, glue)
+            assert torch.equal(outs[0][3][c:], c1[c:]) and torch.equal(outs[0][4][c:], c2[c:])
+
+
+def test_glue_launches_of_a_fcdensenet103_block(device):
+    """FC-DenseNet-103's bottleneck block (15 layers of growth 16 on 656
+    channels, bf16, 2B = 16 at 8x10) as a train-mode ``DenseBlock``,
+    forward and backward: the glue once before the first layer and once
+    after each in each direction (16 + 16 C calls) and the running
+    statistics once, beside 15 of K4, K5 and K6 and one entry and exit:
+    33 glue launches, 2.2 a dense layer. The running statistics are
+    bitwise ``update_running_stats`` layer by layer on the card."""
+    from endoscopydepthestimation_pytorch_tpu_torch.models import fcdensenet
+    block = fcdensenet.DenseBlock(656, 16, 15, upsample=True).to(device).train()
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.num_features, generator=g))
+                m.running_var.copy_(torch.rand(m.num_features, generator=g) + 0.5)
+    x = torch.randn(16, 656, 8, 10, generator=g).to(device, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    want = [(layer.norm.running_mean.clone(), layer.norm.running_var.clone())
+            for layer in block.layers]
+    before = dict(block_engine.LAUNCHES)
+    out, (mu, m2) = block(x, with_stats=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in block_engine.LAUNCHES.items()}
+    assert moved == {"block_engine_fwd": 15, "block_engine_dinput": 15,
+                     "block_engine_dweight": 15, "block_engine_entry": 1,
+                     "block_engine_exit": 1, "block_engine_glue_fwd": 16,
+                     "block_engine_glue_bwd": 16, "block_engine_running_stats": 1}
+    glue = sum(moved[k] for k in ("block_engine_glue_fwd", "block_engine_glue_bwd",
+                                  "block_engine_running_stats"))
+    assert glue == 33 <= 3 * 15
+    for j, ((mean, var), layer) in enumerate(zip(want, block.layers)):
+        bn = torch.nn.BatchNorm2d(656 + 16 * j).to(device)
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(var)
+        fcdensenet.update_running_stats(bn, mu[:656 + 16 * j].detach(),
+                                        m2[:656 + 16 * j].detach())
+        assert torch.equal(layer.norm.running_mean, bn.running_mean), j
+        assert torch.equal(layer.norm.running_var, bn.running_var), j
 
 
 # (B, H, W, C, F, extra) -> (tile_w, prefix vector width): every bf16 K6

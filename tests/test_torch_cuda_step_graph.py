@@ -184,7 +184,8 @@ def test_a_replay_is_one_span_and_the_trace_sees_its_kernels(device):
                                                        "train_step"]
     assert {k: v - counts[0][k] for k, v in block_engine.LAUNCHES.items()} == {
         **dict.fromkeys(block_engine.LAUNCHES, 88), "block_engine_entry": 22,
-        "block_engine_exit": 22}
+        "block_engine_exit": 22, "block_engine_glue_fwd": 110, "block_engine_glue_bwd": 110,
+        "block_engine_running_stats": 22}
     assert {k: v - counts[1][k] for k, v in warp_sample.LAUNCHES.items()} == dict.fromkeys(
         warp_sample.LAUNCHES, 2)
     assert sgd_update.LAUNCHES["sgd_update"] == counts[2] + 2
