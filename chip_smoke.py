@@ -166,6 +166,18 @@ to the CPU or to a kernel's plain version):
      kernels and the fused SDPA op; then ``DepthPredictor`` on a 256x320
      crop, resized to 1536x1536 and back: 35 tiles a frame, the depth
      finite and of the crop's size, ms a frame.
+ 19. VGGT (``--architecture vggt_1b``, ``vggt_phase``; also alone:
+     ``python3 -c "import chip_smoke as c; c.vggt_phase(c.card_name())"``):
+     the bf16 network on one 420x518 pair against the float32 reference
+     ``tests/reference_vggt.py`` (LayerScale 1, so the aggregator moves the
+     depth); the bf16 train step at b4 pairs (8 frames, 4 sequences of
+     2,230 tokens), per step 24 attention calls of the patch embedder, 24
+     frame and 24 global calls, 8 views, K2 and K3 once, no K1 or K4-K6,
+     one ``sgd_update`` C call over 1,271 tensors and nothing restrided;
+     ten steps by CUDA events, the loss finite, the peak memory; a
+     torch.profiler table of two steps; then ``DepthPredictor`` on a
+     420x518 crop, each frame a one-view sequence, against the reference's
+     one-view forward, ms a frame.
 Only the main paths' launches (6, 8, 9, 12, 13's counted runs, 14b,
 15a's bf16 steps on both ranks, 15b's NCCL run and 16's runs) enter the
 ``kernels`` line.
@@ -203,7 +215,7 @@ from endoscopydepthestimation_pytorch_tpu_torch.data import (SequenceData, augme
 from endoscopydepthestimation_pytorch_tpu_torch.models import (
     DepthAnythingV2Large, DepthProLarge, FCDenseNet57, FCDenseNet103, UNet, init_weights,
     save_reference_checkpoint)
-from endoscopydepthestimation_pytorch_tpu_torch.models import depth_anything, depth_pro
+from endoscopydepthestimation_pytorch_tpu_torch.models import depth_anything, depth_pro, vggt
 from endoscopydepthestimation_pytorch_tpu_torch.ops import (_libtorch_build, act8, block_engine,
                                                           conv3x3_mma, dense_conv,
                                                           sgd_update, warp_sample)
@@ -3125,6 +3137,109 @@ def depth_pro_phase(card: str, steps: int = 10) -> dict:
     return {"ms": ms, "peak_bytes": peak, "frame_ms": frame_ms, **table}
 
 
+def _vggt_seeded(dtype) -> torch.nn.Module:
+    """VGGT-1B from the trainer's init, the depth conditioned (3 exp(0.1
+    conv)) and LayerScale 1, so the aggregator moves the depth."""
+    model = init_weights(vggt.VGGT1B(dtype=dtype), torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        head = model.depth_head.scratch.output_conv2[2]
+        head.weight.mul_(0.1)
+        head.bias.fill_(float(np.log(3.0)))
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma"):
+                p.fill_(1.0)
+    return model
+
+
+def _vggt_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """mean |got - want| over the reference's mean spread about its level."""
+    want = want.float()
+    return float((got.float() - want).abs().mean() / (want - want.mean()).abs().mean())
+
+
+def vggt_phase(card: str, batch: int = 4, steps: int = 10) -> dict:
+    """(19) VGGT against its reference, its bf16 train step at b4 pairs
+    420x518 and its predictor (see the module docstring)."""
+    import reference_vggt
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w = 420, 518
+    model = _vggt_seeded(torch.bfloat16)
+    reference = reference_vggt.VGGT(1024, 24, 16, 4.0, 4, (4, 11, 17, 23), 256,
+                                    (256, 512, 1024, 1024), 518)
+    reference.load_state_dict(model.state_dict(), strict=True)
+    reference = reference.cuda()
+    model = model.cuda()
+    pair = torch.rand(2, 3, h, w, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(SEED)) * 2 - 1
+    with torch.no_grad():
+        gap = _vggt_gap(model(pair, views=2), reference(pair))
+    print(f"  one pair [{card}]: bf16 depth against the float32 reference, mean gap "
+          f"{gap:.5f} of the depth's spread")
+    if not gap < 0.1:
+        raise AssertionError(f"VGGT's depth left the reference: {gap}")
+    state = training.create_train_state(model)
+    config = training.TrainConfig(compute_dtype=torch.bfloat16)
+    data = synthetic_batch(batch, h, w, SEED + 41, "cuda")
+    dcl = torch.tensor(5.0, device="cuda")
+    _reset_launch_counts()
+    before = (sgd_update.LAUNCHES["sgd_update"], sgd_update.RESTRIDED,
+              depth_anything.LAUNCHES["attention"], dict(vggt.LAUNCHES))
+    _, metrics = training.train_step(state, data, dcl, config)
+    torch.cuda.synchronize()
+    launches = {**_launch_counts(), "sgd_update": sgd_update.LAUNCHES["sgd_update"] - before[0],
+                "restrided": sgd_update.RESTRIDED - before[1],
+                "attention": depth_anything.LAUNCHES["attention"] - before[2],
+                **{k: v - before[3][k] for k, v in vggt.LAUNCHES.items()}}
+    params = state.params
+    print(f"  one step [{card}]: loss {float(metrics['loss']):.6f}, launches {launches}, "
+          f"{len(params)} tensors, {sum(p.numel() for p in params):,} parameters")
+    want = {"dense_conv_fwd": 0, "warp_sample_fwd": 1, "warp_sample_bwd": 1,
+            **dict.fromkeys(block_engine.LAUNCHES, 0), "sgd_update": 1, "restrided": 0,
+            "attention": 24, "frame_attention": 24, "global_attention": 24, "views": 2 * batch}
+    if launches != want or len(params) != 1271 or not torch.isfinite(metrics["loss"]):
+        raise AssertionError(f"the VGGT step left its path: {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    ms = _cuda_ms(lambda: losses.append(training.train_step(state, data, dcl, config)[1]["loss"]),
+                  iters=steps, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    print(f"  {steps} steps [{card}]: {ms:.2f} ms a step (CUDA events), "
+          f"{batch / ms * 1e3:.3f} pairs/s, peak {peak / 2**30:.3f} GiB; losses "
+          f"{losses[0]:.6f} .. {losses[-1]:.6f}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    table = _step_profile(lambda: training.train_step(state, data, dcl, config), card)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "vggt.pt"
+        ckpt.save_checkpoint(path, state, 0, 0.0)
+        del state, data
+        torch.cuda.empty_cache()
+        sequence = synthetic_sequence(h, w)
+        predictor = DepthPredictor(path, sequence, batch_size=1, downsampling=1.0,
+                                   architecture="vggt_1b")
+        frame = synthetic_frames(1, h, w, SEED + 42)[0]
+        views = vggt.LAUNCHES["views"]
+        depth = predictor.predict_frame(frame)
+        frame_ms = _cuda_ms(lambda: predictor.predict_frame(frame), iters=5, warmup=1)
+        views = (vggt.LAUNCHES["views"] - views) / 7
+        colors = torch.from_numpy(predictor.prepare(frame))[None].cuda()
+        boundary = predictor._boundary[:1].cuda()
+        reference.load_state_dict(predictor.model.state_dict(), strict=True)
+        with torch.no_grad():
+            want = reference((colors * boundary).permute(0, 3, 1, 2), views=1)[0, 0]
+        gap = _vggt_gap(torch.from_numpy(depth).cuda(), want * boundary[0, ..., 0])
+    print(f"  predictor [{card}]: 420x518 crop as a one-view sequence, {frame_ms:.2f} ms a "
+          f"frame, {views:g} views a frame, depth {depth.shape} in [{depth.min():.4f}, "
+          f"{depth.max():.4f}], mean gap {gap:.5f} to the float32 reference")
+    if depth.shape != (h, w) or not np.isfinite(depth).all() or views != 1 or not gap < 0.1:
+        raise AssertionError("the VGGT predictor left its path")
+    del predictor, model, reference
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_bytes": peak, "frame_ms": frame_ms, **table}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3230,6 +3345,8 @@ def main() -> int:
     depth_anything_phase(card)
     print(f"Depth Pro phase, {card}:")
     depth_pro_phase(card)
+    print(f"VGGT phase, {card}:")
+    vggt_phase(card)
     for part in (trained, evaluated, unet, spread, world1, aux):
         for name, n in part["launches"].items():
             launches[name] += n

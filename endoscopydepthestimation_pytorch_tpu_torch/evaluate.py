@@ -10,8 +10,9 @@
 
 FCDenseNet-57 (or the ``--architecture`` the trainer took, a key of
 ``models.ARCHITECTURES``; ``depth_anything_v2_vitl`` needs
-``--network_downsampling 14``, ``depth_pro`` ``--input_size 1536 1536``)
-from a reference-format ``.pt`` (the port's
+``--network_downsampling 14``, ``depth_pro`` ``--input_size 1536 1536``,
+``vggt_1b`` ``--network_downsampling 14``, each frame a one-view
+sequence) from a reference-format ``.pt`` (the port's
 trainer writes one per epoch), in eval mode with the running statistics.
 Two phases:
 

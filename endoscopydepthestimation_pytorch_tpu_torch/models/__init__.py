@@ -7,6 +7,7 @@ from .init import init_weights  # noqa: F401
 from .torch_import import (from_jax_variables, load_reference_checkpoint,  # noqa: F401
                            save_reference_checkpoint)
 from .unet import UNet, UNetConvBlock  # noqa: F401
+from .vggt import VGGT, VGGT1B  # noqa: F401
 
 
 def _unet(n_classes: int = 1, dtype=torch.float32, **flags) -> UNet:
@@ -21,7 +22,8 @@ def _unet(n_classes: int = 1, dtype=torch.float32, **flags) -> UNet:
 # ``DepthPredictor(architecture=)``: builder(n_classes=, dtype=, **flags)
 ARCHITECTURES = {"fcdensenet57": FCDenseNet57, "fcdensenet67": FCDenseNet67,
                  "fcdensenet103": FCDenseNet103, "unet": _unet,
-                 "depth_anything_v2_vitl": DepthAnythingV2Large, "depth_pro": DepthProLarge}
+                 "depth_anything_v2_vitl": DepthAnythingV2Large, "depth_pro": DepthProLarge,
+                 "vggt_1b": VGGT1B}
 
 
 def fixed_input_size(architecture: str):

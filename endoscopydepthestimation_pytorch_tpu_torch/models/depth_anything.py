@@ -44,7 +44,10 @@ Attention is ``F.scaled_dot_product_attention``, on the card only inside
 fused kernel takes raises instead of falling back to the math path.
 ``LAUNCHES["attention"]`` counts its calls, one a block a forward. Under
 ``torch.profiler`` the forward opens the spans ``encoder`` and
-``dpt_head`` (``utils.profiling``).
+``dpt_head`` (``utils.profiling``). The ViT's blocks and its DPT head
+also serve VGGT (``models/vggt.py``): QK-norm and the 2-D RoPE in
+``Attention``, register tokens and the antialiased offset-0 position
+resize in ``DinoVisionTransformer``, each off by default.
 
 Module and parameter names are the upstream checkpoint's keys
 (``pretrained.blocks.{i}.attn.qkv``, ``depth_head.scratch.refinenet{k}``).
@@ -106,20 +109,24 @@ def _resize(x: torch.Tensor, size=None) -> torch.Tensor:
                          mode="bilinear", align_corners=True)
 
 
-def interpolate_pos_embed(pos_embed: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+def interpolate_pos_embed(pos_embed: torch.Tensor, rows: int, cols: int,
+                          antialias: bool = False,
+                          offset: float = INTERPOLATE_OFFSET) -> torch.Tensor:
     """The 1 + g*g position embedding (1, 1 + g*g, C) resized to a rows x
     cols grid, float32 (DINOv2 ``interpolate_pos_encoding``): bicubic at
-    the scale factors ((rows + 0.1)/g, (cols + 0.1)/g), no antialias; at
-    rows = cols = g as it is."""
+    the scale factors ((rows + offset)/g, (cols + offset)/g), or to the
+    size (rows, cols) itself where ``offset`` is 0, with ``antialias`` as
+    given; at rows = cols = g as it is."""
     grid = int(round((pos_embed.shape[1] - 1) ** 0.5))
     pos = pos_embed.float()
     if rows == cols == grid:
         return pos
     dim = pos.shape[-1]
+    size = dict(size=(rows, cols)) if offset == 0 else dict(
+        scale_factor=((rows + offset) / grid, (cols + offset) / grid))
     patches = F.interpolate(
         pos[:, 1:].reshape(1, grid, grid, dim).permute(0, 3, 1, 2),
-        scale_factor=((rows + INTERPOLATE_OFFSET) / grid, (cols + INTERPOLATE_OFFSET) / grid),
-        mode="bicubic", antialias=False)
+        mode="bicubic", antialias=antialias, **size)
     if patches.shape[-2:] != (rows, cols):
         raise AssertionError(f"position grid {tuple(patches.shape[-2:])}, wanted {(rows, cols)}")
     return torch.cat([pos[:, :1], patches.permute(0, 2, 3, 1).reshape(1, rows * cols, dim)], 1)
@@ -138,18 +145,45 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(3, dim, patch, stride=patch)
 
 
+def rotate_pairs(x: torch.Tensor, tables) -> torch.Tensor:
+    """x (..., N, d) rotated by ``rope_tables``' (cos, sin) (N, d): each half
+    of the d channels is a 1-D RoPE, x cos + rotate_half(x) sin with
+    rotate_half(y) = cat(-y2, y1) over the half's two quarters; the sign
+    rides in the sin table."""
+    cos, sin = tables
+    swapped = x.unflatten(-1, (2, 2, -1)).flip(-2).flatten(-3)
+    return x * cos + swapped * sin
+
+
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    """softmax(q k^T / sqrt(head size)) v over ``num_heads`` heads, with
+    qkv and proj biases. ``qk_norm`` puts a LayerNorm over each head's
+    channels (eps 1e-5, PyTorch's default, as VGGT's blocks) on q and on
+    k; ``forward(x, rope)`` then rotates q and k by ``rope``'s tables
+    (``rotate_pairs``). ``counted``: its calls add to
+    ``LAUNCHES["attention"]`` (a caller that counts them itself says
+    False)."""
+
+    def __init__(self, dim: int, num_heads: int, qk_norm: bool = False, counted: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.counted = counted
         self.qkv = nn.Linear(dim, 3 * dim)
+        if qk_norm:
+            self.q_norm = nn.LayerNorm(dim // num_heads)
+            self.k_norm = nn.LayerNorm(dim // num_heads)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rope=None) -> torch.Tensor:
         b, n, c = x.shape
         q, k, v = _linear(x, self.qkv).view(b, n, 3, self.num_heads, c // self.num_heads
                                             ).permute(2, 0, 3, 1, 4).unbind(0)
-        LAUNCHES["attention"] += 1
+        if hasattr(self, "q_norm"):
+            q, k = _layer_norm(q, self.q_norm), _layer_norm(k, self.k_norm)
+        if rope is not None:
+            q, k = rotate_pairs(q, rope), rotate_pairs(k, rope)
+        if self.counted:
+            LAUNCHES["attention"] += 1
         out = F.scaled_dot_product_attention(q, k, v)  # scale 1/sqrt(head size)
         return _linear(out.transpose(1, 2).reshape(b, n, c), self.proj)
 
@@ -165,17 +199,18 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, init_values: float):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, init_values: float,
+                 qk_norm: bool = False, eps: float = LN_EPS, counted: bool = True):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, num_heads)
+        self.norm1 = nn.LayerNorm(dim, eps=eps)
+        self.attn = Attention(dim, num_heads, qk_norm, counted)
         self.ls1 = LayerScale(dim, init_values)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(dim, eps=eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.ls2 = LayerScale(dim, init_values)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(_layer_norm(x, self.norm1)) * self.ls1.gamma.to(x.dtype)
+    def forward(self, x: torch.Tensor, rope=None) -> torch.Tensor:
+        x = x + self.attn(_layer_norm(x, self.norm1), rope) * self.ls1.gamma.to(x.dtype)
         return x + self.mlp(_layer_norm(x, self.norm2)) * self.ls2.gamma.to(x.dtype)
 
 
@@ -184,16 +219,26 @@ class DinoVisionTransformer(nn.Module):
     embedding stored for the img_size / patch grid; ``forward(x, take,
     raw)`` returns the normalized patch tokens (B, rows * cols, C) after
     each block in ``take``, then the raw ones (no final LayerNorm) after
-    each block in ``raw``."""
+    each block in ``raw``. With ``num_register_tokens`` (DINOv2 with
+    registers) that many learned tokens follow the class token, inserted
+    after the position embedding is added, and are dropped from the
+    outputs as the class token is; ``interpolate_antialias`` and
+    ``interpolate_offset`` are ``interpolate_pos_embed``'s."""
 
     def __init__(self, img_size: int, embed_dim: int, depth: int, num_heads: int,
-                 mlp_ratio: float = 4.0, init_values: float = 1.0, patch: int = PATCH):
+                 mlp_ratio: float = 4.0, init_values: float = 1.0, patch: int = PATCH,
+                 num_register_tokens: int = 0, interpolate_antialias: bool = False,
+                 interpolate_offset: float = INTERPOLATE_OFFSET):
         super().__init__()
         self.patch = patch
+        self.interpolate = dict(antialias=interpolate_antialias, offset=interpolate_offset)
         grid = img_size // patch
         self.patch_embed = PatchEmbed(embed_dim, patch)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + grid * grid, embed_dim))
+        self.skip = 1 + num_register_tokens  # tokens before the patches
+        if num_register_tokens:
+            self.register_tokens = nn.Parameter(torch.zeros(1, num_register_tokens, embed_dim))
         self.blocks = nn.ModuleList(Block(embed_dim, num_heads, mlp_ratio, init_values)
                                     for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
@@ -205,16 +250,20 @@ class DinoVisionTransformer(nn.Module):
         patches = _conv(x, self.patch_embed.proj)            # (B, C, rows, cols)
         patches = patches.permute(0, 2, 3, 1).reshape(b, rows * cols, -1)
         tokens = torch.cat([self.cls_token.to(x.dtype).expand(b, -1, -1), patches], 1)
-        tokens = tokens + interpolate_pos_embed(self.pos_embed, rows, cols).to(x.dtype)
+        tokens = tokens + interpolate_pos_embed(self.pos_embed, rows, cols,
+                                                **self.interpolate).to(x.dtype)
+        if self.skip > 1:
+            tokens = torch.cat([tokens[:, :1], self.register_tokens.to(x.dtype).expand(b, -1, -1),
+                                tokens[:, 1:]], 1)
         out, taps = [], []
         fused = sdpa_kernel(FUSED_ATTENTION) if x.is_cuda else contextlib.nullcontext()
         with fused:
             for i, block in enumerate(self.blocks):
                 tokens = block(tokens)
                 if i in take:
-                    out.append(_layer_norm(tokens, self.norm)[:, 1:])
+                    out.append(_layer_norm(tokens, self.norm)[:, self.skip:])
                 if i in raw:
-                    taps.append(tokens[:, 1:])
+                    taps.append(tokens[:, self.skip:])
         return out + taps
 
 
@@ -261,23 +310,32 @@ class DPTHead(nn.Module):
             nn.Conv2d(features // 2, 32, 3, padding=1), nn.ReLU(), nn.Conv2d(32, 1, 1),
             nn.ReLU(), nn.Identity())
 
-    def forward(self, feats: Sequence[torch.Tensor], rows: int, cols: int) -> torch.Tensor:
+    def level(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Level i's projected map through its resize layer and
+        ``scratch.layer{i + 1}_rn``."""
+        resize = self.resize_layers[i]
+        x = x if isinstance(resize, nn.Identity) else _conv(x, resize)
+        return _conv(x, getattr(self.scratch, f"layer{i + 1}_rn"))
+
+    def fuse(self, levels: Sequence[torch.Tensor], rows: int, cols: int) -> torch.Tensor:
+        """The fusion blocks from the deepest level up, ``output_conv1`` and
+        the resize to 14 times the patch grid."""
         s = self.scratch
-        levels = []
-        for i, x in enumerate(feats):
-            # (B, rows*cols, C) -> NCHW in channels_last memory, a view
-            x = x.view(x.shape[0], rows, cols, x.shape[-1]).permute(0, 3, 1, 2)
-            x = _conv(x, self.projects[i])
-            resize = self.resize_layers[i]
-            x = x if isinstance(resize, nn.Identity) else _conv(x, resize)
-            levels.append(_conv(x, getattr(s, f"layer{i + 1}_rn")))
         l1, l2, l3, l4 = levels
         path = s.refinenet4(l4, size=l3.shape[2:])
         path = s.refinenet3(path, l3, size=l2.shape[2:])
         path = s.refinenet2(path, l2, size=l1.shape[2:])
         path = s.refinenet1(path, l1)
-        out = _resize(_conv(path, s.output_conv1), (rows * PATCH, cols * PATCH))
-        head = s.output_conv2
+        return _resize(_conv(path, s.output_conv1), (rows * PATCH, cols * PATCH))
+
+    def forward(self, feats: Sequence[torch.Tensor], rows: int, cols: int) -> torch.Tensor:
+        levels = []
+        for i, x in enumerate(feats):
+            # (B, rows*cols, C) -> NCHW in channels_last memory, a view
+            x = x.view(x.shape[0], rows, cols, x.shape[-1]).permute(0, 3, 1, 2)
+            levels.append(self.level(i, _conv(x, self.projects[i])))
+        out = self.fuse(levels, rows, cols)
+        head = self.scratch.output_conv2
         # the last 1x1 conv (32 -> 1) in float32: the depth is not rounded to
         # bfloat16, whose spacing near 3 (0.016) is a tenth of a conditioned
         # depth's spread over a frame

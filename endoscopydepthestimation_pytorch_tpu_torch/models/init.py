@@ -12,6 +12,8 @@ The transformer's parts follow DINOv2's ``init_weights_vit_timm`` and
 truncated normal with std 0.02 (cut at +-2), zero biases; LayerNorm
 weight 1 and bias 0; LayerScale at its ``init_values``; the position
 embedding truncated normal 0.02 and the class token normal with std 1e-6.
+DINOv2's register tokens and VGGT's camera and register tokens are normal
+with std 1e-6 (``aggregator.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from .depth_anything import DinoVisionTransformer, LayerScale
+from .vggt import Aggregator
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -46,4 +49,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(m, DinoVisionTransformer):
                 nn.init.trunc_normal_(m.pos_embed, std=0.02, generator=generator)
                 nn.init.normal_(m.cls_token, std=1e-6, generator=generator)
+                if hasattr(m, "register_tokens"):
+                    nn.init.normal_(m.register_tokens, std=1e-6, generator=generator)
+            elif isinstance(m, Aggregator):
+                nn.init.normal_(m.camera_token, std=1e-6, generator=generator)
+                nn.init.normal_(m.register_token, std=1e-6, generator=generator)
     return model

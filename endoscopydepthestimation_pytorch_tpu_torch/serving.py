@@ -123,7 +123,8 @@ class DepthPredictor:
     caller asks for another, such as ``"cpu"``); activations run in
     ``dtype``. A network that takes one input size only (Depth Pro's
     1536x1536) sees each frame resized to it, and its depth is resized
-    back to the crop.
+    back to the crop. VGGT sees each frame as a sequence of one view
+    (``training.predict_step``).
     """
 
     def __init__(self, checkpoint_path, sequence: preprocess.SequenceData,

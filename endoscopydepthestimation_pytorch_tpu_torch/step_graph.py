@@ -71,11 +71,11 @@ IN_FLIGHT = 2  # replays enqueued and not yet done, at most
 def _counter_refs() -> List[tuple]:
     """(owner, key) of every launch counter a train step moves: a counter
     dict and its key, or a module and its attribute."""
-    from .models import depth_anything, depth_pro
+    from .models import depth_anything, depth_pro, vggt
     from .ops import block_engine, dense_conv, sgd_update, warp_sample
     refs = [(dense_conv, "LAUNCHES"), (sgd_update, "RESTRIDED")]
     for counts in (block_engine.LAUNCHES, warp_sample.LAUNCHES, sgd_update.LAUNCHES,
-                   depth_anything.LAUNCHES, depth_pro.LAUNCHES):
+                   depth_anything.LAUNCHES, depth_pro.LAUNCHES, vggt.LAUNCHES):
         refs += [(counts, k) for k in counts]
     return refs
 

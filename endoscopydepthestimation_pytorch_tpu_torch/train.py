@@ -20,7 +20,9 @@ Depth Anything V2-Large, PyTorch's convs and matmuls and fused attention,
 and needs ``--network_downsampling 14`` or a multiple, so that the crop's
 sides are multiples of its 14-pixel patches; ``--architecture depth_pro``,
 Depth Pro, the same kernels, and takes ``--input_size 1536 1536`` only,
-its one input size); batches reach the card through
+its one input size; ``--architecture vggt_1b``, VGGT-1B, the same kernels,
+each pair one 2-view sequence, with ``--network_downsampling 14`` and
+e.g. ``--input_size 420 518``); batches reach the card through
 ``parallel.device_prefetch``.
 
 It runs on the CUDA card unless ``--device cpu`` asks for the CPU, and

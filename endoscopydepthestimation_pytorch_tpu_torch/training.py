@@ -101,18 +101,28 @@ def _check_dtype(model: nn.Module, config: TrainConfig) -> None:
                          f"asks for {config.compute_dtype}")
 
 
+def _views(model: nn.Module, views: int) -> Dict[str, int]:
+    """The keyword that tells a network which declares ``views_per_pair``
+    (VGGT) how many frames a sample holds; none for any other network."""
+    return {"views": views} if hasattr(model, "views_per_pair") else {}
+
+
 def _forward_pair(model: nn.Module, batch: Dict[str, torch.Tensor],
                   buffers: Dict[str, torch.Tensor] | None = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One forward over both frames stacked to (2B, H, W, 3), NHWC in and
     out, in the model's current mode (JAX training.py:91-111). With
     ``buffers`` the model runs on those in place of its own BN running
-    statistics."""
+    statistics. A network that declares ``views_per_pair`` is called with
+    ``views=2``: rows i and B + i, frame 1 and frame 2 of pair i, are one
+    sequence, view 0 first; any row split that keeps pairs whole
+    (``grad_accum``'s microbatches, a rank's rows) keeps its sequences."""
     boundaries = torch.cat([batch["boundary"], batch["boundary"]], 0)
     colors = torch.cat([batch["color_1"], batch["color_2"]], 0) * boundaries
     x = colors.permute(0, 3, 1, 2)  # NCHW in channels_last memory
-    depths = (model(x) if buffers is None
-              else torch.func.functional_call(model, buffers, (x,)))
+    views = _views(model, 2)
+    depths = (model(x, **views) if buffers is None
+              else torch.func.functional_call(model, buffers, (x,), views))
     return depths.permute(0, 2, 3, 1).chunk(2, 0)
 
 
@@ -357,7 +367,7 @@ def predict_step(model: nn.Module, colors: torch.Tensor,
                          "(model.eval())")
     with torch.inference_mode():
         x = (colors * boundaries).permute(0, 3, 1, 2)  # NCHW, channels_last
-        return model(x).permute(0, 2, 3, 1)
+        return model(x, **_views(model, 1)).permute(0, 2, 3, 1)  # VGGT: a frame a sequence
 
 
 def dcl_weight_for_epoch(epoch: int, config: TrainConfig) -> float:
